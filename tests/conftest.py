@@ -28,3 +28,9 @@ def run_helper(name: str, *args: str, devices: int = 8,
 @pytest.fixture(scope="session")
 def helper_runner():
     return run_helper
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one (the "
+        "port's kernels are held on the card by chip_smoke.py)")
