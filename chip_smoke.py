@@ -1,21 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fused-doorbell message path on one GPU.
+"""Drive the PyTorch port's main paths on one GPU: the fused-doorbell
+message path and gemma3-1b serving at full width.
 
-    python3 chip_smoke.py        # from the repository root; needs one card
+    python3 chip_smoke.py            # from the repository root; one card
+    python3 chip_smoke.py --profile  # also a torch.profiler breakdown
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
-``build/`` at first use), holds each kernel against its plain PyTorch
-version on the card, then runs the message path end to end through the
-entry points a user calls (``LocalCluster`` -> ``Endpoint.post_am_many``
-/ ``post_send_many`` -> progress -> completion queues) with CUDA tensor
-payloads, at the library's default geometry: 64-row doorbells, eager
-messages up to ``eager_max_bytes`` (64 KiB), and a window of 16
-doorbells (64 MiB of 64 KiB payloads) in flight before each progress
-sweep.
+``build/`` at first use, one ``nvcc`` per source, all started together),
+holds each kernel against its plain PyTorch version on the card, then
+runs each main path end to end through the entry points a user calls.
+The phases:
 
-Every phase raises on failure.  Each phase prints one JSON record; the
-line before the last is the card's name and power limit, then the
-``kernels`` record, and the last line is
+1. the card's name, power limit and software versions;
+2. the build, with ptxas' register and spill report;
+3. the doorbell stage copy (B1) against its plain version;
+4. the message path (``LocalCluster`` -> ``Endpoint.post_am_many`` /
+   ``post_send_many`` -> progress -> completion queues) with CUDA tensor
+   payloads, at the library's default geometry: 64-row doorbells, eager
+   messages up to ``eager_max_bytes`` (64 KiB), and a window of 16
+   doorbells in flight before each progress sweep;
+5. flash attention (B2) and RMSNorm (B3) against their plain versions:
+   the sweeps of ``tests/test_kernels.py``, gemma3-1b's prefill shapes
+   (window 512 and global, bf16 and float32), a ragged s = 1000, a q
+   offset whose later rows see no key, and the serving path's RMSNorm
+   shapes; each timed case also times the plain version and one PyTorch
+   call (``F.scaled_dot_product_attention`` with an explicit mask,
+   ``F.rms_norm``) as a yardstick;
+6. gemma3-1b's full config in float32 with seeded random weights:
+   teacher-forced ``make_serve_step`` over 32 positions agrees with
+   ``forward``'s greedy tokens on more than 0.95 of them, and
+   ``make_prefill_step``'s token equals forward's last position;
+7. gemma3-1b's full config in bf16: ``make_prefill_step`` on 4 prompts of
+   2048 tokens (exactly 26 flash-attention and 105 RMSNorm launches a
+   call), then the serve launcher's loop (``ServeScheduler`` +
+   ``make_serve_step``, 16 requests of 8-token prompts, 16 new tokens
+   each, 8 slots, a 256-position cache; 105 RMSNorm launches a step).
+
+The launch counts are set to 0 just before phases 4 and 7 and read just
+after.  Every phase raises on failure; nothing is caught.  Each phase
+prints one JSON record; the line before the last is the card's name and
+power limit, then the ``kernels`` record, and the last line is
 ``{"ok": true, "device": {...}}``.  With no CUDA device the script exits
 non-zero and prints no result.  Imports nothing of JAX or of the JAX
 package ``repro``.
@@ -401,7 +425,400 @@ def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16):
             "window_payload_MiB": per_window * nbytes / 2 ** 20}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 5: flash attention (B2) and RMSNorm (B3) against their plain versions
+# ---------------------------------------------------------------------------
+
+#: dense peak rates of one H100 SXM (NVIDIA data sheet; on-chip guide):
+#: bf16 on the tensor cores, float32 outside them
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:85"
+RMS_SOURCE = "src/repro_torch/csrc/rmsnorm.cu"
+RMS_REPLACES = "src/repro/kernels/rmsnorm/kernel.py:25"
+GEMMA_GLOBAL = 1 << 30                  # blocks.py: a global layer's window
+
+
+def cold_sets(tensors, limit: int = 64):
+    """Distinct copies of a tuple of tensors adding up to about
+    COLD_BYTES, for timings that must not run out of the L2 cache."""
+    nbytes = sum(t.nbytes for t in tensors)
+    n = max(1, min(limit, math.ceil(COLD_BYTES / max(1, nbytes))))
+    return [tuple(t.clone() for t in tensors) for _ in range(n)]
+
+
+def _tol(dtype) -> float:
+    """tests/test_kernels.py's tolerance: bf16 2e-2, float32 5e-5."""
+    import torch
+    return 2e-2 if dtype == torch.bfloat16 else 5e-5
+
+
+def _close(name, out, ref, dtype) -> float:
+    import torch
+    a, b = out.double(), ref.double()
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    tol = _tol(dtype)
+    bad = (a - b).abs() > tol + tol * b.abs()
+    if bad.any():
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} of {bad.numel()} elements differ "
+            f"from the plain version beyond {tol} (max abs "
+            f"{float((a - b).abs().max())})")
+    return float((a - b).abs().max())
+
+
+def flash_case(torch, label, b, hq, hkv, sq, skv, dh, causal, window,
+               q_offset, dtype, g, time_it=True):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    q = torch.randn(b, hq, sq, dh, generator=g, device=DEVICE).to(dtype)
+    k = torch.randn(b, hkv, skv, dh, generator=g, device=DEVICE).to(dtype)
+    v = torch.randn(b, hkv, skv, dh, generator=g, device=DEVICE).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = flash_attention_bhsd(q, k, v, **kw)
+    ref = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = _close(label, out, ref, dtype)
+    mask = attention_mask(sq, skv, causal=causal, window=window,
+                          q_offset=q_offset, device=DEVICE)
+    pairs = int(mask.sum()) * b * hq
+    dname = str(dtype).split(".")[1]
+    flops = 4 * dh * pairs
+    nbytes = q.nbytes + k.nbytes + v.nbytes + out.nbytes
+    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    case = {"case": label, "shape_q": [b, hq, sq, dh],
+            "shape_kv": [b, hkv, skv, dh], "dtype": dname,
+            "causal": causal, "window": window, "q_offset": q_offset,
+            "visible_pairs": pairs, "flops": flops, "bytes": nbytes,
+            "ok": True, "max_abs_err": err,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if time_it:
+        xs = cold_sets((q, k, v))
+        mask_ = mask.expand(b, hq, sq, skv)
+        case.update({
+            "kernel_ms": device_ms(
+                lambda t: flash_attention_bhsd(*t, **kw), xs),
+            "plain_ms": device_ms(
+                lambda t: flash_attention_ref(*t, **kw), xs[:2]),
+            "library_ms": device_ms(
+                lambda t: F.scaled_dot_product_attention(
+                    t[0], t[1], t[2], attn_mask=mask_, enable_gqa=True),
+                xs),
+        })
+        case["achieved_tflops"] = flops / case["kernel_ms"] / 1e9
+    return case
+
+
+def rmsnorm_case(torch, label, rows, d, dtype, g, with_w=True,
+                 time_it=True):
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+    x = (torch.randn(rows, d, generator=g, device=DEVICE) * 3).to(dtype)
+    w = torch.randn(d, generator=g, device=DEVICE).to(dtype) if with_w \
+        else None
+    out = rmsnorm(x, w)
+    ref = rmsnorm_ref(x, w)
+    torch.cuda.synchronize()
+    err = _close(label, out, ref, dtype)
+    nbytes = x.nbytes + out.nbytes + (w.nbytes if with_w else 0)
+    case = {"case": label, "shape": [rows, d],
+            "dtype": str(dtype).split(".")[1], "weight": with_w, "ok": True,
+            "max_abs_err": err, "bytes": nbytes,
+            "bound_ms": bound_ms(nbytes, 0), "bound_by": "bytes"}
+    if time_it:
+        xs = cold_copies(x)
+        case.update({
+            "kernel_ms": device_ms(lambda t: rmsnorm(t, w), xs),
+            "plain_ms": device_ms(lambda t: rmsnorm_ref(t, w), xs),
+            "library_ms": device_ms(
+                lambda t: F.rms_norm(t, (d,), w, eps=1e-6), xs),
+        })
+    return case
+
+
+def model_kernel_phase(torch):
+    """B2 over the sweep of tests/test_kernels.py, gemma3-1b's prefill
+    shapes (window 512 and global, bf16 and float32), a ragged s = 1000
+    and a q offset past the keys; B3 over the same file's sweep and the
+    serving path's shapes.  Returns (flash cases, rmsnorm cases)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    flash = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for (b, hq, hkv, sq, skv, dh, causal, window, qo) in (
+                (2, 4, 2, 64, 64, 16, True, 0, 0),
+                (1, 4, 1, 128, 128, 32, True, 32, 0),
+                (2, 2, 2, 64, 128, 16, True, 0, 64),
+                (1, 6, 3, 96, 96, 16, False, 0, 0),
+                (1, 8, 8, 32, 32, 64, True, 8, 0)):
+            flash.append(flash_case(
+                torch, f"sweep_{dn}_{b}x{hq}x{hkv}x{sq}x{skv}x{dh}_w{window}"
+                f"_o{qo}", b, hq, hkv, sq, skv, dh, causal, window, qo,
+                dtype, g, time_it=False))
+        for window, name in ((512, "local512"), (GEMMA_GLOBAL, "global")):
+            flash.append(flash_case(
+                torch, f"gemma3_prefill_{name}_{dn}", 4, 4, 1, 2048, 2048,
+                256, True, window, 0, dtype, g))
+        flash.append(flash_case(torch, f"ragged_s1000_{dn}", 1, 4, 1, 1000,
+                                1000, 256, True, 512, 0, dtype, g))
+        flash.append(flash_case(torch, f"ragged_s1000_dh128_{dn}", 1, 16, 16,
+                                1000, 1000, 128, True, 0, 0, dtype, g,
+                                time_it=False))
+        # rows 99.. (positions >= 191) see no key: uniform average
+        flash.append(flash_case(torch, f"no_key_rows_{dn}", 1, 4, 1, 256,
+                                128, 256, True, 64, 100, dtype, g,
+                                time_it=False))
+    rms = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for rows, d in ((8, 64), (64, 128), (100, 96), (1, 256)):
+            rms.append(rmsnorm_case(torch, f"sweep_{dn}_{rows}x{d}", rows, d,
+                                    dtype, g, time_it=False))
+        for rows, d in ((8192, 1152), (100, 1152), (32768, 256)):
+            rms.append(rmsnorm_case(torch, f"serve_{dn}_{rows}x{d}", rows, d,
+                                    dtype, g))
+        rms.append(rmsnorm_case(torch, f"no_weight_{dn}_100x1152", 100, 1152,
+                                dtype, g, with_w=False, time_it=False))
+    return flash, rms
+
+
+# ---------------------------------------------------------------------------
+# phase 6: gemma3-1b at full width, float32: decode against forward
+# ---------------------------------------------------------------------------
+
+PARITY_S, PARITY_B = 32, 2
+
+
+def model_parity_phase(torch):
+    """gemma3-1b's full config in float32, the port's own seeded init on
+    the card: teacher-forced ``make_serve_step`` over 32 positions (plain
+    decode attention) against ``forward``'s greedy tokens (the
+    flash-attention kernel), and ``make_prefill_step``'s token against
+    forward's last position."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import local_comm
+    from repro_torch.models.layers import greedy_sample, lm_head_logits
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import (init_cache, make_prefill_step,
+                                     make_serve_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("gemma3-1b"), dtype=torch.float32)
+    model = build_model(cfg, device=DEVICE)
+    params, _ = model.init(SEED)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    tokens = torch.randint(0, cfg.vocab, (PARITY_S, PARITY_B), generator=g,
+                           device=DEVICE, dtype=torch.int32)
+    comm = local_comm()
+    x, _ = model.forward(params, {"tokens": tokens})
+    logits = lm_head_logits(x, params["emb"], comm, real_vocab=cfg.vocab)
+    oracle = greedy_sample(logits, comm)
+    top2 = logits.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1])
+    step = make_serve_step(cfg)
+    cache = init_cache(cfg, PARITY_S, PARITY_B, device=DEVICE)
+    preds = []
+    for i in range(PARITY_S):
+        nxt, cache = step(params, cache, tokens[i])
+        preds.append(nxt)
+    preds = torch.stack(preds)
+    agree = float((preds == oracle).float().mean())
+    p_tok, last = make_prefill_step(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    if not torch.isfinite(x).all() or not torch.isfinite(last).all():
+        raise AssertionError("gemma3-1b f32: non-finite hidden states")
+    if agree <= 0.95:
+        raise AssertionError(f"gemma3-1b f32: decode agrees with forward on "
+                             f"{agree:.3f} of tokens (needs > 0.95)")
+    if not torch.equal(p_tok, oracle[-1]):
+        raise AssertionError("gemma3-1b f32: prefill token differs from "
+                             "forward's last position")
+    out = {"config": cfg.name, "dtype": "float32", "layers": cfg.n_layers,
+           "params": sum(int(t.numel()) for t in _leaves(params)),
+           "positions": PARITY_S, "batch": PARITY_B,
+           "decode_vs_forward_agreement": agree,
+           "prefill_token_equals_forward": True,
+           "min_top2_margin": float(margin.min()),
+           "mismatches": int((preds != oracle).sum())}
+    del params, cache, x, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the slice's main path: gemma3-1b serving at full width, bf16
+# ---------------------------------------------------------------------------
+
+PREFILL_B, PREFILL_S, PREFILL_CALLS = 4, 2048, 3
+SERVE_ARGS = dict(requests=16, max_new=16, max_batch=8, cache_len=256)
+#: B2 and B3 launches per gemma3-1b forward or decode step
+FLASH_PER_FORWARD, RMS_PER_STEP = 26, 105
+
+
+def serving_phase(torch, profile: bool):
+    """``make_prefill_step`` on 4 prompts of 2048 tokens, then the serve
+    launcher's loop (``ServeScheduler`` + ``make_serve_step``), with
+    gemma3-1b's full config in bf16.  Launch counts are checked per
+    prefill call and per decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.launch.serve import PROMPT_LEN, serve
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import make_prefill_step
+    cfg = get_config("gemma3-1b")
+    model = build_model(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    params, _ = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_S, PREFILL_B), generator=g,
+                           device=DEVICE, dtype=torch.int32)
+    prefill = make_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+
+    # prefill: one untimed call, then PREFILL_CALLS timed ones; every call
+    # is checked for its launch counts
+    times = []
+    for i in range(PREFILL_CALLS + 1):
+        f0, r0 = flash_attention_bhsd.launches, rmsnorm.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tok, last = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t)
+        nf = flash_attention_bhsd.launches - f0
+        nr = rmsnorm.launches - r0
+        if nf != FLASH_PER_FORWARD or nr != RMS_PER_STEP:
+            raise AssertionError(f"prefill launched flash attention {nf} "
+                                 f"and RMSNorm {nr} times (want "
+                                 f"{FLASH_PER_FORWARD}, {RMS_PER_STEP})")
+    if not torch.isfinite(last.float()).all() or tok.shape != (PREFILL_B,) \
+            or not ((tok >= 0) & (tok < cfg.vocab)).all():
+        raise AssertionError("prefill: bad tokens or non-finite hidden")
+    prefill_ms = statistics.median(times) * 1e3
+    prefill_peak = torch.cuda.max_memory_allocated()
+
+    # decode: the launcher's loop
+    r0 = rmsnorm.launches
+    f0 = flash_attention_bhsd.launches
+    out = serve(cfg, params, device=DEVICE, **SERVE_ARGS)
+    nr = rmsnorm.launches - r0
+    if nr != RMS_PER_STEP * out["decode_calls"] or out["decode_calls"] == 0:
+        raise AssertionError(f"decode: {nr} RMSNorm launches in "
+                             f"{out['decode_calls']} steps (want "
+                             f"{RMS_PER_STEP} a step)")
+    if flash_attention_bhsd.launches != f0:
+        raise AssertionError("decode launched the prefill attention kernel")
+    if out["completed"] != SERVE_ARGS["requests"] or any(
+            r is None or len(r) != SERVE_ARGS["max_new"] or
+            not ((r >= 0) & (r < cfg.vocab)).all() for r in out["results"]):
+        raise AssertionError("decode: a request did not complete with "
+                             "max_new valid tokens")
+    rec = {"config": cfg.name, "dtype": "bfloat16", "layers": cfg.n_layers,
+           "init_s": init_s,
+           "prefill": {"batch": PREFILL_B, "seq": PREFILL_S,
+                       "calls_timed": PREFILL_CALLS, "ms": prefill_ms,
+                       "ms_each": [t * 1e3 for t in times],
+                       "tokens_per_s": PREFILL_B * PREFILL_S /
+                       (prefill_ms / 1e3),
+                       "flash_launches_per_call": FLASH_PER_FORWARD,
+                       "rmsnorm_launches_per_call": RMS_PER_STEP,
+                       "peak_memory_bytes": prefill_peak},
+           "decode": {**SERVE_ARGS, "prompt_len": PROMPT_LEN,
+                      "completed": out["completed"],
+                      "tokens": out["tokens"], "seconds": out["seconds"],
+                      "decode_steps": out["decode_calls"],
+                      "rounds": out["rounds"],
+                      "tokens_per_s": out["tokens"] / out["seconds"],
+                      "ms_per_step": out["seconds"] / out["decode_calls"]
+                      * 1e3,
+                      "rmsnorm_launches_per_step": nr / out["decode_calls"]}}
+    if profile:
+        rec["profile"] = profile_phase(torch, cfg, params, tokens)
+    return rec
+
+
+def profile_phase(torch, cfg, params, tokens):
+    """``--profile`` only: torch.profiler over one prefill call and over
+    8 decode steps: device time by kernel, summed, against wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.serving import (init_cache, make_prefill_step,
+                                     make_serve_step)
+
+    def split(prof, wall_s):
+        # kernels only: a CPU op (aten::mm) also reports the device time
+        # of the kernels it launched, which are listed on their own
+        rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0),
+                      key=lambda r: -r[1])
+        total = sum(r[1] for r in rows)
+        mine = {n: sum(r[1] for r in rows if n in r[0])
+                for n in ("flash_fwd_kernel", "rmsnorm_kernel")}
+        return {"wall_ms": wall_s * 1e3, "device_ms": total,
+                "device_busy_share": total / (wall_s * 1e3),
+                "hand_written_ms": mine,
+                "top": [{"kernel": k[:90], "ms": ms, "count": c}
+                        for k, ms, c in rows[:12]]}
+
+    prefill = make_prefill_step(cfg)
+    prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    out = {"prefill_call": split(prof, wall)}
+    step = make_serve_step(cfg)
+    b = SERVE_ARGS["max_batch"]
+    cache = init_cache(cfg, SERVE_ARGS["cache_len"], b, device=DEVICE)
+    tok = tokens[0, :1].repeat(b)
+    for _ in range(4):
+        tok, cache = step(params, cache, tok)
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(8):
+            tok, cache = step(params, cache, tok)
+            tok.cpu()                        # as the launcher reads them
+        wall = time.perf_counter() - t
+    out["decode_8_steps"] = split(prof, wall)
+    return out
+
+
+def _summary(cases, keys):
+    return [{k: c.get(k) for k in keys} for c in cases]
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="add a torch.profiler breakdown of one prefill "
+                         "call and 8 decode steps to phase 7")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -409,6 +826,9 @@ def main() -> int:
         return 2
     from repro_torch.kernels import _build
     from repro_torch.kernels.doorbell import stage_copy, stage_copy_push
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    counters = (stage_copy, stage_copy_push, flash_attention_bhsd, rmsnorm)
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -420,7 +840,7 @@ def main() -> int:
            name=torch.cuda.get_device_name(0),
            count=torch.cuda.device_count())
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     built = _build.build()
     record("build", seconds=time.perf_counter() - t0,
@@ -431,12 +851,13 @@ def main() -> int:
                       if "registers" in ln or "spill" in ln]
                   for n, b in built.items()})
 
-    # 3. every kernel against its plain version
+    # 3. the doorbell kernel against its plain version
     cases = kernel_phase(torch)
     record("kernel_cases", cases=cases)
 
-    # 4. the main path: counts set to 0 just before, read just after
-    stage_copy.launches = stage_copy_push.launches = 0
+    # 4. the message path: counts set to 0 just before, read just after
+    for c in counters:
+        c.launches = 0
     runs = [main_path_case(torch, "a", "am", torch.float32, 65536, False),
             main_path_case(torch, "b", "am", torch.float32, 65536, True),
             main_path_case(torch, "c", "send", torch.float32, 8192, False),
@@ -447,8 +868,37 @@ def main() -> int:
     if launches == 0:
         raise AssertionError("the main path launched no doorbell kernel")
 
-    # the kernel entry: headline numbers at case a's doorbell shape
+    # 5. flash attention (B2) and RMSNorm (B3) against their plain versions
+    t0 = time.perf_counter()
+    flash, rms = model_kernel_phase(torch)
+    record("model_kernel_cases", seconds=time.perf_counter() - t0,
+           flash_attention=flash, rmsnorm=rms)
+
+    # 6. gemma3-1b at full width in float32: decode against forward
+    t0 = time.perf_counter()
+    parity = model_parity_phase(torch)
+    record("model_parity", seconds=time.perf_counter() - t0, **parity)
+
+    # 7. the serving path: counts set to 0 just before, read just after
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    served = serving_phase(torch, args.profile)
+    n_flash, n_rms = flash_attention_bhsd.launches, rmsnorm.launches
+    record("serving_main_path", seconds=time.perf_counter() - t0,
+           flash_attention_launches=n_flash, rmsnorm_launches=n_rms,
+           **served)
+    if n_flash == 0 or n_rms == 0:
+        raise AssertionError("the serving path launched no flash-attention "
+                             "or RMSNorm kernel")
+
+    # the kernels line: headline numbers at each main path's shape
     head = next(c for c in cases if c["case"] == "f32_64x16384_bf160")
+    fhead = next(c for c in flash
+                 if c["case"] == "gemma3_prefill_local512_bfloat16")
+    rhead = next(c for c in rms if c["case"] == "serve_bfloat16_8192x1152")
+    timed = ("case", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by", "max_abs_err")
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "doorbell.stage_copy", "route": "cuda", "source": SOURCE,
@@ -461,7 +911,23 @@ def main() -> int:
         "cases": [{k: c.get(k) for k in (
             "case", "wrapper", "ok", "byte_exact", "kernel_ms", "plain_ms",
             "library_ms", "kernel_call_ms", "plain_call_ms", "bound_ms")}
-            for c in cases]}]}), flush=True)
+            for c in cases]}, {
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES, "launches": n_flash,
+        "max_abs_err": max(c["max_abs_err"] for c in flash),
+        "ms": fhead["kernel_ms"], "plain_ms": fhead["plain_ms"],
+        "bound_ms": fhead["bound_ms"], "bound_by": fhead["bound_by"],
+        "library_ms": fhead["library_ms"], "shape_q": fhead["shape_q"],
+        "shape_kv": fhead["shape_kv"], "window": fhead["window"],
+        "cases": _summary([c for c in flash if "kernel_ms" in c], timed)}, {
+        "name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
+        "replaces": RMS_REPLACES, "launches": n_rms,
+        "max_abs_err": max(c["max_abs_err"] for c in rms),
+        "ms": rhead["kernel_ms"], "plain_ms": rhead["plain_ms"],
+        "bound_ms": rhead["bound_ms"], "bound_by": "bytes",
+        "library_ms": rhead["library_ms"], "shape": rhead["shape"],
+        "cases": _summary([c for c in rms if "kernel_ms" in c], timed)}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

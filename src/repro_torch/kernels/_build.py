@@ -9,7 +9,8 @@ missing or older than its source; nothing is built at import time, only
 at first use on the card.
 
 ``--use_fast_math`` is deliberately absent: it would flush subnormals in
-the doorbell's float32 -> bfloat16 conversion.
+the doorbell's float32 -> bfloat16 conversion and swap the exact
+``expf`` / ``sqrtf`` of flash attention and RMSNorm for approximations.
 """
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(os.path.dirname(_PKG)), "build")
 
 #: kernel library name -> CUDA source under csrc/
-SOURCES = {"doorbell": "doorbell.cu"}
+SOURCES = {"doorbell": "doorbell.cu",
+           "flash_attention": "flash_attention.cu",
+           "rmsnorm": "rmsnorm.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,0 +1,71 @@
+"""Public wrapper of the RMSNorm kernel.
+
+For a CUDA tensor :func:`rmsnorm` launches the hand-written Hopper
+kernel (``csrc/rmsnorm.cu``) on the current stream, without
+synchronising, or raises; for a CPU tensor it takes the plain version in
+:mod:`.ref`.  There is no fallback.  ``rmsnorm.launches`` counts the
+kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .. import _build
+from .ref import rmsnorm_ref
+
+_DTYPES = (torch.float32, torch.bfloat16)
+#: weight kinds of the C interface
+_W_KIND = {None: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def _kernel():
+    fn = _build.load("rmsnorm").repro_rmsnorm
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    return fn
+
+
+def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor] = None, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x (..., d); w (d,) or None -> x's shape and dtype.  Statistics in
+    float32: ``x * rsqrt(mean(x²) + eps) [* w]``."""
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, w, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm: unsupported device {x.device}")
+    d = x.shape[-1]
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"rmsnorm: x must be float32 or bfloat16, got "
+                         f"{x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("rmsnorm: x must be contiguous")
+    if w is not None:
+        if w.shape != (d,) or w.dtype not in _DTYPES:
+            raise ValueError(f"rmsnorm: w must be ({d},) float32 or "
+                             f"bfloat16, got {tuple(w.shape)} {w.dtype}")
+        if w.device != x.device or not w.is_contiguous():
+            raise ValueError("rmsnorm: w must be contiguous on x's device")
+    out = torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    if rows and d:
+        with torch.cuda.device(x.device):
+            rc = _kernel()(x.data_ptr(),
+                           None if w is None else w.data_ptr(),
+                           out.data_ptr(), rows, d,
+                           int(x.dtype == torch.bfloat16),
+                           _W_KIND[None if w is None else w.dtype], eps,
+                           torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error "
+                               f"{rc}")
+        rmsnorm.launches += 1
+    return out
+
+
+rmsnorm.launches = 0

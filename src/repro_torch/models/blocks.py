@@ -1,0 +1,161 @@
+"""Transformer blocks: TP plans, attention ops, MLP weights.
+
+The mirror of :mod:`repro.models.blocks` at tp = 1.  The TP plan
+(:func:`tp_plan`) keeps the reference's decisions so the parameter
+layout and a later multi-rank slice agree; with one rank both plans
+compute the same thing (q, k and v for the whole local sequence, all
+heads), which is what :func:`attention_op` does.  K and V are projected
+with their own matmuls (the reference concatenates ``[wk | wv]`` and
+splits; the columns are the same dot products).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from .attention import flash_attention
+from .common import ModelConfig, ParamFactory, shard_decisions
+from .layers import apply_rope, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class TPPlan:
+    tp: int
+    shard_heads: bool
+    shard_kv: bool
+    shard_ssm_heads: bool
+
+    def q_local(self, cfg: ModelConfig) -> int:
+        return cfg.n_heads // self.tp if self.shard_heads else cfg.n_heads
+
+    def kv_local(self, cfg: ModelConfig) -> int:
+        return cfg.n_kv_heads // self.tp if self.shard_kv else cfg.n_kv_heads
+
+
+def tp_plan(cfg: ModelConfig, tp: int) -> TPPlan:
+    dec = shard_decisions(cfg)
+    if dec["attn"] and tp > 1:
+        assert cfg.n_heads % tp == 0, \
+            f"{cfg.name}: heads {cfg.n_heads} sharded at init but tp={tp}"
+    if dec["ssm"] and tp > 1:
+        assert cfg.ssm_heads % tp == 0
+    return TPPlan(tp=tp, shard_heads=dec["attn"], shard_kv=dec["kv"],
+                  shard_ssm_heads=dec["ssm"])
+
+
+# ---------------------------------------------------------------------------
+# parameter initialization for one attention + MLP block
+# ---------------------------------------------------------------------------
+
+def init_attention(pf: ParamFactory, cfg: ModelConfig, prefix: str = "",
+                   stacked_layers: int = 0) -> Dict[str, torch.Tensor]:
+    """Weights for one attention op (global shapes); ``stacked_layers`` >
+    0 prepends an L dim.  K and V are separate params, as in the
+    reference."""
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    L = (stacked_layers,) if stacked_layers else ()
+    st = bool(stacked_layers)
+    dec = shard_decisions(cfg)
+    a_shard, kv_shard = dec["attn"], dec["kv"]
+    p = {
+        prefix + "wq": pf.dense(prefix + "wq", L + (d, nq * dh),
+                                tp_axis=1 if a_shard else None,
+                                fsdp_axis=0, stacked=st),
+        prefix + "wk": pf.dense(prefix + "wk", L + (d, nkv * dh),
+                                tp_axis=1 if kv_shard else None,
+                                fsdp_axis=0, stacked=st),
+        prefix + "wv": pf.dense(prefix + "wv", L + (d, nkv * dh),
+                                tp_axis=1 if kv_shard else None,
+                                fsdp_axis=0, stacked=st),
+        prefix + "wo": pf.dense(prefix + "wo", L + (nq * dh, d),
+                                tp_axis=0 if a_shard else None,
+                                fsdp_axis=1, stacked=st),
+    }
+    if cfg.qk_norm:
+        p[prefix + "q_norm"] = pf.ones(prefix + "q_norm", L + (dh,),
+                                       stacked=st)
+        p[prefix + "k_norm"] = pf.ones(prefix + "k_norm", L + (dh,),
+                                       stacked=st)
+    return p
+
+
+def init_mlp(pf: ParamFactory, cfg: ModelConfig, prefix: str = "",
+             stacked_layers: int = 0, d_ff: Optional[int] = None
+             ) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    ff = d_ff if d_ff is not None else cfg.d_ff
+    L = (stacked_layers,) if stacked_layers else ()
+    st = bool(stacked_layers)
+    tp1 = 1 if cfg.tp_mlp else None
+    tp0 = 0 if cfg.tp_mlp else None
+    p = {
+        prefix + "w_out": pf.dense(prefix + "w_out", L + (ff, d),
+                                   tp_axis=tp0, fsdp_axis=1, stacked=st),
+    }
+    if cfg.mlp in ("swiglu", "geglu"):
+        p[prefix + "w_gate"] = pf.dense(prefix + "w_gate", L + (d, ff),
+                                        tp_axis=tp1, fsdp_axis=0,
+                                        stacked=st)
+        p[prefix + "w_up"] = pf.dense(prefix + "w_up", L + (d, ff),
+                                      tp_axis=tp1, fsdp_axis=0, stacked=st)
+    else:
+        p[prefix + "w_in"] = pf.dense(prefix + "w_in", L + (d, ff),
+                                      tp_axis=tp1, fsdp_axis=0, stacked=st)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# attention op (prefill / forward; decode lives in serving.engine)
+# ---------------------------------------------------------------------------
+
+def attention_op(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                 cfg: ModelConfig, comm, plan: TPPlan, *, window: int,
+                 q_offset: int, causal: bool = True, prefix: str = ""
+                 ) -> torch.Tensor:
+    """x: (s_local, b, d) pre-normed; returns (s_local, b, d)
+    un-residual.  One flash-attention launch on CUDA."""
+    if comm.tp != 1:
+        raise NotImplementedError("attention_op: tp > 1 is not ported "
+                                  "(ROADMAP A7)")
+    dh = cfg.resolved_head_dim
+    s, b = x.shape[:2]
+    nq, nkv = plan.q_local(cfg), plan.kv_local(cfg)
+    wq = comm.weight(p[prefix + "wq"], fsdp_axis=0)
+    wk = comm.weight(p[prefix + "wk"], fsdp_axis=0)
+    wv = comm.weight(p[prefix + "wv"], fsdp_axis=0)
+    wo = comm.weight(p[prefix + "wo"], fsdp_axis=1)
+    q = torch.matmul(x, wq).reshape(s, b, nq, dh)
+    k = torch.matmul(x, wk).reshape(s, b, nkv, dh)
+    v = torch.matmul(x, wv).reshape(s, b, nkv, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p[prefix + "q_norm"])
+        k = rms_norm(k, p[prefix + "k_norm"])
+    pos = q_offset + torch.arange(s, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos - q_offset, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset)
+    return torch.matmul(o.reshape(s, b, nq * dh), wo)
+
+
+def layer_window(cfg: ModelConfig, layer_idx: int) -> int:
+    """Effective attention window of layer ``layer_idx`` (a host int):
+    the global/local pattern as data, with a huge window (``1 << 30``)
+    standing for global attention."""
+    if cfg.sliding_window == 0:
+        return 0
+    is_global = bool(cfg.swa_every_nth_global) and \
+        (layer_idx + 1) % cfg.swa_every_nth_global == 0
+    is_global |= layer_idx in cfg.global_layers
+    return (1 << 30) if is_global else cfg.sliding_window
+
+
+def swa_attention_op(x, p, cfg, comm, plan, *, layer_idx: int, q_offset,
+                     prefix: str = "") -> torch.Tensor:
+    """Attention with the per-layer global/local pattern."""
+    w = layer_window(cfg, layer_idx) if cfg.sliding_window else 0
+    return attention_op(x, p, cfg, comm, plan, window=w,
+                        q_offset=q_offset, prefix=prefix)

@@ -1,0 +1,149 @@
+"""Language models: init and forward, dense family (PyTorch port).
+
+The mirror of :mod:`repro.models.lm` for the dense family (GQA,
+sliding-window, qk-norm and parallel-block transformers).  The layer
+stack is a Python loop over the stacked ``(L, ...)`` parameters (the
+reference's ``lax.scan``); there is no autograd here, so no remat.  The
+moe, ssm, hybrid, vlm and audio families, the loss and remat are not
+ported yet (ROADMAP.md).
+
+Batch convention (seq-major local view):
+    tokens  (s_local, b)   int
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from ..distributed.comm import Comm
+from .blocks import TPPlan, init_attention, init_mlp, swa_attention_op, \
+    tp_plan
+from .common import ModelConfig, ParamFactory
+from .layers import apply_norm, embed_tokens, gated_activation, mlp_block
+
+PORTED_FAMILIES = ("dense",)
+_AUX_KEYS = ("aux_lb", "aux_z", "dropped_frac")
+
+
+def require_ported(cfg: ModelConfig, what: str) -> None:
+    """Raise for a family the port does not run yet."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"{what}: the {cfg.family!r} family ({cfg.name}) is not ported "
+            f"to PyTorch yet; ported: {PORTED_FAMILIES} (ROADMAP.md)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_norm(pf: ParamFactory, cfg: ModelConfig, name: str, L: int):
+    if cfg.norm == "layernorm_np":
+        return {}                          # OLMo: non-parametric, no weight
+    return {name: pf.ones(name, (L, cfg.d_model), stacked=True)}
+
+
+def _init_layer_stack(pf: ParamFactory, cfg: ModelConfig, L: int
+                      ) -> Dict[str, torch.Tensor]:
+    """One homogeneous stack of L dense layers."""
+    p: Dict[str, torch.Tensor] = {}
+    p.update(_init_norm(pf, cfg, "norm1", L))
+    p.update(init_attention(pf, cfg, stacked_layers=L))
+    if cfg.d_ff and not cfg.parallel_block:
+        p.update(_init_norm(pf, cfg, "norm2", L))
+        p.update(init_mlp(pf, cfg, stacked_layers=L))
+    elif cfg.parallel_block and cfg.d_ff:
+        p.update(init_mlp(pf, cfg, stacked_layers=L))   # shares norm1
+    return p
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator
+                ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Returns (params, specs), parallel dicts with the reference's keys
+    and stacked shapes, drawn from ``gen`` on ``gen.device`` in the
+    reference's order."""
+    require_ported(cfg, "init_params")
+    pf = ParamFactory(gen, cfg.dtype, fsdp=cfg.fsdp_params)
+    d = cfg.d_model
+    params: Dict[str, Any] = {}
+    specs: Dict[str, Any] = {}
+    params["emb"] = pf.dense("emb", (cfg.padded_vocab, d), tp_axis=0,
+                             fsdp_axis=1, stacked=False, scale=1.0)
+    specs["emb"] = pf.specs.pop("emb")
+    if not cfg.tie_embeddings:
+        params["lm_head"] = pf.dense("lm_head", (cfg.padded_vocab, d),
+                                     tp_axis=0, fsdp_axis=1, stacked=False)
+        specs["lm_head"] = pf.specs.pop("lm_head")
+    params["final_norm"] = pf.ones("final_norm", (d,), stacked=False)
+    specs["final_norm"] = pf.specs.pop("final_norm")
+    params["layers"] = _init_layer_stack(pf, cfg, cfg.n_layers)
+    specs["layers"] = {k: pf.specs[k] for k in params["layers"]}
+    return params, specs
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _mlp_op(x, lp, cfg, comm, prefix: str = "") -> torch.Tensor:
+    """The MLP at tp = 1: gate and up are separate matmuls (the reference
+    concatenates ``[w_gate | w_up]`` and splits the product)."""
+    w_out = comm.weight(lp[prefix + "w_out"], fsdp_axis=1)
+    if cfg.mlp in ("swiglu", "geglu"):
+        gate = torch.matmul(x, comm.weight(lp[prefix + "w_gate"],
+                                           fsdp_axis=0))
+        up = torch.matmul(x, comm.weight(lp[prefix + "w_up"], fsdp_axis=0))
+        h = gated_activation(cfg.mlp, gate, up)
+        return torch.matmul(h, w_out)
+    return mlp_block(x, comm.weight(lp[prefix + "w_in"], fsdp_axis=0),
+                     w_out, cfg.mlp, comm)
+
+
+def _decoder_block(x, lp, idx: int, cfg: ModelConfig, comm: Comm,
+                   plan: TPPlan, q_offset: int) -> Tuple[torch.Tensor, Dict]:
+    """One dense decoder layer; returns (x', aux)."""
+    h = apply_norm(cfg.norm, x, lp.get("norm1"))
+    attn = swa_attention_op(h, lp, cfg, comm, plan, layer_idx=idx,
+                            q_offset=q_offset)
+    if cfg.parallel_block:                       # Cohere: attn ∥ mlp
+        return x + attn + _mlp_op(h, lp, cfg, comm), {}
+    x = x + attn
+    h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
+    return x + _mlp_op(h2, lp, cfg, comm), {}
+
+
+def layer_params(params: Dict[str, Any], idx: int) -> Dict[str, Any]:
+    """Layer ``idx``'s slice of the stacked ``(L, ...)`` params (views)."""
+    return {k: v[idx] for k, v in params["layers"].items()}
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def final_norm_kind(cfg: ModelConfig) -> str:
+    return "rmsnorm" if cfg.norm == "rmsnorm" else "layernorm"
+
+
+@torch.no_grad()
+def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, comm: Comm
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (x_full (s, b, d) post-final-norm full-sequence, aux)."""
+    require_ported(cfg, "forward")
+    plan = tp_plan(cfg, comm.tp)
+    tokens = batch["tokens"]
+    s_l = tokens.shape[0]
+    q_offset = comm.model_index() * s_l
+    emb = comm.weight(params["emb"], fsdp_axis=1)
+    x = embed_tokens(tokens, emb, comm,
+                     scale_by_sqrt_dim=cfg.name.startswith("gemma"))
+    for idx in range(cfg.n_layers):
+        x, _ = _decoder_block(x, layer_params(params, idx), idx, cfg, comm,
+                              plan, q_offset)
+    x = apply_norm(final_norm_kind(cfg), x, params["final_norm"])
+    x = comm.ag_seq(x)
+    aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+           for k in _AUX_KEYS}
+    return x, aux

@@ -1,0 +1,70 @@
+"""Model registry — build a Model facade from a ModelConfig (port).
+
+:func:`build_model` binds a config to a device (``cuda`` unless the caller
+asks for ``cpu``); :func:`params_from_numpy` carries the JAX package's
+params across as a numpy tree (``jax.tree_util.tree_map(np.asarray,
+params)``) into the port's dict, keys and stacked shapes unchanged.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..core.runtime import resolve_device
+from ..distributed.comm import Comm, local_comm
+from . import lm
+from .common import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    """Facade: init + forward on one device."""
+
+    cfg: ModelConfig
+    device: torch.device
+
+    def init(self, seed: Union[int, torch.Generator] = 0
+             ) -> Tuple[Dict, Dict]:
+        """(params, specs) drawn from ``seed`` (an int, or a generator on
+        this model's device)."""
+        gen = seed
+        if not isinstance(seed, torch.Generator):
+            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        return lm.init_params(self.cfg, gen)
+
+    def forward(self, params, batch, comm: Optional[Comm] = None):
+        return lm.forward(params, batch, self.cfg, comm or local_comm())
+
+
+def build_model(cfg: ModelConfig, device=None) -> Model:
+    """A :class:`Model` on ``device`` (default ``cuda``; no GPU and no
+    ``"cpu"`` raises).  Families other than dense raise "not ported"."""
+    lm.require_ported(cfg, "build_model")
+    return Model(cfg, resolve_device(device))
+
+
+def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    arr = np.array(arr, order="C")        # our own writable copy
+    if arr.dtype.name == "bfloat16":      # ml_dtypes.bfloat16, by its bits
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], device=None
+                      ) -> Dict[str, Any]:
+    """The JAX package's params, as a nested dict of numpy arrays, ->
+    the port's params on ``device``: same keys, shapes and dtypes
+    (bfloat16 arrives as ``ml_dtypes.bfloat16`` and is carried by its
+    bits)."""
+    lm.require_ported(cfg, "params_from_numpy")
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _to_tensor(np.asarray(node), dev)
+    return conv(tree)

@@ -1,4 +1,6 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch
+versions: the doorbell stage copy (B1), flash attention (B2) and RMSNorm
+(B3), plus the model path's launch counts.
 
 Every test here is marked ``gpu`` and skips without a CUDA card (the
 decision is taken in a fixture, never at import).  The file imports no
@@ -6,8 +8,8 @@ JAX, so it runs on the card's machine, which has none:
 
     python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-``chip_smoke.py`` holds the same kernel at the main path's shapes and
-drives the whole message path.
+``chip_smoke.py`` holds the same kernels at the main paths' shapes and
+drives the message path and gemma3-1b serving at full width.
 """
 import numpy as np
 import pytest
@@ -15,7 +17,14 @@ import torch
 
 from repro_torch.core import FatalError, LocalCluster
 from repro_torch.core.packet_pool import init_buffers, init_pool
+from repro_torch.configs import get_smoke
 from repro_torch.kernels import doorbell as db
+from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                 flash_attention_ref)
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+from repro_torch.models.registry import build_model
+from repro_torch.serving import init_cache, make_prefill_step, \
+    make_serve_step
 
 pytestmark = pytest.mark.gpu
 
@@ -103,3 +112,94 @@ def test_recv_into_host_buffer_copies_explicitly(cuda):
                                       device=cuda)] * 4, tags=[5, 6, 7, 8])
     cl.quiesce()
     assert (host == 9).all()
+
+
+# ---------------------------------------------------------------------------
+# B2 flash attention and B3 RMSNorm
+# ---------------------------------------------------------------------------
+
+def _tol(dtype):
+    return 2e-2 if dtype == torch.bfloat16 else 5e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal,window,q_offset", [
+    (2, 4, 2, 64, 64, 16, True, 0, 0),
+    (1, 4, 1, 128, 128, 32, True, 32, 0),
+    (2, 2, 2, 64, 128, 16, True, 0, 64),
+    (1, 6, 3, 96, 96, 16, False, 0, 0),
+    (1, 8, 8, 32, 32, 64, True, 8, 0),
+    (1, 4, 4, 100, 100, 128, True, 0, 0),     # ragged, OLMo's dh
+    (2, 4, 1, 70, 70, 256, True, 1 << 30, 0),  # gemma3's dh, global
+    (1, 2, 1, 40, 24, 256, True, 8, 20),      # rows that see no key
+])
+def test_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, dh,
+                                       causal, window, q_offset, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(cuda)
+               for shape in ((b, hq, sq, dh), (b, hkv, skv, dh),
+                             (b, hkv, skv, dh)))
+    before = flash_attention_bhsd.launches
+    out = flash_attention_bhsd(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+    assert flash_attention_bhsd.launches == before + 1
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(8, 64), (64, 128), (100, 96), (1, 256),
+                                    (100, 1152), (7, 100)])
+@pytest.mark.parametrize("w_dtype", [None, torch.float32, torch.bfloat16])
+def test_rmsnorm_matches_plain(cuda, rows, d, dtype, w_dtype):
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn(rows, d, generator=g) * 3).to(dtype).to(cuda)
+    w = None if w_dtype is None else \
+        torch.randn(d, generator=g).to(w_dtype).to(cuda)
+    before = rmsnorm.launches
+    out = rmsnorm(x, w)
+    assert rmsnorm.launches == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), rmsnorm_ref(x, w).float(),
+                               atol=_tol(dtype), rtol=_tol(dtype))
+
+
+def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
+    x = torch.randn(8, 64, device=cuda)
+    with pytest.raises(ValueError):
+        rmsnorm(x.t(), None)                         # not contiguous
+    with pytest.raises(ValueError):
+        rmsnorm(x.half(), None)
+    q = torch.randn(1, 2, 8, 48, device=cuda)         # dh 48: no kernel
+    with pytest.raises(ValueError):
+        flash_attention_bhsd(q, q[:, :1], q[:, :1])
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "command-r-plus-104b"])
+def test_model_path_launches_the_kernels(cuda, arch):
+    """Prefill: one flash-attention launch a layer; RMSNorm launches on
+    every rmsnorm of the model (gemma3: 4 a layer + the final norm;
+    command-r's LayerNorm never reaches it).  (OLMo's smoke config has
+    head dim 24, which the kernel does not take.)"""
+    cfg = get_smoke(arch)
+    params, _ = build_model(cfg, device=cuda).init(0)
+    tokens = torch.randint(0, cfg.vocab, (16, 2), device=cuda)
+    per_step = 4 * cfg.n_layers + 1 if arch == "gemma3-1b" else 0
+    f0, r0 = flash_attention_bhsd.launches, rmsnorm.launches
+    tok, _ = make_prefill_step(cfg)(params, {"tokens": tokens})
+    assert flash_attention_bhsd.launches - f0 == cfg.n_layers
+    assert rmsnorm.launches - r0 == per_step
+    step = make_serve_step(cfg)
+    cache = init_cache(cfg, 16, 2, device=cuda)
+    f0, r0 = flash_attention_bhsd.launches, rmsnorm.launches
+    for i in range(4):
+        tok, cache = step(params, cache, tokens[i])
+    torch.cuda.synchronize()
+    assert flash_attention_bhsd.launches == f0
+    assert rmsnorm.launches - r0 == 4 * per_step
+    assert tok.shape == (2,) and cache.length == 4

@@ -104,7 +104,10 @@ def test_lcq_no_lost_no_dup_mpmc():
 
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch, repro_torch.core, "
-            "repro_torch.kernels.doorbell; "
+            "repro_torch.kernels.doorbell, repro_torch.kernels.rmsnorm, "
+            "repro_torch.kernels.flash_attention, repro_torch.models, "
+            "repro_torch.models.registry, repro_torch.configs, "
+            "repro_torch.serving, repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes')); print(bad)")
     env = dict(os.environ, PYTHONPATH=SRC)
