@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one GPU: the fused-doorbell
-message path and gemma3-1b serving at full width.
+message path, gemma3-1b serving and olmoe-1b-7b (MoE) serving at full
+width.
 
     python3 chip_smoke.py            # from the repository root; one card
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown
@@ -34,10 +35,26 @@ The phases:
    2048 tokens (exactly 26 flash-attention and 105 RMSNorm launches a
    call), then the serve launcher's loop (``ServeScheduler`` +
    ``make_serve_step``, 16 requests of 8-token prompts, 16 new tokens
-   each, 8 slots, a 256-position cache; 105 RMSNorm launches a step).
+   each, 8 slots, a 256-position cache; 105 RMSNorm launches a step);
+8. the MoE grouped matmul (B4) against its plain version: the sweep of
+   ``tests/test_kernels.py`` (4 activations x 2 shapes x f32/bf16),
+   olmoe-1b-7b's decode shape (64 experts x 8 slots) and prefill shape (64
+   x 640) at d 2048, f 1024, a ragged capacity and an all-zero expert;
+   each timed case also times the plain version and one PyTorch yardstick
+   (``torch.bmm`` -> activation -> ``torch.bmm``, which rounds h to x's
+   dtype); flash attention at olmoe's prefill shape (dh 128) and at a
+   padded head dim (24);
+9. olmoe-1b-7b's full config in float32 (seeded random weights): decode
+   against forward as in phase 6, gated at a capacity where forward
+   drops nothing, and reported (agreement, forward's dropped fraction) at
+   the config's own capacity factor 1.25;
+10. olmoe-1b-7b's full config in bf16: ``make_prefill_step`` on 4 prompts
+   of 1024 tokens (exactly 16 flash-attention, 65 RMSNorm and 16 MoE
+   grouped-matmul launches a call), then the serve launcher's loop as in
+   phase 7 (65 RMSNorm and 16 grouped-matmul launches a step).
 
-The launch counts are set to 0 just before phases 4 and 7 and read just
-after.  Every phase raises on failure; nothing is caught.  Each phase
+The launch counts are set to 0 just before phases 4, 7 and 10 and read
+just after.  Every phase raises on failure; nothing is caught.  Each phase
 prints one JSON record; the line before the last is the card's name and
 power limit, then the ``kernels`` record, and the last line is
 ``{"ok": true, "device": {...}}``.  With no CUDA device the script exits
@@ -589,64 +606,96 @@ def model_kernel_phase(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: gemma3-1b at full width, float32: decode against forward
+# phases 6 and 9: full width, float32: decode against forward
 # ---------------------------------------------------------------------------
 
 PARITY_S, PARITY_B = 32, 2
 
 
-def model_parity_phase(torch):
-    """gemma3-1b's full config in float32, the port's own seeded init on
-    the card: teacher-forced ``make_serve_step`` over 32 positions (plain
-    decode attention) against ``forward``'s greedy tokens (the
-    flash-attention kernel), and ``make_prefill_step``'s token against
-    forward's last position."""
-    import dataclasses
-    from repro_torch.configs import get_config
+def _decode_vs_forward(torch, cfg, params, tokens):
+    """Teacher-forced ``make_serve_step`` over every position against
+    ``forward``'s greedy tokens, and ``make_prefill_step``'s token
+    against forward's last position."""
     from repro_torch.distributed import local_comm
     from repro_torch.models.layers import greedy_sample, lm_head_logits
     from repro_torch.models.registry import build_model
     from repro_torch.serving import (init_cache, make_prefill_step,
                                      make_serve_step)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("gemma3-1b"), dtype=torch.float32)
-    model = build_model(cfg, device=DEVICE)
-    params, _ = model.init(SEED)
-    g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
-    tokens = torch.randint(0, cfg.vocab, (PARITY_S, PARITY_B), generator=g,
-                           device=DEVICE, dtype=torch.int32)
     comm = local_comm()
-    x, _ = model.forward(params, {"tokens": tokens})
-    logits = lm_head_logits(x, params["emb"], comm, real_vocab=cfg.vocab)
+    x, aux = build_model(cfg, device=DEVICE).forward(params,
+                                                     {"tokens": tokens})
+    head = params.get("lm_head", params["emb"])
+    logits = lm_head_logits(x, head, comm, real_vocab=cfg.vocab)
     oracle = greedy_sample(logits, comm)
     top2 = logits.topk(2, dim=-1).values
-    margin = (top2[..., 0] - top2[..., 1])
     step = make_serve_step(cfg)
-    cache = init_cache(cfg, PARITY_S, PARITY_B, device=DEVICE)
+    cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], device=DEVICE)
     preds = []
-    for i in range(PARITY_S):
+    for i in range(tokens.shape[0]):
         nxt, cache = step(params, cache, tokens[i])
         preds.append(nxt)
     preds = torch.stack(preds)
-    agree = float((preds == oracle).float().mean())
     p_tok, last = make_prefill_step(cfg)(params, {"tokens": tokens})
     torch.cuda.synchronize()
     if not torch.isfinite(x).all() or not torch.isfinite(last).all():
-        raise AssertionError("gemma3-1b f32: non-finite hidden states")
-    if agree <= 0.95:
-        raise AssertionError(f"gemma3-1b f32: decode agrees with forward on "
-                             f"{agree:.3f} of tokens (needs > 0.95)")
-    if not torch.equal(p_tok, oracle[-1]):
-        raise AssertionError("gemma3-1b f32: prefill token differs from "
-                             "forward's last position")
+        raise AssertionError(f"{cfg.name} f32: non-finite hidden states")
+    return {"decode_vs_forward_agreement":
+            float((preds == oracle).float().mean()),
+            "prefill_token_equals_forward": bool(torch.equal(p_tok,
+                                                             oracle[-1])),
+            "min_top2_margin": float((top2[..., 0] - top2[..., 1]).min()),
+            "mismatches": int((preds != oracle).sum()),
+            "forward_aux": {k: float(v) for k, v in aux.items()}}
+
+
+def model_parity_phase(torch, arch: str = "gemma3-1b"):
+    """``arch``'s full config in float32, the port's own seeded init on
+    the card: teacher-forced ``make_serve_step`` over 32 positions (plain
+    decode attention) against ``forward``'s greedy tokens (the
+    flash-attention kernel), and ``make_prefill_step``'s token against
+    forward's last position.
+
+    A moe config routes forward's 64 tokens with capacity(64) slots an
+    expert and a decode step's 2 tokens with capacity(2): forward may drop
+    assignments that decode keeps, and then the two compute different
+    functions (the reference's semantics).  So the gate runs with the
+    capacity factor E / k, where no expert can overflow (forward's
+    dropped fraction must be 0), and the config's own capacity factor is
+    run beside it and reported (agreement and dropped fraction), not
+    gated."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    params, _ = build_model(cfg, device=DEVICE).init(SEED)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    tokens = torch.randint(0, cfg.vocab, (PARITY_S, PARITY_B), generator=g,
+                           device=DEVICE, dtype=torch.int32)
     out = {"config": cfg.name, "dtype": "float32", "layers": cfg.n_layers,
            "params": sum(int(t.numel()) for t in _leaves(params)),
-           "positions": PARITY_S, "batch": PARITY_B,
-           "decode_vs_forward_agreement": agree,
-           "prefill_token_equals_forward": True,
-           "min_top2_margin": float(margin.min()),
-           "mismatches": int((preds != oracle).sum())}
-    del params, cache, x, logits
+           "positions": PARITY_S, "batch": PARITY_B}
+    gated = cfg
+    if cfg.family == "moe":
+        out["own_capacity_factor"] = {"capacity_factor": cfg.capacity_factor,
+                                      **_decode_vs_forward(torch, cfg,
+                                                           params, tokens)}
+        gated = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        out["gated_capacity_factor"] = gated.capacity_factor
+    res = _decode_vs_forward(torch, gated, params, tokens)
+    out.update(res)
+    agree = res["decode_vs_forward_agreement"]
+    if agree <= 0.95:
+        raise AssertionError(f"{arch} f32: decode agrees with forward on "
+                             f"{agree:.3f} of tokens (needs > 0.95)")
+    if not res["prefill_token_equals_forward"]:
+        raise AssertionError(f"{arch} f32: prefill token differs from "
+                             "forward's last position")
+    if res["forward_aux"]["dropped_frac"] != 0.0:
+        raise AssertionError(f"{arch} f32: forward dropped assignments at "
+                             f"capacity factor {gated.capacity_factor}")
+    del params
     torch.cuda.empty_cache()
     return out
 
@@ -660,34 +709,49 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the slice's main path: gemma3-1b serving at full width, bf16
+# phases 7 and 10: the slices' main paths: serving at full width, bf16
 # ---------------------------------------------------------------------------
 
-PREFILL_B, PREFILL_S, PREFILL_CALLS = 4, 2048, 3
+PREFILL_CALLS = 3
 SERVE_ARGS = dict(requests=16, max_new=16, max_batch=8, cache_len=256)
-#: B2 and B3 launches per gemma3-1b forward or decode step
-FLASH_PER_FORWARD, RMS_PER_STEP = 26, 105
+#: per config: the prefill batch and prompt length, and the kernel launches
+#: of one prefill call (a forward) and of one decode step: B2 a forward
+#: (a layer each), B3 (gemma3: norm1, q_norm, k_norm, norm2 a layer + the
+#: final norm; olmoe the same four), B4 (one a moe layer)
+SERVING = {
+    "gemma3-1b": dict(batch=4, seq=2048, flash=26, rms=105, moe=0),
+    "olmoe-1b-7b": dict(batch=4, seq=1024, flash=16, rms=65, moe=16),
+}
 
 
-def serving_phase(torch, profile: bool):
-    """``make_prefill_step`` on 4 prompts of 2048 tokens, then the serve
+def _counts():
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    return (flash_attention_bhsd.launches, rmsnorm.launches,
+            moe_gmm.launches)
+
+
+def serving_phase(torch, arch: str, profile: bool):
+    """``make_prefill_step`` on the config's prompts, then the serve
     launcher's loop (``ServeScheduler`` + ``make_serve_step``), with
-    gemma3-1b's full config in bf16.  Launch counts are checked per
+    ``arch``'s full config in bf16.  Launch counts are checked per
     prefill call and per decode step."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention_bhsd
-    from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.launch.serve import PROMPT_LEN, serve
     from repro_torch.models.registry import build_model
     from repro_torch.serving import make_prefill_step
-    cfg = get_config("gemma3-1b")
+    want = SERVING[arch]
+    pb, ps = want["batch"], want["seq"]
+    per_call = (want["flash"], want["rms"], want["moe"])
+    cfg = get_config(arch)
     model = build_model(cfg, device=DEVICE)
     t0 = time.perf_counter()
     params, _ = model.init(SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
-    tokens = torch.randint(0, cfg.vocab, (PREFILL_S, PREFILL_B), generator=g,
+    tokens = torch.randint(0, cfg.vocab, (ps, pb), generator=g,
                            device=DEVICE, dtype=torch.int32)
     prefill = make_prefill_step(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -696,62 +760,64 @@ def serving_phase(torch, profile: bool):
     # is checked for its launch counts
     times = []
     for i in range(PREFILL_CALLS + 1):
-        f0, r0 = flash_attention_bhsd.launches, rmsnorm.launches
+        c0 = _counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         tok, last = prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
         if i:
             times.append(time.perf_counter() - t)
-        nf = flash_attention_bhsd.launches - f0
-        nr = rmsnorm.launches - r0
-        if nf != FLASH_PER_FORWARD or nr != RMS_PER_STEP:
-            raise AssertionError(f"prefill launched flash attention {nf} "
-                                 f"and RMSNorm {nr} times (want "
-                                 f"{FLASH_PER_FORWARD}, {RMS_PER_STEP})")
-    if not torch.isfinite(last.float()).all() or tok.shape != (PREFILL_B,) \
+        got = tuple(b - a for a, b in zip(c0, _counts()))
+        if got != per_call:
+            raise AssertionError(f"{arch} prefill launched (flash, RMSNorm, "
+                                 f"MoE GMM) {got} times (want {per_call})")
+    if not torch.isfinite(last.float()).all() or tok.shape != (pb,) \
             or not ((tok >= 0) & (tok < cfg.vocab)).all():
-        raise AssertionError("prefill: bad tokens or non-finite hidden")
+        raise AssertionError(f"{arch} prefill: bad tokens or non-finite "
+                             "hidden")
     prefill_ms = statistics.median(times) * 1e3
     prefill_peak = torch.cuda.max_memory_allocated()
 
     # decode: the launcher's loop
-    r0 = rmsnorm.launches
-    f0 = flash_attention_bhsd.launches
+    c0 = _counts()
     out = serve(cfg, params, device=DEVICE, **SERVE_ARGS)
-    nr = rmsnorm.launches - r0
-    if nr != RMS_PER_STEP * out["decode_calls"] or out["decode_calls"] == 0:
-        raise AssertionError(f"decode: {nr} RMSNorm launches in "
-                             f"{out['decode_calls']} steps (want "
-                             f"{RMS_PER_STEP} a step)")
-    if flash_attention_bhsd.launches != f0:
+    nf, nr, nm = (b - a for a, b in zip(c0, _counts()))
+    steps = out["decode_calls"]
+    if steps == 0 or nr != want["rms"] * steps or nm != want["moe"] * steps:
+        raise AssertionError(f"{arch} decode: {nr} RMSNorm and {nm} MoE GMM "
+                             f"launches in {steps} steps (want "
+                             f"{want['rms']} and {want['moe']} a step)")
+    if nf:
         raise AssertionError("decode launched the prefill attention kernel")
     if out["completed"] != SERVE_ARGS["requests"] or any(
             r is None or len(r) != SERVE_ARGS["max_new"] or
             not ((r >= 0) & (r < cfg.vocab)).all() for r in out["results"]):
-        raise AssertionError("decode: a request did not complete with "
-                             "max_new valid tokens")
+        raise AssertionError(f"{arch} decode: a request did not complete "
+                             "with max_new valid tokens")
     rec = {"config": cfg.name, "dtype": "bfloat16", "layers": cfg.n_layers,
+           "params": sum(int(t.numel()) for t in _leaves(params)),
            "init_s": init_s,
-           "prefill": {"batch": PREFILL_B, "seq": PREFILL_S,
+           "prefill": {"batch": pb, "seq": ps,
                        "calls_timed": PREFILL_CALLS, "ms": prefill_ms,
                        "ms_each": [t * 1e3 for t in times],
-                       "tokens_per_s": PREFILL_B * PREFILL_S /
-                       (prefill_ms / 1e3),
-                       "flash_launches_per_call": FLASH_PER_FORWARD,
-                       "rmsnorm_launches_per_call": RMS_PER_STEP,
+                       "tokens_per_s": pb * ps / (prefill_ms / 1e3),
+                       "flash_launches_per_call": want["flash"],
+                       "rmsnorm_launches_per_call": want["rms"],
+                       "moe_gmm_launches_per_call": want["moe"],
                        "peak_memory_bytes": prefill_peak},
            "decode": {**SERVE_ARGS, "prompt_len": PROMPT_LEN,
                       "completed": out["completed"],
                       "tokens": out["tokens"], "seconds": out["seconds"],
-                      "decode_steps": out["decode_calls"],
+                      "decode_steps": steps,
                       "rounds": out["rounds"],
                       "tokens_per_s": out["tokens"] / out["seconds"],
-                      "ms_per_step": out["seconds"] / out["decode_calls"]
-                      * 1e3,
-                      "rmsnorm_launches_per_step": nr / out["decode_calls"]}}
+                      "ms_per_step": out["seconds"] / steps * 1e3,
+                      "rmsnorm_launches_per_step": nr / steps,
+                      "moe_gmm_launches_per_step": nm / steps}}
     if profile:
         rec["profile"] = profile_phase(torch, cfg, params, tokens)
+    del params
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -773,7 +839,8 @@ def profile_phase(torch, cfg, params, tokens):
                       key=lambda r: -r[1])
         total = sum(r[1] for r in rows)
         mine = {n: sum(r[1] for r in rows if n in r[0])
-                for n in ("flash_fwd_kernel", "rmsnorm_kernel")}
+                for n in ("flash_fwd_kernel", "rmsnorm_kernel",
+                          "gmm_kernel")}
         return {"wall_ms": wall_s * 1e3, "device_ms": total,
                 "device_busy_share": total / (wall_s * 1e3),
                 "hand_written_ms": mine,
@@ -808,6 +875,135 @@ def profile_phase(torch, cfg, params, tokens):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the MoE grouped matmul (B4) against its plain version
+# ---------------------------------------------------------------------------
+
+MOE_SOURCE = "src/repro_torch/csrc/moe_gmm.cu"
+MOE_REPLACES = "src/repro/kernels/moe_gmm/kernel.py:42"
+#: olmoe-1b-7b's expert shapes: 64 experts, d 2048, f 1024 (swiglu)
+OLMOE_E, OLMOE_D, OLMOE_F = 64, 2048, 1024
+
+
+def _library_ffn(act):
+    """One PyTorch yardstick for the same function: ``torch.bmm`` ->
+    the activation in x's dtype -> ``torch.bmm`` (h rounded to x's
+    dtype, where the kernel keeps it in float32)."""
+    import torch
+    import torch.nn.functional as F
+
+    def ffn(x, w1, w2):
+        h = torch.bmm(x, w1)
+        if act in ("swiglu", "geglu"):
+            g, u = h.chunk(2, dim=-1)
+            g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
+            h = g * u
+        elif act == "gelu":
+            h = F.gelu(h, approximate="tanh")
+        else:
+            h = torch.square(F.relu(h))
+        return torch.bmm(h, w2)
+    return ffn
+
+
+def moe_gmm_case(torch, label, e, c, d, f, act, dtype, g, *, w_scale=None,
+                 zero_expert=None, time_it=True):
+    """B4 on x (e, c, d), w1 (e, d, m·f), w2 (e, f, d) against its plain
+    version at tests/test_kernels.py's tolerance (1e-4 float32, 3e-2
+    bf16).  Weights are N(0, 1) times ``w_scale`` (default 1/sqrt(fan
+    in), which keeps h and the output O(1) at olmoe's width)."""
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
+    mult = 2 if act in ("swiglu", "geglu") else 1
+    x = torch.randn(e, c, d, generator=g, device=DEVICE).to(dtype)
+    w1 = torch.randn(e, d, mult * f, generator=g, device=DEVICE)
+    w1 = (w1 * (w_scale or d ** -0.5)).to(dtype)
+    w2 = torch.randn(e, f, d, generator=g, device=DEVICE)
+    w2 = (w2 * (w_scale or f ** -0.5)).to(dtype)
+    if zero_expert is not None:
+        x[zero_expert] = 0
+    out = moe_gmm(x, w1, w2, act=act)
+    ref = moe_gmm_ref(x, w1, w2, act=act)
+    torch.cuda.synchronize()
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    a, b = out.double(), ref.double()
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"{label}: non-finite kernel output")
+    bad = (a - b).abs() > tol + tol * b.abs()
+    if bad.any():
+        raise AssertionError(
+            f"{label}: {int(bad.sum())} of {bad.numel()} elements differ "
+            f"from the plain version beyond {tol} (max abs "
+            f"{float((a - b).abs().max())})")
+    if zero_expert is not None and torch.count_nonzero(out[zero_expert]):
+        raise AssertionError(f"{label}: an expert with no token gave "
+                             "non-zero rows")
+    dname = str(dtype).split(".")[1]
+    flops = 2 * e * c * d * mult * f + 2 * e * c * f * d
+    nbytes = x.nbytes + w1.nbytes + w2.nbytes + out.nbytes
+    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    case = {"case": label, "shape_x": [e, c, d], "f": f, "act": act,
+            "dtype": dname, "ok": True,
+            "max_abs_err": float((a - b).abs().max()),
+            "tolerance": tol, "flops": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    del a, b, ref, bad
+    if time_it:
+        xs = cold_copies(x, limit=4)
+        lib = _library_ffn(act)
+        case.update({
+            "kernel_ms": device_ms(lambda t: moe_gmm(t, w1, w2, act=act),
+                                   xs),
+            "plain_ms": device_ms(lambda t: moe_gmm_ref(t, w1, w2, act=act),
+                                  xs[:2]),
+            "library_ms": device_ms(lambda t: lib(t, w1, w2), xs)})
+        case["achieved_tflops"] = flops / case["kernel_ms"] / 1e9
+        case["achieved_GB_per_s"] = nbytes / case["kernel_ms"] / 1e6
+    del x, w1, w2, out
+    torch.cuda.empty_cache()
+    return case
+
+
+def moe_kernel_phase(torch):
+    """B4 over tests/test_kernels.py's sweep and at olmoe-1b-7b's shapes;
+    B2 at olmoe's prefill shape and at a padded head dim."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    moe = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for act in ("swiglu", "geglu", "gelu", "relu2"):
+            for e, c, d, f in ((4, 32, 48, 24), (2, 64, 32, 64)):
+                moe.append(moe_gmm_case(
+                    torch, f"sweep_{dn}_{act}_{e}x{c}x{d}x{f}", e, c, d, f,
+                    act, dtype, g, w_scale=0.2, time_it=False))
+        moe.append(moe_gmm_case(torch, f"ragged_{dn}_3x20x40x16", 3, 20, 40,
+                                16, "swiglu", dtype, g, zero_expert=1,
+                                time_it=False))
+    E, D, Fh = OLMOE_E, OLMOE_D, OLMOE_F
+    bf16 = torch.bfloat16
+    moe.append(moe_gmm_case(torch, "olmoe_decode_bfloat16", E, 8, D, Fh,
+                            "swiglu", bf16, g))
+    moe.append(moe_gmm_case(torch, "olmoe_decode_float32", E, 8, D, Fh,
+                            "swiglu", torch.float32, g))
+    moe.append(moe_gmm_case(torch, "olmoe_prefill_bfloat16", E, 640, D, Fh,
+                            "swiglu", bf16, g))
+    moe.append(moe_gmm_case(torch, "olmoe_ragged_c100_bfloat16", E, 100, D,
+                            Fh, "swiglu", bf16, g, time_it=False))
+    moe.append(moe_gmm_case(torch, "olmoe_decode_zero_expert_bfloat16", E,
+                            8, D, Fh, "swiglu", bf16, g, zero_expert=5,
+                            time_it=False))
+    flash = [flash_case(torch, "olmoe_prefill_global_bfloat16", 4, 16, 16,
+                        1024, 1024, 128, True, 0, 0, bf16, g)]
+    for dtype in (torch.float32, bf16):
+        dn = str(dtype).split(".")[1]
+        flash.append(flash_case(torch, f"padded_dh24_{dn}", 2, 4, 4, 100,
+                                100, 24, True, 0, 0, dtype, g,
+                                time_it=False))
+    return moe, flash
+
+
 def _summary(cases, keys):
     return [{k: c.get(k) for k in keys} for c in cases]
 
@@ -817,7 +1013,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of one prefill "
-                         "call and 8 decode steps to phase 7")
+                         "call and 8 decode steps to phases 7 and 10")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -827,8 +1023,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.doorbell import stage_copy, stage_copy_push
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.rmsnorm import rmsnorm
-    counters = (stage_copy, stage_copy_push, flash_attention_bhsd, rmsnorm)
+    counters = (stage_copy, stage_copy_push, flash_attention_bhsd, rmsnorm,
+                moe_gmm)
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -879,26 +1077,53 @@ def main(argv=None) -> int:
     parity = model_parity_phase(torch)
     record("model_parity", seconds=time.perf_counter() - t0, **parity)
 
-    # 7. the serving path: counts set to 0 just before, read just after
+    # 7. the dense serving path: counts set to 0 just before, read after
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
-    served = serving_phase(torch, args.profile)
+    served = serving_phase(torch, "gemma3-1b", args.profile)
     n_flash, n_rms = flash_attention_bhsd.launches, rmsnorm.launches
     record("serving_main_path", seconds=time.perf_counter() - t0,
            flash_attention_launches=n_flash, rmsnorm_launches=n_rms,
-           **served)
+           moe_gmm_launches=moe_gmm.launches, **served)
     if n_flash == 0 or n_rms == 0:
         raise AssertionError("the serving path launched no flash-attention "
                              "or RMSNorm kernel")
+
+    # 8. the MoE grouped matmul (B4) against its plain version
+    t0 = time.perf_counter()
+    moe, flash_moe = moe_kernel_phase(torch)
+    record("moe_kernel_cases", seconds=time.perf_counter() - t0,
+           moe_gmm=moe, flash_attention=flash_moe)
+
+    # 9. olmoe-1b-7b at full width in float32: decode against forward
+    t0 = time.perf_counter()
+    parity = model_parity_phase(torch, "olmoe-1b-7b")
+    record("moe_model_parity", seconds=time.perf_counter() - t0, **parity)
+
+    # 10. the moe serving path: counts set to 0 just before, read after
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    served = serving_phase(torch, "olmoe-1b-7b", args.profile)
+    m_flash, m_rms, n_moe = (flash_attention_bhsd.launches, rmsnorm.launches,
+                             moe_gmm.launches)
+    record("moe_serving_main_path", seconds=time.perf_counter() - t0,
+           flash_attention_launches=m_flash, rmsnorm_launches=m_rms,
+           moe_gmm_launches=n_moe, **served)
+    if m_flash == 0 or m_rms == 0 or n_moe == 0:
+        raise AssertionError("the moe serving path launched no "
+                             "flash-attention, RMSNorm or MoE GMM kernel")
 
     # the kernels line: headline numbers at each main path's shape
     head = next(c for c in cases if c["case"] == "f32_64x16384_bf160")
     fhead = next(c for c in flash
                  if c["case"] == "gemma3_prefill_local512_bfloat16")
     rhead = next(c for c in rms if c["case"] == "serve_bfloat16_8192x1152")
+    mhead = next(c for c in moe if c["case"] == "olmoe_decode_bfloat16")
     timed = ("case", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
              "bound_by", "max_abs_err")
+    flash += flash_moe
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "doorbell.stage_copy", "route": "cuda", "source": SOURCE,
@@ -913,7 +1138,8 @@ def main(argv=None) -> int:
             "library_ms", "kernel_call_ms", "plain_call_ms", "bound_ms")}
             for c in cases]}, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_REPLACES, "launches": n_flash,
+        "replaces": FLASH_REPLACES, "launches": n_flash + m_flash,
+        "launches_by_path": {"gemma3-1b": n_flash, "olmoe-1b-7b": m_flash},
         "max_abs_err": max(c["max_abs_err"] for c in flash),
         "ms": fhead["kernel_ms"], "plain_ms": fhead["plain_ms"],
         "bound_ms": fhead["bound_ms"], "bound_by": fhead["bound_by"],
@@ -921,12 +1147,22 @@ def main(argv=None) -> int:
         "shape_kv": fhead["shape_kv"], "window": fhead["window"],
         "cases": _summary([c for c in flash if "kernel_ms" in c], timed)}, {
         "name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
-        "replaces": RMS_REPLACES, "launches": n_rms,
+        "replaces": RMS_REPLACES, "launches": n_rms + m_rms,
+        "launches_by_path": {"gemma3-1b": n_rms, "olmoe-1b-7b": m_rms},
         "max_abs_err": max(c["max_abs_err"] for c in rms),
         "ms": rhead["kernel_ms"], "plain_ms": rhead["plain_ms"],
         "bound_ms": rhead["bound_ms"], "bound_by": "bytes",
         "library_ms": rhead["library_ms"], "shape": rhead["shape"],
-        "cases": _summary([c for c in rms if "kernel_ms" in c], timed)}]}),
+        "cases": _summary([c for c in rms if "kernel_ms" in c], timed)}, {
+        "name": "moe_gmm", "route": "cuda", "source": MOE_SOURCE,
+        "replaces": MOE_REPLACES, "launches": n_moe,
+        "max_abs_err": max(c["max_abs_err"] for c in moe),
+        "ms": mhead["kernel_ms"], "plain_ms": mhead["plain_ms"],
+        "bound_ms": mhead["bound_ms"], "bound_by": mhead["bound_by"],
+        "library_ms": mhead["library_ms"], "shape": mhead["shape_x"],
+        "f": mhead["f"], "act": mhead["act"],
+        "cases": _summary([c for c in moe if "kernel_ms" in c],
+                          timed)}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,12 @@
 // row: causal keeps k_pos <= q_pos, a window > 0 keeps k_pos > q_pos -
 // window.  Masked scores are -1e30 (never -inf), so a row that sees no
 // key averages all keys uniformly, as the reference does; the output is
-// acc / max(l, 1e-37).  q is scaled by 1/sqrt(dh) in float32 before the
-// dot, and all statistics (running max m, exp-sum l, accumulator) are
-// float32.
+// acc / max(l, 1e-37).  q is scaled by `scale` (the caller's 1/sqrt(dh) of
+// the true head dim) in float32 before the dot, and all statistics
+// (running max m, exp-sum l, accumulator) are float32.  The kernel is
+// instantiated for dh 16/32/64/128/256; the wrapper zero-pads any other dh
+// up to the next of these (zero columns add nothing to q.k, and the padded
+// output columns are dropped), which is why the scale is an argument.
 //
 // What it computes, not how the TPU grid does it: the Pallas kernel walks
 // KV blocks along a sequential "arbitrary" grid axis and carries (m, l,
@@ -138,7 +141,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int hq,
                  int hkv, int64_t sq, int64_t skv, int causal,
-                 int64_t window, int64_t q_offset) {
+                 int64_t window, int64_t q_offset, float scale) {
   using S = Smem<DH, BQ, BK>;
   constexpr int AX = DH < 32 ? DH : 32;  // accumulator: lanes across dh
   constexpr int AY = kThreads / AX;      //   and row groups
@@ -169,7 +172,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kp = k + ((bi * hkv + hk) * skv) * DH;
   const T* vp = v + ((bi * hkv + hk) * skv) * DH;
   T* op = o + ((bi * hq + h) * sq) * DH;
-  const float scale = float(1.0 / sqrt(double(DH)));
 
   load_tile<T, DH>(qp, q0, BQ, sq, Qs, S::QS, scale);
   for (int r = tid; r < BQ; r += kThreads) {
@@ -312,7 +314,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
            int64_t hq, int64_t hkv, int64_t sq, int64_t skv, int causal,
-           int64_t window, int64_t q_offset, cudaStream_t stream) {
+           int64_t window, int64_t q_offset, float scale,
+           cudaStream_t stream) {
   constexpr int BQ = Tile<DH>::BQ, BK = Tile<DH>::BK;
   constexpr size_t smem = Smem<DH, BQ, BK>::BYTES;
   auto kern = flash_fwd_kernel<T, DH, BQ, BK>;
@@ -331,7 +334,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), int(hq), int(hkv), sq,
-      skv, causal, window, q_offset);
+      skv, causal, window, q_offset, scale);
   return int(cudaGetLastError());
 }
 
@@ -339,23 +342,23 @@ template <typename T>
 int launch_dh(int64_t dh, const void* q, const void* k, const void* v,
               void* o, int64_t b, int64_t hq, int64_t hkv, int64_t sq,
               int64_t skv, int causal, int64_t window, int64_t q_offset,
-              cudaStream_t s) {
+              float scale, cudaStream_t s) {
   switch (dh) {
     case 16:
       return launch<T, 16>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,
-                           q_offset, s);
+                           q_offset, scale, s);
     case 32:
       return launch<T, 32>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,
-                           q_offset, s);
+                           q_offset, scale, s);
     case 64:
       return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,
-                           q_offset, s);
+                           q_offset, scale, s);
     case 128:
       return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,
-                            q_offset, s);
+                            q_offset, scale, s);
     case 256:
       return launch<T, 256>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,
-                            q_offset, s);
+                            q_offset, scale, s);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -365,21 +368,22 @@ int launch_dh(int64_t dh, const void* q, const void* k, const void* v,
 
 // o = attention(q, k, v) over contiguous (b, h, s, dh) tensors; see the
 // header for the masks.  bf16: q, k, v and o are bfloat16 (else float32).
-// window <= 0 disables the window.  Launches on `stream` without
-// synchronising; returns cudaGetLastError() (or cudaErrorInvalidValue for
+// window <= 0 disables the window; q is scaled by `scale`.  Launches on
+// `stream` without synchronising; returns cudaGetLastError() (or cudaErrorInvalidValue for
 // an unsupported dh or grid).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int64_t b,
                                      int64_t hq, int64_t hkv, int64_t sq,
                                      int64_t skv, int64_t dh, int bf16,
                                      int causal, int64_t window,
-                                     int64_t q_offset, void* stream) {
+                                     int64_t q_offset, float scale,
+                                     void* stream) {
   if (b <= 0 || hq <= 0 || sq <= 0) return 0;
   if (hkv <= 0 || skv <= 0 || hq % hkv) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_dh<__nv_bfloat16>(dh, q, k, v, o, b, hq, hkv, sq, skv,
-                                    causal, window, q_offset, s);
+                                    causal, window, q_offset, scale, s);
   return launch_dh<float>(dh, q, k, v, o, b, hq, hkv, sq, skv, causal,
-                          window, q_offset, s);
+                          window, q_offset, scale, s);
 }

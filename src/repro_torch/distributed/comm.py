@@ -43,7 +43,18 @@ class Comm:
     def psum_model(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
+    def psum_model_ge(self, x: torch.Tensor) -> torch.Tensor:
+        """Gradient-exact psum over the model axis (router aux means);
+        with one rank, ``x``."""
+        return x
+
     def pmax_model(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def a2a(self, x: torch.Tensor, *, split_axis: int, concat_axis: int
+            ) -> torch.Tensor:
+        """All-to-all over the model axis (MoE dispatch and combine); with
+        one rank, ``x``."""
         return x
 
     def model_index(self) -> int:

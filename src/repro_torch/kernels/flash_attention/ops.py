@@ -8,12 +8,19 @@ kernel (``csrc/flash_attention.cu``) runs on the current stream, without
 synchronising, or the call raises; CPU tensors take the plain version in
 :mod:`.ref`.  There is no fallback.  ``flash_attention_bhsd.launches``
 counts the kernel launches.
+
+The kernel is instantiated for head dims 16/32/64/128/256; any other dh up
+to 256 is zero-padded to the next of them (zeros add nothing to q.k, and
+the padded output columns are dropped) and the softmax scale stays
+``1/sqrt(dh)`` of the true head dim.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from .ref import flash_attention_ref
@@ -33,7 +40,8 @@ def _kernel():
                        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+                       ctypes.c_void_p]
     return fn
 
 
@@ -53,9 +61,9 @@ def _check(q, k, v) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q, k, v must share float32 or "
                          f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {dh} not in "
-                         f"{HEAD_DIMS}")
+    if not 0 < dh <= HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention: head dim {dh} outside 1.."
+                         f"{HEAD_DIMS[-1]}")
     for t in (q, k, v):
         if not t.is_contiguous() or t.data_ptr() % _ALIGN:
             raise ValueError("flash_attention: q, k, v must be contiguous "
@@ -73,22 +81,25 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
     _check(q, k, v)
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    if q.numel() == 0:
+        return torch.empty_like(q)
     if skv == 0:
         raise ValueError("flash_attention: no keys")
+    dk = next(h for h in HEAD_DIMS if h >= dh)
+    if dk != dh:                       # zero-pad to an instantiated dh
+        q, k, v = (F.pad(t, (0, dk - dh)) for t in (q, k, v))
+    out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), b, hq, hkv, sq, skv, dh,
+                       out.data_ptr(), b, hq, hkv, sq, skv, dk,
                        int(q.dtype == torch.bfloat16), int(causal),
-                       int(window), int(q_offset),
+                       int(window), int(q_offset), 1.0 / math.sqrt(dh),
                        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
     flash_attention_bhsd.launches += 1
-    return out
+    return out if dk == dh else out[..., :dh].contiguous()
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

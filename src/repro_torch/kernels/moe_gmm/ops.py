@@ -1,0 +1,90 @@
+"""Public wrapper of the MoE grouped-matmul kernel.
+
+For CUDA tensors :func:`moe_gmm` launches the hand-written Hopper kernel
+(``csrc/moe_gmm.cu``) on the current stream, without synchronising, or
+raises; for CPU tensors it takes the plain version in :mod:`.ref`.  There
+is no fallback.  The kernel runs as two launches inside one C call (the
+first product with the activation into a float32 scratch ``h`` that this
+wrapper allocates, then the second product); ``moe_gmm.launches`` counts
+wrapper calls that launched it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from .ref import ACTS, moe_gmm_ref
+
+_DTYPES = (torch.float32, torch.bfloat16)
+#: activation codes of the C interface
+_ACT = {a: i for i, a in enumerate(ACTS)}
+
+
+def _kernel():
+    fn = _build.load("moe_gmm").repro_moe_gmm
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def _check(x, w1, w2, act) -> int:
+    """Validate a CUDA call; returns f (the expert FFN width)."""
+    if act not in _ACT:
+        raise ValueError(f"moe_gmm: act must be one of {ACTS}, got {act!r}")
+    if x.device.type != "cuda" or w1.device != x.device or \
+            w2.device != x.device:
+        raise ValueError("moe_gmm: x, w1, w2 must be on one CUDA device")
+    if x.dtype not in _DTYPES or w1.dtype != x.dtype or w2.dtype != x.dtype:
+        raise ValueError(f"moe_gmm: x, w1, w2 must share float32 or "
+                         f"bfloat16, got {x.dtype}, {w1.dtype}, {w2.dtype}")
+    if x.dim() != 3 or w1.dim() != 3 or w2.dim() != 3:
+        raise ValueError("moe_gmm: x (E, C, d), w1 (E, d, m·f), w2 "
+                         "(E, f, d)")
+    e, _, d = x.shape
+    f = w2.shape[1]
+    mult = 2 if act in ("swiglu", "geglu") else 1
+    if w1.shape != (e, d, mult * f) or w2.shape != (e, f, d):
+        raise ValueError(f"moe_gmm: shapes x {tuple(x.shape)}, w1 "
+                         f"{tuple(w1.shape)}, w2 {tuple(w2.shape)} do not "
+                         f"fit (E, C, d), (E, d, {mult}·f), (E, f, d)")
+    if f % 8:
+        raise ValueError(f"moe_gmm: f must be a multiple of 8, got {f}")
+    if not (x.is_contiguous() and w1.is_contiguous() and
+            w2.is_contiguous()):
+        raise ValueError("moe_gmm: x, w1, w2 must be contiguous")
+    return f
+
+
+def moe_gmm(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
+            act: str = "swiglu", block_c: int = 128) -> torch.Tensor:
+    """x (E, C, d); w1 (E, d, m·f); w2 (E, f, d) -> (E, C, d) in x.dtype:
+    ``act(x[e] @ w1[e]) @ w2[e]`` with ``h`` kept in float32.
+    ``block_c`` is the reference's TPU tiling hint; the CUDA kernel picks
+    its own tile from C."""
+    del block_c
+    if x.device.type == "cpu":
+        return moe_gmm_ref(x, w1, w2, act=act)
+    f = _check(x, w1, w2, act)
+    e, c, d = x.shape
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    h = torch.empty((e, c, f), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _kernel()(x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                       h.data_ptr(), out.data_ptr(), e, c, d, f, _ACT[act],
+                       int(x.dtype == torch.bfloat16),
+                       torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {rc}")
+    moe_gmm.launches += 1
+    return out
+
+
+moe_gmm.launches = 0

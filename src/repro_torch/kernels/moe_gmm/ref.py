@@ -1,0 +1,39 @@
+"""Plain PyTorch version of the MoE grouped-matmul kernel (the oracle).
+
+The mirror of ``repro/kernels/moe_gmm/ref.py``: ``out[e] = act(x[e] @
+w1[e]) @ w2[e]`` with both products and the activation in float32 and the
+result cast to x.dtype.  swiglu and geglu split w1's output dim as
+[gate | up]; JAX's ``gelu(approximate=True)`` is torch's
+``gelu(approximate="tanh")``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+ACTS = ("swiglu", "geglu", "gelu", "relu2")
+
+
+def activation_f32(act: str, h: torch.Tensor) -> torch.Tensor:
+    """The expert nonlinearity on a float32 ``h`` (gated kinds take the
+    fused [gate | up] on the last dim)."""
+    if act == "swiglu":
+        g, u = torch.chunk(h, 2, dim=-1)
+        return F.silu(g) * u
+    if act == "geglu":
+        g, u = torch.chunk(h, 2, dim=-1)
+        return F.gelu(g, approximate="tanh") * u
+    if act == "gelu":
+        return F.gelu(h, approximate="tanh")
+    if act == "relu2":
+        return torch.square(F.relu(h))
+    raise ValueError(f"moe_gmm: unknown activation {act!r}")
+
+
+def moe_gmm_ref(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
+                act: str = "swiglu") -> torch.Tensor:
+    """x (E, C, d); w1 (E, d, m·f); w2 (E, f, d) -> (E, C, d) in x.dtype."""
+    h = torch.einsum("ecd,edf->ecf", x.float(), w1.float())
+    h = activation_f32(act, h)
+    o = torch.einsum("ecf,efd->ecd", h, w2.float())
+    return o.to(x.dtype)

@@ -130,7 +130,7 @@ def main(argv=None) -> Dict:
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    model = build_model(cfg, device=args.device)  # non-dense: not ported
+    model = build_model(cfg, device=args.device)
     params, _ = model.init(0)
     if args.attr and not args.transport:
         raise SystemExit("--attr tunes the transport cluster; it needs "

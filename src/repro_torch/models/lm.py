@@ -1,11 +1,12 @@
-"""Language models: init and forward, dense family (PyTorch port).
+"""Language models: init and forward, dense and moe families (PyTorch port).
 
 The mirror of :mod:`repro.models.lm` for the dense family (GQA,
-sliding-window, qk-norm and parallel-block transformers).  The layer
-stack is a Python loop over the stacked ``(L, ...)`` parameters (the
-reference's ``lax.scan``); there is no autograd here, so no remat.  The
-moe, ssm, hybrid, vlm and audio families, the loss and remat are not
-ported yet (ROADMAP.md).
+sliding-window, qk-norm and parallel-block transformers) and the moe
+family (a :mod:`.moe` block in place of the MLP, plus an optional shared
+expert).  The layer stack is a Python loop over the stacked ``(L, ...)``
+parameters (the reference's ``lax.scan``); there is no autograd here, so
+no remat.  The ssm, hybrid, vlm and audio families, the loss and remat
+are not ported yet (ROADMAP.md).
 
 Batch convention (seq-major local view):
     tokens  (s_local, b)   int
@@ -21,8 +22,9 @@ from .blocks import TPPlan, init_attention, init_mlp, swa_attention_op, \
     tp_plan
 from .common import ModelConfig, ParamFactory
 from .layers import apply_norm, embed_tokens, gated_activation, mlp_block
+from .moe import init_moe, moe_block
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe")
 _AUX_KEYS = ("aux_lb", "aux_z", "dropped_frac")
 
 
@@ -46,11 +48,17 @@ def _init_norm(pf: ParamFactory, cfg: ModelConfig, name: str, L: int):
 
 def _init_layer_stack(pf: ParamFactory, cfg: ModelConfig, L: int
                       ) -> Dict[str, torch.Tensor]:
-    """One homogeneous stack of L dense layers."""
+    """One homogeneous stack of L dense or moe layers."""
     p: Dict[str, torch.Tensor] = {}
     p.update(_init_norm(pf, cfg, "norm1", L))
     p.update(init_attention(pf, cfg, stacked_layers=L))
-    if cfg.d_ff and not cfg.parallel_block:
+    if cfg.family == "moe":
+        p.update(_init_norm(pf, cfg, "norm2", L))
+        p.update(init_moe(pf, cfg, stacked_layers=L))
+        if cfg.shared_expert_ff:
+            p.update(init_mlp(pf, cfg, prefix="shared_", stacked_layers=L,
+                              d_ff=cfg.shared_expert_ff))
+    elif cfg.d_ff and not cfg.parallel_block:
         p.update(_init_norm(pf, cfg, "norm2", L))
         p.update(init_mlp(pf, cfg, stacked_layers=L))
     elif cfg.parallel_block and cfg.d_ff:
@@ -102,7 +110,7 @@ def _mlp_op(x, lp, cfg, comm, prefix: str = "") -> torch.Tensor:
 
 def _decoder_block(x, lp, idx: int, cfg: ModelConfig, comm: Comm,
                    plan: TPPlan, q_offset: int) -> Tuple[torch.Tensor, Dict]:
-    """One dense decoder layer; returns (x', aux)."""
+    """One dense or moe decoder layer; returns (x', aux)."""
     h = apply_norm(cfg.norm, x, lp.get("norm1"))
     attn = swa_attention_op(h, lp, cfg, comm, plan, layer_idx=idx,
                             q_offset=q_offset)
@@ -110,6 +118,11 @@ def _decoder_block(x, lp, idx: int, cfg: ModelConfig, comm: Comm,
         return x + attn + _mlp_op(h, lp, cfg, comm), {}
     x = x + attn
     h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
+    if cfg.family == "moe":
+        moe_out, aux = moe_block(h2, lp, cfg, comm)
+        if cfg.shared_expert_ff:
+            moe_out = moe_out + _mlp_op(h2, lp, cfg, comm, prefix="shared_")
+        return x + moe_out, aux
     return x + _mlp_op(h2, lp, cfg, comm), {}
 
 
@@ -139,11 +152,18 @@ def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     emb = comm.weight(params["emb"], fsdp_axis=1)
     x = embed_tokens(tokens, emb, comm,
                      scale_by_sqrt_dim=cfg.name.startswith("gemma"))
-    for idx in range(cfg.n_layers):
-        x, _ = _decoder_block(x, layer_params(params, idx), idx, cfg, comm,
-                              plan, q_offset)
-    x = apply_norm(final_norm_kind(cfg), x, params["final_norm"])
-    x = comm.ag_seq(x)
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in _AUX_KEYS}
+    for idx in range(cfg.n_layers):
+        x, layer_aux = _decoder_block(x, layer_params(params, idx), idx, cfg,
+                                      comm, plan, q_offset)
+        for k, v in layer_aux.items():
+            aux[k] = aux[k] + v
+    x = apply_norm(final_norm_kind(cfg), x, params["final_norm"])
+    x = comm.ag_seq(x)
+    # per-layer means; the router terms come from local tokens, so the
+    # reference psums them over the model axis (the identity at one rank)
+    n_layers = max(cfg.n_layers, 1)
+    aux = {k: comm.psum_model_ge(v / n_layers) / comm.tp
+           for k, v in aux.items()}
     return x, aux

@@ -41,7 +41,8 @@ class Model:
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """A :class:`Model` on ``device`` (default ``cuda``; no GPU and no
-    ``"cpu"`` raises).  Families other than dense raise "not ported"."""
+    ``"cpu"`` raises).  Families other than dense and moe raise "not
+    ported"."""
     lm.require_ported(cfg, "build_model")
     return Model(cfg, resolve_device(device))
 

@@ -1,4 +1,4 @@
-"""Serving engine: prefill and single-token decode, dense family (port).
+"""Serving engine: prefill and single-token decode, dense and moe (port).
 
 The mirror of :mod:`repro.serving.engine` at tp = dp = 1.
 
@@ -13,14 +13,17 @@ Differences from the reference, by design:
   :class:`DecodeCache` shares the tensors and carries ``length + 1``.
 * ``DecodeCache.length`` is a host int, so no decode step reads anything
   back from the card until the sampled tokens are wanted.
-* ``tp2d``, ``joint_kv`` and every family but dense raise "not ported"
-  (ROADMAP.md); so do the cross-attention caches.
+* ``tp2d``, ``joint_kv`` and every family but dense and moe raise "not
+  ported" (ROADMAP.md); so do the cross-attention caches.
 
 Per decode step the RMSNorm kernel runs 4 times a layer (norm1, q_norm,
-k_norm, norm2 on gemma3) plus once for the final norm; the decode
-attention itself is plain PyTorch, as the reference has no Pallas kernel
-for it.  Prefill is the full-sequence forward, so it also runs the
-flash-attention kernel once a layer.
+k_norm, norm2 on gemma3 and olmoe) plus once for the final norm; the
+decode attention itself is plain PyTorch, as the reference has no Pallas
+kernel for it.  A moe layer routes the step's b tokens through
+:func:`~repro_torch.models.moe.moe_block` (one MoE grouped-matmul kernel
+launch a layer; capacity from T = b) and adds the shared expert, if any,
+through the plain MLP.  Prefill is the full-sequence forward, so it also
+runs the flash-attention kernel once a layer.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from ..models.common import ModelConfig
 from ..models.layers import (apply_norm, apply_rope, gated_activation,
                              greedy_sample, lm_head_logits,
                              mlp_activation, rms_norm, vocab_rows)
+from ..models.moe import moe_block
 
 
 # ---------------------------------------------------------------------------
@@ -106,15 +110,17 @@ def _decode_attn_layer(x, lp, cfg: ModelConfig, comm: Comm, plan: TPPlan,
     return torch.matmul(attn, comm.weight(lp["wo"], fsdp_axis=1))
 
 
-def _decode_mlp(x, lp, cfg: ModelConfig, comm: Comm) -> torch.Tensor:
+def _decode_mlp(x, lp, cfg: ModelConfig, comm: Comm, prefix: str = ""
+                ) -> torch.Tensor:
+    def w(name, fsdp_axis):
+        return comm.weight(lp[prefix + name], fsdp_axis=fsdp_axis)
+
     if cfg.mlp in ("swiglu", "geglu"):
-        h = gated_activation(
-            cfg.mlp, torch.matmul(x, comm.weight(lp["w_gate"], fsdp_axis=0)),
-            torch.matmul(x, comm.weight(lp["w_up"], fsdp_axis=0)))
+        h = gated_activation(cfg.mlp, torch.matmul(x, w("w_gate", 0)),
+                             torch.matmul(x, w("w_up", 0)))
     else:
-        h = mlp_activation(cfg.mlp, torch.matmul(
-            x, comm.weight(lp["w_in"], fsdp_axis=0)))
-    return torch.matmul(h, comm.weight(lp["w_out"], fsdp_axis=1))
+        h = mlp_activation(cfg.mlp, torch.matmul(x, w("w_in", 0)))
+    return torch.matmul(h, w("w_out", 1))
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +161,14 @@ def make_serve_step(cfg: ModelConfig, comm: Optional[Comm] = None, *,
             else:
                 x = x + a_out
                 h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
-                x = x + _decode_mlp(h2, lp, cfg, comm)
+                if cfg.family == "moe":
+                    mo = moe_block(h2[None], lp, cfg, comm)[0][0]
+                    if cfg.shared_expert_ff:
+                        mo = mo + _decode_mlp(h2, lp, cfg, comm,
+                                              prefix="shared_")
+                    x = x + mo
+                else:
+                    x = x + _decode_mlp(h2, lp, cfg, comm)
         x = apply_norm(final_kind, x, params["final_norm"])
         head = comm.weight(params.get("lm_head", params["emb"]),
                            fsdp_axis=1)

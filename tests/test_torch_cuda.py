@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions: the doorbell stage copy (B1), flash attention (B2) and RMSNorm
-(B3), plus the model path's launch counts.
+versions: the doorbell stage copy (B1), flash attention (B2, any head dim
+up to 256), RMSNorm (B3) and the MoE grouped matmul (B4), plus the model
+path's launch counts.
 
 Every test here is marked ``gpu`` and skips without a CUDA card (the
 decision is taken in a fixture, never at import).  The file imports no
@@ -9,7 +10,8 @@ JAX, so it runs on the card's machine, which has none:
     python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 ``chip_smoke.py`` holds the same kernels at the main paths' shapes and
-drives the message path and gemma3-1b serving at full width.
+drives the message path, gemma3-1b serving and olmoe-1b-7b serving at
+full width.
 """
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from repro_torch.configs import get_smoke
 from repro_torch.kernels import doorbell as db
 from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
                                                  flash_attention_ref)
+from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 from repro_torch.models.registry import build_model
 from repro_torch.serving import init_cache, make_prefill_step, \
@@ -132,6 +135,9 @@ def _tol(dtype):
     (1, 4, 4, 100, 100, 128, True, 0, 0),     # ragged, OLMo's dh
     (2, 4, 1, 70, 70, 256, True, 1 << 30, 0),  # gemma3's dh, global
     (1, 2, 1, 40, 24, 256, True, 8, 20),      # rows that see no key
+    (2, 4, 2, 48, 48, 12, True, 0, 0),        # minitron smoke's dh, padded
+    (2, 4, 4, 33, 33, 24, True, 0, 0),        # the moe smoke configs' dh
+    (1, 4, 2, 64, 64, 96, True, 16, 0),       # dh 96, padded to 128
 ])
 def test_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, dh,
                                        causal, window, q_offset, dtype):
@@ -175,31 +181,98 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
         rmsnorm(x.t(), None)                         # not contiguous
     with pytest.raises(ValueError):
         rmsnorm(x.half(), None)
-    q = torch.randn(1, 2, 8, 48, device=cuda)         # dh 48: no kernel
+    q = torch.randn(1, 2, 8, 300, device=cuda)        # dh > 256
     with pytest.raises(ValueError):
         flash_attention_bhsd(q, q[:, :1], q[:, :1])
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "command-r-plus-104b"])
+#: RMSNorm launches a layer, by smoke config: norm1, q_norm, k_norm, norm2
+#: on the qk-norm models; norm1 and norm2 on moonshot; none for command-r's
+#: LayerNorm
+RMS_PER_LAYER = {"gemma3-1b": 4, "command-r-plus-104b": 0, "olmoe-1b-7b": 4,
+                 "moonshot-v1-16b-a3b": 2}
+
+
+@pytest.mark.parametrize("arch", list(RMS_PER_LAYER))
 def test_model_path_launches_the_kernels(cuda, arch):
     """Prefill: one flash-attention launch a layer; RMSNorm launches on
-    every rmsnorm of the model (gemma3: 4 a layer + the final norm;
-    command-r's LayerNorm never reaches it).  (OLMo's smoke config has
-    head dim 24, which the kernel does not take.)"""
+    every rmsnorm of the model plus the final norm (none for command-r's
+    LayerNorm); one MoE grouped-matmul launch a moe layer, in prefill and
+    in every decode step.  (The moe smoke configs have head dim 24, which
+    the flash-attention wrapper pads to 32.)"""
     cfg = get_smoke(arch)
     params, _ = build_model(cfg, device=cuda).init(0)
     tokens = torch.randint(0, cfg.vocab, (16, 2), device=cuda)
-    per_step = 4 * cfg.n_layers + 1 if arch == "gemma3-1b" else 0
-    f0, r0 = flash_attention_bhsd.launches, rmsnorm.launches
+    per_step = RMS_PER_LAYER[arch] * cfg.n_layers + 1 \
+        if RMS_PER_LAYER[arch] else 0
+    moe_per_step = cfg.n_layers if cfg.family == "moe" else 0
+    f0, r0, m0 = flash_attention_bhsd.launches, rmsnorm.launches, \
+        moe_gmm.launches
     tok, _ = make_prefill_step(cfg)(params, {"tokens": tokens})
     assert flash_attention_bhsd.launches - f0 == cfg.n_layers
     assert rmsnorm.launches - r0 == per_step
+    assert moe_gmm.launches - m0 == moe_per_step
     step = make_serve_step(cfg)
     cache = init_cache(cfg, 16, 2, device=cuda)
-    f0, r0 = flash_attention_bhsd.launches, rmsnorm.launches
+    f0, r0, m0 = flash_attention_bhsd.launches, rmsnorm.launches, \
+        moe_gmm.launches
     for i in range(4):
         tok, cache = step(params, cache, tokens[i])
     torch.cuda.synchronize()
     assert flash_attention_bhsd.launches == f0
     assert rmsnorm.launches - r0 == 4 * per_step
+    assert moe_gmm.launches - m0 == 4 * moe_per_step
     assert tok.shape == (2,) and cache.length == 4
+
+
+# ---------------------------------------------------------------------------
+# B4 the MoE grouped matmul
+# ---------------------------------------------------------------------------
+
+def _gmm_inputs(e, cap, d, f, act, dtype, cuda, seed=4):
+    mult = 2 if act in ("swiglu", "geglu") else 1
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(e, cap, d, generator=g)
+    w1 = torch.randn(e, d, mult * f, generator=g) * 0.2
+    w2 = torch.randn(e, f, d, generator=g) * 0.2
+    return (t.to(dtype).to(cuda) for t in (x, w1, w2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu", "relu2"])
+@pytest.mark.parametrize("e,cap,d,f", [
+    (4, 32, 48, 24), (2, 64, 32, 64),         # tests/test_kernels.py's sweep
+    (3, 20, 40, 16),                          # ragged C (no tile divides it)
+    (2, 5, 100, 8),                           # C < 8, d not a vector multiple
+    (4, 8, 256, 64),                          # the decode tile (C <= 8)
+])
+def test_moe_gmm_matches_plain(cuda, e, cap, d, f, act, dtype):
+    """tests/test_kernels.py's tolerances: 1e-4 float32, 3e-2 bfloat16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w1, w2 = _gmm_inputs(e, cap, d, f, act, dtype, cuda)
+    x[-1] = 0                                 # an expert with no token
+    before = moe_gmm.launches
+    out = moe_gmm(x, w1, w2, act=act)
+    assert moe_gmm.launches == before + 1
+    torch.cuda.synchronize()
+    ref = moe_gmm_ref(x, w1, w2, act=act)
+    assert out.dtype == dtype and out.shape == x.shape
+    assert torch.count_nonzero(out[-1]) == 0
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_moe_gmm_refuses_what_it_does_not_take(cuda):
+    x, w1, w2 = _gmm_inputs(2, 8, 32, 16, "swiglu", torch.float32, cuda)
+    with pytest.raises(ValueError):
+        moe_gmm(x.transpose(1, 2).contiguous().transpose(1, 2), w1, w2)
+    with pytest.raises(ValueError):
+        moe_gmm(x.half(), w1.half(), w2.half())
+    with pytest.raises(ValueError):
+        moe_gmm(x, w1.bfloat16(), w2)              # mixed dtypes
+    with pytest.raises(ValueError):
+        moe_gmm(x, w1, w2, act="gelu")             # w1 is [gate | up]
+    with pytest.raises(ValueError):
+        moe_gmm(x, w1[..., :20].contiguous(), w2[:, :10].contiguous())
+    with pytest.raises(ValueError):
+        moe_gmm(x, w1.cpu(), w2)

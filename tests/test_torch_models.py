@@ -14,9 +14,14 @@ packages:
 * the layers (norms, RoPE with a q offset, the four MLP activations,
   embedding, the decode head, greedy sampling with a tie);
 * ``forward`` for the dense, parallel and swa-qk configs of
-  ``tests/test_decode.py`` and the gemma3-1b and olmo-1b smoke configs:
-  float32 at atol = rtol = 1e-4 (the same sums in another order),
-  bfloat16 at 2e-2.
+  ``tests/test_decode.py``, the gemma3-1b and olmo-1b smoke configs and
+  the olmoe-1b-7b and moonshot-v1-16b-a3b (moe) smoke configs: float32
+  at atol = rtol = 1e-4 (the same sums in another order), bfloat16 at
+  2e-2; the aux terms (router losses, dropped fraction) at 1e-5.  A moe
+  model in bfloat16 runs its expert FFN with ``h`` rounded to bfloat16
+  between the products, as the reference's einsums round it
+  (:func:`rounding_h_gmm`); the port's kernel keeps ``h`` in float32, and
+  ``tests/test_torch_moe.py`` measures what that changes.
 """
 import dataclasses
 
@@ -41,6 +46,7 @@ from repro.models.registry import build_model as r_build_model
 import repro_torch.configs as p_configs
 import repro_torch.models.attention as p_attn
 import repro_torch.models.layers as p_layers
+import repro_torch.models.moe as p_moe
 from repro_torch.distributed import local_comm
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.rmsnorm import rmsnorm
@@ -283,6 +289,8 @@ MODEL_CASES = {
                       swa_every_nth_global=3, qk_norm=True),
     "gemma3-1b-smoke": r_get_smoke("gemma3-1b"),
     "olmo-1b-smoke": r_get_smoke("olmo-1b"),
+    "olmoe-1b-7b-smoke": r_get_smoke("olmoe-1b-7b"),
+    "moonshot-v1-16b-a3b-smoke": r_get_smoke("moonshot-v1-16b-a3b"),
 }
 
 
@@ -294,6 +302,15 @@ def reference_compiled(fn, *args):
     or two instead of drifting apart through the layers."""
     return jax.jit(fn).lower(*args).compile(
         compiler_options={"xla_allow_excess_precision": False})
+
+
+def rounding_h_gmm(x, w1, w2, *, act="swiglu"):
+    """The reference moe_block's expert FFN (``models/moe.py:123-127``):
+    ``h`` rounded to x.dtype after the first product and through the
+    activation, where the port's kernel keeps it in float32."""
+    h = torch.einsum("ecd,edf->ecf", x.float(), w1.float()).to(x.dtype)
+    h = p_layers.mlp_activation(act, h)
+    return torch.einsum("ecf,efd->ecd", h.float(), w2.float()).to(x.dtype)
 
 
 def carried_model(cfg: RConfig, dtype: str, seed: int = 0):
@@ -310,16 +327,21 @@ def carried_model(cfg: RConfig, dtype: str, seed: int = 0):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", list(MODEL_CASES))
-def test_forward_matches_reference(name, dtype):
+def test_forward_matches_reference(name, dtype, monkeypatch):
     rcfg, params, pcfg, pparams = carried_model(MODEL_CASES[name], dtype)
+    if rcfg.family == "moe" and dtype == "bfloat16":
+        monkeypatch.setattr(p_moe, "moe_gmm", rounding_h_gmm)
     tok = np.random.default_rng(10).integers(0, rcfg.vocab, size=(12, 2))
     args = (params, jnp.asarray(tok, jnp.int32))
-    want = reference_compiled(lambda p, t: r_build_model(rcfg).forward(
-        p, {"tokens": t}, remat=False)[0], *args)(*args)
+    want, waux = reference_compiled(lambda p, t: r_build_model(rcfg).forward(
+        p, {"tokens": t}, remat=False), *args)(*args)
     got, aux = build_model(pcfg, device="cpu").forward(
         pparams, {"tokens": torch.from_numpy(tok.astype(np.int32))})
     assert got.shape == want.shape and got.dtype == DTYPES[dtype][1]
-    assert set(aux) == {"aux_lb", "aux_z", "dropped_frac"}
+    assert set(aux) == set(waux) == {"aux_lb", "aux_z", "dropped_frac"}
+    for k in aux:
+        np.testing.assert_allclose(float(aux[k]), float(waux[k]),
+                                   rtol=1e-5, atol=1e-7)
     tol = 1e-4 if dtype == "float32" else 2e-2
     np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
 

@@ -10,9 +10,15 @@
 * ``PagedKVAllocator`` and ``ServeScheduler`` pass the cases of
   ``tests/test_decode.py``.
 * ``repro_torch.launch.serve`` completes every request on the CPU for
-  gemma3 and OLMo smoke configs, with and without ``--transport``, and
-  its loop gives the reference launcher loop's token stream for the same
-  carried params and prompts.
+  the gemma3, OLMo and olmoe smoke configs, with and without
+  ``--transport``, and its loop gives the reference launcher loop's
+  token stream for the same carried params and prompts (gemma3 and
+  olmoe).
+
+The moe smoke configs (olmoe-1b-7b, moonshot-v1-16b-a3b with its shared
+expert) run the same decode and prefill checks in float32: a decode step
+routes its b tokens with a capacity of 8 slots an expert, as the
+reference's does.
 """
 import numpy as np
 import pytest
@@ -46,7 +52,8 @@ NEAR = 1e-4
 #: (case, position, row) where the reference's top two logits were
 #: within NEAR and the port took the other one
 NEAR_TIES = []
-SERVE_CASES = ["dense", "parallel", "swa-qk", "gemma3-1b-smoke"]
+SERVE_CASES = ["dense", "parallel", "swa-qk", "gemma3-1b-smoke",
+               "olmoe-1b-7b-smoke", "moonshot-v1-16b-a3b-smoke"]
 
 
 def _tokens(cfg, s=S, b=B, seed=1):
@@ -108,7 +115,8 @@ def test_serve_step_matches_reference_and_forward(case):
     assert (got == oracle).mean() > 0.95
 
 
-@pytest.mark.parametrize("case", ["dense", "gemma3-1b-smoke"])
+@pytest.mark.parametrize("case", ["dense", "gemma3-1b-smoke",
+                                  "olmoe-1b-7b-smoke"])
 def test_prefill_step_matches_reference(case):
     rcfg, params, pcfg, pparams = carried_model(MODEL_CASES[case], "float32")
     tokens = _tokens(rcfg, s=12)
@@ -126,8 +134,9 @@ def test_prefill_step_matches_reference(case):
 
 def test_unported_paths_raise():
     from repro_torch.configs import get_smoke
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(get_smoke("mamba2-370m"), device="cpu")
+    for arch in ("mamba2-370m", "hymba-1.5b"):        # ssm, hybrid
+        with pytest.raises(NotImplementedError, match="not ported"):
+            build_model(get_smoke(arch), device="cpu")
     pcfg = carried_model(MODEL_CASES["dense"], "float32")[2]
     with pytest.raises(NotImplementedError, match="not ported"):
         make_serve_step(pcfg, tp2d=True)
@@ -217,7 +226,7 @@ class TestScheduler:
 # the launcher
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "olmo-1b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "olmo-1b", "olmoe-1b-7b"])
 @pytest.mark.parametrize("transport", [False, True])
 def test_launcher_completes_every_request(arch, transport, capsys):
     argv = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "8",
@@ -235,8 +244,17 @@ def test_launcher_loop_matches_reference_launcher():
     port's :func:`serve`, on the same carried params and prompts, emit
     the same token stream per request: 6 requests, 4 slots, so the
     second wave decodes on the cache the first one left."""
-    rcfg, params, pcfg, pparams = carried_model(MODEL_CASES["gemma3-1b-smoke"],
-                                                "float32")
+    _launcher_loops_agree("gemma3-1b-smoke")
+
+
+def test_launcher_loop_matches_reference_launcher_moe():
+    """The same for olmoe's smoke config: each round routes the active
+    slots through the experts (capacity 8 an expert)."""
+    _launcher_loops_agree("olmoe-1b-7b-smoke")
+
+
+def _launcher_loops_agree(case):
+    rcfg, params, pcfg, pparams = carried_model(MODEL_CASES[case], "float32")
     requests, max_new, max_batch, cache_len = 6, 5, 4, 32
     # the reference launcher's loop, as repro/launch/serve.py runs it
     serve = jax.jit(r_make_serve_step(rcfg))
