@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one GPU: the fused-doorbell
-message path, gemma3-1b serving and olmoe-1b-7b (MoE) serving at full
-width.
+message path, gemma3-1b serving, olmoe-1b-7b (MoE) serving, mamba2-370m
+(SSM) serving and hymba-1.5b (hybrid) serving at full width.
 
     python3 chip_smoke.py            # from the repository root; one card
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown
@@ -51,10 +51,31 @@ The phases:
 10. olmoe-1b-7b's full config in bf16: ``make_prefill_step`` on 4 prompts
    of 1024 tokens (exactly 16 flash-attention, 65 RMSNorm and 16 MoE
    grouped-matmul launches a call), then the serve launcher's loop as in
-   phase 7 (65 RMSNorm and 16 grouped-matmul launches a step).
+   phase 7 (65 RMSNorm and 16 grouped-matmul launches a step);
+11. the SSD scan (B5) against its plain recurrence: the cases of
+   ``tests/test_kernels.py::test_ssd_sweep`` (float32 and bf16),
+   mamba2-370m's prefill shape (x (4, 32, 2048, 64), N 128) and
+   hymba-1.5b's (x (4, 50, 2048, 64), N 16) in bf16 and float32, a ragged
+   s = 1000 with an initial state in and the final state out, s = 1, and
+   a large dt (exp(cum) underflows); each timed case also times the
+   chunked plain version (``models/ssm.py::ssd_chunked``; no single
+   PyTorch call computes the scan); flash attention (B2) at hymba's
+   prefill shape (GQA 25:5, dh 64, window 1024 and global) and RMSNorm
+   (B3) at the two models' shapes;
+12. mamba2-370m's full config in float32 (seeded random weights): decode
+   against forward as in phase 6;
+13. mamba2-370m's full config in bf16: ``make_prefill_step`` on 4 prompts
+   of 2048 tokens (exactly 48 SSD-scan and 97 RMSNorm launches a call:
+   norm1 and the gated norm a layer, plus the final norm), then the serve
+   launcher's loop as in phase 7 (97 RMSNorm and no SSD-scan launch a
+   step);
+14. hymba-1.5b's full config in bf16: prefill of 4 x 2048 tokens (exactly
+   32 flash-attention, 32 SSD-scan and 161 RMSNorm launches a call: norm1,
+   the gated norm, the two mix norms and norm2 a layer, plus the final
+   norm), then the same launcher loop (161 RMSNorm launches a step).
 
-The launch counts are set to 0 just before phases 4, 7 and 10 and read
-just after.  Every phase raises on failure; nothing is caught.  Each phase
+The launch counts are set to 0 just before phases 4, 7, 10, 13 and 14 and
+read just after.  Every phase raises on failure; nothing is caught.  Each phase
 prints one JSON record; the line before the last is the card's name and
 power limit, then the ``kernels`` record, and the last line is
 ``{"ok": true, "device": {...}}``.  With no CUDA device the script exits
@@ -719,8 +740,10 @@ SERVE_ARGS = dict(requests=16, max_new=16, max_batch=8, cache_len=256)
 #: (a layer each), B3 (gemma3: norm1, q_norm, k_norm, norm2 a layer + the
 #: final norm; olmoe the same four), B4 (one a moe layer)
 SERVING = {
-    "gemma3-1b": dict(batch=4, seq=2048, flash=26, rms=105, moe=0),
-    "olmoe-1b-7b": dict(batch=4, seq=1024, flash=16, rms=65, moe=16),
+    "gemma3-1b": dict(batch=4, seq=2048, flash=26, rms=105, moe=0, ssd=0),
+    "olmoe-1b-7b": dict(batch=4, seq=1024, flash=16, rms=65, moe=16, ssd=0),
+    "mamba2-370m": dict(batch=4, seq=2048, flash=0, rms=97, moe=0, ssd=48),
+    "hymba-1.5b": dict(batch=4, seq=2048, flash=32, rms=161, moe=0, ssd=32),
 }
 
 
@@ -728,8 +751,9 @@ def _counts():
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
     return (flash_attention_bhsd.launches, rmsnorm.launches,
-            moe_gmm.launches)
+            moe_gmm.launches, ssd_scan_bhsp.launches)
 
 
 def serving_phase(torch, arch: str, profile: bool):
@@ -743,7 +767,7 @@ def serving_phase(torch, arch: str, profile: bool):
     from repro_torch.serving import make_prefill_step
     want = SERVING[arch]
     pb, ps = want["batch"], want["seq"]
-    per_call = (want["flash"], want["rms"], want["moe"])
+    per_call = (want["flash"], want["rms"], want["moe"], want["ssd"])
     cfg = get_config(arch)
     model = build_model(cfg, device=DEVICE)
     t0 = time.perf_counter()
@@ -770,7 +794,8 @@ def serving_phase(torch, arch: str, profile: bool):
         got = tuple(b - a for a, b in zip(c0, _counts()))
         if got != per_call:
             raise AssertionError(f"{arch} prefill launched (flash, RMSNorm, "
-                                 f"MoE GMM) {got} times (want {per_call})")
+                                 f"MoE GMM, SSD scan) {got} times (want "
+                                 f"{per_call})")
     if not torch.isfinite(last.float()).all() or tok.shape != (pb,) \
             or not ((tok >= 0) & (tok < cfg.vocab)).all():
         raise AssertionError(f"{arch} prefill: bad tokens or non-finite "
@@ -781,14 +806,15 @@ def serving_phase(torch, arch: str, profile: bool):
     # decode: the launcher's loop
     c0 = _counts()
     out = serve(cfg, params, device=DEVICE, **SERVE_ARGS)
-    nf, nr, nm = (b - a for a, b in zip(c0, _counts()))
+    nf, nr, nm, ns = (b - a for a, b in zip(c0, _counts()))
     steps = out["decode_calls"]
     if steps == 0 or nr != want["rms"] * steps or nm != want["moe"] * steps:
         raise AssertionError(f"{arch} decode: {nr} RMSNorm and {nm} MoE GMM "
                              f"launches in {steps} steps (want "
                              f"{want['rms']} and {want['moe']} a step)")
-    if nf:
-        raise AssertionError("decode launched the prefill attention kernel")
+    if nf or ns:
+        raise AssertionError("decode launched the prefill attention or the "
+                             "SSD-scan kernel")
     if out["completed"] != SERVE_ARGS["requests"] or any(
             r is None or len(r) != SERVE_ARGS["max_new"] or
             not ((r >= 0) & (r < cfg.vocab)).all() for r in out["results"]):
@@ -804,6 +830,7 @@ def serving_phase(torch, arch: str, profile: bool):
                        "flash_launches_per_call": want["flash"],
                        "rmsnorm_launches_per_call": want["rms"],
                        "moe_gmm_launches_per_call": want["moe"],
+                       "ssd_scan_launches_per_call": want["ssd"],
                        "peak_memory_bytes": prefill_peak},
            "decode": {**SERVE_ARGS, "prompt_len": PROMPT_LEN,
                       "completed": out["completed"],
@@ -840,7 +867,7 @@ def profile_phase(torch, cfg, params, tokens):
         total = sum(r[1] for r in rows)
         mine = {n: sum(r[1] for r in rows if n in r[0])
                 for n in ("flash_fwd_kernel", "rmsnorm_kernel",
-                          "gmm_kernel")}
+                          "gmm_kernel", "ssd_scan_kernel")}
         return {"wall_ms": wall_s * 1e3, "device_ms": total,
                 "device_busy_share": total / (wall_s * 1e3),
                 "hand_written_ms": mine,
@@ -1004,6 +1031,147 @@ def moe_kernel_phase(torch):
     return moe, flash
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the SSD scan (B5) against its plain version
+# ---------------------------------------------------------------------------
+
+SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:68"
+#: the kernel's own chunk length (csrc/ssd_scan.cu), for the operation count
+SSD_KERNEL_CHUNK = 64
+
+
+def ssd_flops(bs, h, s, p, g, n) -> int:
+    """The chunked algorithm's useful work at the kernel's chunk length:
+    C.B^T once a (batch, group) over each chunk's causal pairs, the
+    intra-chunk product with x, the incoming-state product and the state
+    update (each 2 flops a multiply-add)."""
+    L = SSD_KERNEL_CHUNK
+    pairs = sum(lc * (lc + 1) // 2 for lc in
+                (min(L, s - t0) for t0 in range(0, s, L)))
+    return 2 * bs * (g * pairs * n + h * pairs * p + 2 * h * s * n * p)
+
+
+def ssd_case(torch, label, bs, h, s, p, g, n, dtype, gen, *, chunk=128,
+             with_h0=False, dt_scale=1.0, time_it=True):
+    """B5 on x (bs, h, s, p), dt (bs, h, s), b/c (bs, g, s, n) against the
+    plain per-step recurrence, at tests/test_kernels.py::test_ssd_sweep's
+    tolerance (5e-4 float32, 5e-2 bf16) and distributions (dt =
+    softplus(N(0, 1)) times ``dt_scale``, x divided by it, so that the
+    decays dt·A grow while dt·x, and so y and the rounding of its sums,
+    stay at the sweep's scale); the final state at 5e-4.  The
+    timed cases also time the chunked plain version at the config's chunk
+    ``chunk``, on the model's seq-major layout."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import ssd_scan_bhsp, ssd_scan_ref
+    from repro_torch.models.ssm import ssd_chunked
+    x = (torch.randn(bs, h, s, p, generator=gen, device=DEVICE) / dt_scale
+         ).to(dtype)
+    dt = F.softplus(torch.randn(bs, h, s, generator=gen,
+                                device=DEVICE)) * dt_scale
+    a_log = torch.randn(h, generator=gen, device=DEVICE) * 0.5
+    b = (torch.randn(bs, g, s, n, generator=gen, device=DEVICE) * 0.3
+         ).to(dtype)
+    c = (torch.randn(bs, g, s, n, generator=gen, device=DEVICE) * 0.3
+         ).to(dtype)
+    d = torch.randn(h, generator=gen, device=DEVICE)
+    h0 = (torch.randn(bs, h, n, p, generator=gen, device=DEVICE)
+          if with_h0 else None)
+    y, h_final = ssd_scan_bhsp(x, dt, a_log, b, c, d, h0=h0)
+    ref_y, ref_h = ssd_scan_ref(x, dt, a_log, b, c, d, h0=h0)
+    torch.cuda.synchronize()
+    tol = 5e-2 if dtype == torch.bfloat16 else 5e-4
+    errs = []
+    for what, out, ref, t in (("y", y, ref_y, tol),
+                              ("h_final", h_final, ref_h, 5e-4)):
+        a_, b_ = out.double(), ref.double()
+        if not torch.isfinite(a_).all():
+            raise AssertionError(f"{label}: non-finite kernel {what}")
+        bad = (a_ - b_).abs() > t + t * b_.abs()
+        if bad.any():
+            raise AssertionError(
+                f"{label}: {int(bad.sum())} of {bad.numel()} elements of "
+                f"{what} differ from the plain version beyond {t} (max abs "
+                f"{float((a_ - b_).abs().max())})")
+        errs.append(float((a_ - b_).abs().max()))
+    dname = str(dtype).split(".")[1]
+    flops = ssd_flops(bs, h, s, p, g, n)
+    nbytes = (x.nbytes + dt.nbytes + b.nbytes + c.nbytes + a_log.nbytes +
+              d.nbytes + y.nbytes + h_final.nbytes +
+              (h0.nbytes if with_h0 else 0))
+    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    case = {"case": label, "shape_x": [bs, h, s, p], "groups": g,
+            "state": n, "dtype": dname, "h0": with_h0, "dt_scale": dt_scale,
+            "ok": True, "max_abs_err": errs[0], "h_final_max_abs_err":
+            errs[1], "tolerance": tol, "flops": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+    del ref_y, ref_h
+    if time_it:
+        sets = cold_sets((x, dt, b, c))
+        case["kernel_ms"] = device_ms(
+            lambda t: ssd_scan_bhsp(t[0], t[1], a_log, t[2], t[3], d), sets)
+        # the plain chunked version, on the model's seq-major tensors
+        seq = [(t[0].permute(2, 0, 1, 3).contiguous(),
+                t[1].permute(2, 0, 1).contiguous(),
+                t[2].permute(2, 0, 1, 3).contiguous(),
+                t[3].permute(2, 0, 1, 3).contiguous()) for t in sets[:2]]
+        case["plain_ms"] = device_ms(
+            lambda t: ssd_chunked(t[0], t[1], a_log, t[2], t[3], d,
+                                  chunk=chunk), seq)
+        case["plain_chunk"] = chunk
+        case["achieved_GB_per_s"] = nbytes / case["kernel_ms"] / 1e6
+        case["achieved_tflops"] = flops / case["kernel_ms"] / 1e9
+        del sets, seq
+    del x, dt, b, c, y, h_final
+    torch.cuda.empty_cache()
+    return case
+
+
+def ssd_kernel_phase(torch):
+    """B5 over tests/test_kernels.py's sweep, at mamba2-370m's and
+    hymba-1.5b's prefill shapes, a ragged s with h0 in and h_final out,
+    s = 1 and a large dt; B2 at hymba's prefill shape; B3 at the two
+    models' shapes.  Returns (ssd cases, flash cases, rmsnorm cases)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    f32, bf16 = torch.float32, torch.bfloat16
+    ssd = []
+    for dtype in (f32, bf16):
+        dn = str(dtype).split(".")[1]
+        for bs, h, s, p, g, n, chunk in ((2, 4, 64, 16, 2, 8, 16),
+                                         (1, 4, 128, 32, 1, 16, 32),
+                                         (3, 6, 48, 8, 3, 4, 16)):
+            ssd.append(ssd_case(torch, f"sweep_{dn}_{bs}x{h}x{s}x{p}_g{g}"
+                                f"_n{n}", bs, h, s, p, g, n, dtype, gen,
+                                chunk=chunk, time_it=False))
+    for dtype in (bf16, f32):
+        dn = str(dtype).split(".")[1]
+        ssd.append(ssd_case(torch, f"mamba2_prefill_{dn}", 4, 32, 2048, 64,
+                            1, 128, dtype, gen, chunk=256))
+        ssd.append(ssd_case(torch, f"hymba_prefill_{dn}", 4, 50, 2048, 64,
+                            1, 16, dtype, gen, chunk=128))
+    ssd.append(ssd_case(torch, "ragged_s1000_h0_bfloat16", 1, 32, 1000, 64,
+                        1, 128, bf16, gen, with_h0=True, time_it=False))
+    ssd.append(ssd_case(torch, "s1_h0_bfloat16", 4, 32, 1, 64, 1, 128, bf16,
+                        gen, with_h0=True, time_it=False))
+    ssd.append(ssd_case(torch, "large_dt_float32", 2, 32, 2048, 64, 1, 128,
+                        f32, gen, dt_scale=40.0, time_it=False))
+    flash = [flash_case(torch, f"hymba_prefill_{name}_bfloat16", 4, 25, 5,
+                        2048, 2048, 64, True, window, 0, bf16, gen)
+             for window, name in ((1024, "local1024"),
+                                  (GEMMA_GLOBAL, "global"))]
+    rms = [rmsnorm_case(torch, f"{name}_bfloat16_{rows}x{d}", rows, d, bf16,
+                        gen)
+           for name, rows, d in (("mamba2_prefill", 8192, 1024),
+                                 ("mamba2_gated", 8192, 2048),
+                                 ("hymba_prefill", 8192, 1600),
+                                 ("mamba2_decode_gated", 8, 2048))]
+    return ssd, flash, rms
+
+
 def _summary(cases, keys):
     return [{k: c.get(k) for k in keys} for c in cases]
 
@@ -1013,7 +1181,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of one prefill "
-                         "call and 8 decode steps to phases 7 and 10")
+                         "call and 8 decode steps to phases 7, 10, 13 and "
+                         "14")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1025,8 +1194,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
     counters = (stage_copy, stage_copy_push, flash_attention_bhsd, rmsnorm,
-                moe_gmm)
+                moe_gmm, ssd_scan_bhsp)
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1115,15 +1285,57 @@ def main(argv=None) -> int:
         raise AssertionError("the moe serving path launched no "
                              "flash-attention, RMSNorm or MoE GMM kernel")
 
+    # 11. the SSD scan (B5) against its plain version
+    t0 = time.perf_counter()
+    ssd, flash_ssm, rms_ssm = ssd_kernel_phase(torch)
+    record("ssd_kernel_cases", seconds=time.perf_counter() - t0,
+           ssd_scan=ssd, flash_attention=flash_ssm, rmsnorm=rms_ssm)
+
+    # 12. mamba2-370m at full width in float32: decode against forward
+    t0 = time.perf_counter()
+    parity = model_parity_phase(torch, "mamba2-370m")
+    record("ssm_model_parity", seconds=time.perf_counter() - t0, **parity)
+
+    # 13. the ssm serving path: counts set to 0 just before, read after
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    served = serving_phase(torch, "mamba2-370m", args.profile)
+    s_rms, s_ssd = rmsnorm.launches, ssd_scan_bhsp.launches
+    record("ssm_serving_main_path", seconds=time.perf_counter() - t0,
+           flash_attention_launches=flash_attention_bhsd.launches,
+           rmsnorm_launches=s_rms, moe_gmm_launches=moe_gmm.launches,
+           ssd_scan_launches=s_ssd, **served)
+    if s_rms == 0 or s_ssd == 0:
+        raise AssertionError("the ssm serving path launched no RMSNorm or "
+                             "SSD-scan kernel")
+
+    # 14. the hybrid serving path: counts set to 0 just before, read after
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    served = serving_phase(torch, "hymba-1.5b", args.profile)
+    y_flash, y_rms, y_ssd = (flash_attention_bhsd.launches, rmsnorm.launches,
+                             ssd_scan_bhsp.launches)
+    record("hybrid_serving_main_path", seconds=time.perf_counter() - t0,
+           flash_attention_launches=y_flash, rmsnorm_launches=y_rms,
+           moe_gmm_launches=moe_gmm.launches, ssd_scan_launches=y_ssd,
+           **served)
+    if y_flash == 0 or y_rms == 0 or y_ssd == 0:
+        raise AssertionError("the hybrid serving path launched no "
+                             "flash-attention, RMSNorm or SSD-scan kernel")
+
     # the kernels line: headline numbers at each main path's shape
     head = next(c for c in cases if c["case"] == "f32_64x16384_bf160")
     fhead = next(c for c in flash
                  if c["case"] == "gemma3_prefill_local512_bfloat16")
     rhead = next(c for c in rms if c["case"] == "serve_bfloat16_8192x1152")
     mhead = next(c for c in moe if c["case"] == "olmoe_decode_bfloat16")
+    shead = next(c for c in ssd if c["case"] == "mamba2_prefill_bfloat16")
     timed = ("case", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
              "bound_by", "max_abs_err")
-    flash += flash_moe
+    flash += flash_moe + flash_ssm
+    rms += rms_ssm
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "doorbell.stage_copy", "route": "cuda", "source": SOURCE,
@@ -1138,8 +1350,9 @@ def main(argv=None) -> int:
             "library_ms", "kernel_call_ms", "plain_call_ms", "bound_ms")}
             for c in cases]}, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_REPLACES, "launches": n_flash + m_flash,
-        "launches_by_path": {"gemma3-1b": n_flash, "olmoe-1b-7b": m_flash},
+        "replaces": FLASH_REPLACES, "launches": n_flash + m_flash + y_flash,
+        "launches_by_path": {"gemma3-1b": n_flash, "olmoe-1b-7b": m_flash,
+                             "mamba2-370m": 0, "hymba-1.5b": y_flash},
         "max_abs_err": max(c["max_abs_err"] for c in flash),
         "ms": fhead["kernel_ms"], "plain_ms": fhead["plain_ms"],
         "bound_ms": fhead["bound_ms"], "bound_by": fhead["bound_by"],
@@ -1147,8 +1360,9 @@ def main(argv=None) -> int:
         "shape_kv": fhead["shape_kv"], "window": fhead["window"],
         "cases": _summary([c for c in flash if "kernel_ms" in c], timed)}, {
         "name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
-        "replaces": RMS_REPLACES, "launches": n_rms + m_rms,
-        "launches_by_path": {"gemma3-1b": n_rms, "olmoe-1b-7b": m_rms},
+        "replaces": RMS_REPLACES, "launches": n_rms + m_rms + s_rms + y_rms,
+        "launches_by_path": {"gemma3-1b": n_rms, "olmoe-1b-7b": m_rms,
+                             "mamba2-370m": s_rms, "hymba-1.5b": y_rms},
         "max_abs_err": max(c["max_abs_err"] for c in rms),
         "ms": rhead["kernel_ms"], "plain_ms": rhead["plain_ms"],
         "bound_ms": rhead["bound_ms"], "bound_by": "bytes",
@@ -1162,6 +1376,16 @@ def main(argv=None) -> int:
         "library_ms": mhead["library_ms"], "shape": mhead["shape_x"],
         "f": mhead["f"], "act": mhead["act"],
         "cases": _summary([c for c in moe if "kernel_ms" in c],
+                          timed)}, {
+        "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
+        "replaces": SSD_REPLACES, "launches": s_ssd + y_ssd,
+        "launches_by_path": {"mamba2-370m": s_ssd, "hymba-1.5b": y_ssd},
+        "max_abs_err": max(c["max_abs_err"] for c in ssd),
+        "ms": shead["kernel_ms"], "plain_ms": shead["plain_ms"],
+        "bound_ms": shead["bound_ms"], "bound_by": shead["bound_by"],
+        "library_ms": None, "shape_x": shead["shape_x"],
+        "state": shead["state"], "plain_chunk": shead["plain_chunk"],
+        "cases": _summary([c for c in ssd if "kernel_ms" in c],
                           timed)}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

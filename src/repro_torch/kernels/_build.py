@@ -10,8 +10,8 @@ at first use on the card.
 
 ``--use_fast_math`` is deliberately absent: it would flush subnormals in
 the doorbell's float32 -> bfloat16 conversion and swap the exact
-``expf`` / ``sqrtf`` / ``tanhf`` of flash attention, RMSNorm and the MoE
-grouped matmul for approximations.
+``expf`` / ``sqrtf`` / ``tanhf`` of flash attention, RMSNorm, the MoE
+grouped matmul and the SSD scan for approximations.
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ BUILD = os.path.join(os.path.dirname(os.path.dirname(_PKG)), "build")
 SOURCES = {"doorbell": "doorbell.cu",
            "flash_attention": "flash_attention.cu",
            "rmsnorm": "rmsnorm.cu",
-           "moe_gmm": "moe_gmm.cu"}
+           "moe_gmm": "moe_gmm.cu",
+           "ssd_scan": "ssd_scan.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

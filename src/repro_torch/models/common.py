@@ -188,6 +188,14 @@ class ParamFactory:
         return truncated_normal_init(self.gen, shape, scale, self.dtype,
                                      self.device)
 
+    def zeros(self, name: str, shape: Tuple[int, ...], *,
+              tp_axis: Optional[int] = None,
+              fsdp_axis: Optional[int] = None, stacked: bool = True,
+              dtype=None) -> torch.Tensor:
+        self.specs[name] = ParamSpec(tp_axis, fsdp_axis, stacked)
+        return torch.zeros(shape, dtype=dtype or self.dtype,
+                           device=self.device)
+
     def ones(self, name: str, shape: Tuple[int, ...], *,
              tp_axis: Optional[int] = None,
              fsdp_axis: Optional[int] = None, stacked: bool = True,

@@ -1,12 +1,16 @@
-"""Language models: init and forward, dense and moe families (PyTorch port).
+"""Language models: init and forward, dense, moe, ssm and hybrid families
+(PyTorch port).
 
 The mirror of :mod:`repro.models.lm` for the dense family (GQA,
-sliding-window, qk-norm and parallel-block transformers) and the moe
-family (a :mod:`.moe` block in place of the MLP, plus an optional shared
-expert).  The layer stack is a Python loop over the stacked ``(L, ...)``
-parameters (the reference's ``lax.scan``); there is no autograd here, so
-no remat.  The ssm, hybrid, vlm and audio families, the loss and remat
-are not ported yet (ROADMAP.md).
+sliding-window, qk-norm and parallel-block transformers), the moe family
+(a :mod:`.moe` block in place of the MLP, plus an optional shared
+expert), the ssm family (a Mamba2 :mod:`.ssm` mixer a layer, no MLP) and
+the hybrid family (attention and the SSM mixer side by side on the same
+normed input, their outputs RMS-normed and averaged, then an MLP).  The
+layer stack is a Python loop over the stacked ``(L, ...)`` parameters
+(the reference's ``lax.scan``); there is no autograd here, so no remat.
+The vlm and audio families, the loss and remat are not ported yet
+(ROADMAP.md).
 
 Batch convention (seq-major local view):
     tokens  (s_local, b)   int
@@ -21,10 +25,12 @@ from ..distributed.comm import Comm
 from .blocks import TPPlan, init_attention, init_mlp, swa_attention_op, \
     tp_plan
 from .common import ModelConfig, ParamFactory
-from .layers import apply_norm, embed_tokens, gated_activation, mlp_block
+from .layers import (apply_norm, embed_tokens, gated_activation, mlp_block,
+                     rms_norm)
 from .moe import init_moe, moe_block
+from .ssm import init_ssm, ssm_op
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 _AUX_KEYS = ("aux_lb", "aux_z", "dropped_frac")
 
 
@@ -48,17 +54,24 @@ def _init_norm(pf: ParamFactory, cfg: ModelConfig, name: str, L: int):
 
 def _init_layer_stack(pf: ParamFactory, cfg: ModelConfig, L: int
                       ) -> Dict[str, torch.Tensor]:
-    """One homogeneous stack of L dense or moe layers."""
+    """One homogeneous stack of L layers of a ported family, in the
+    reference's init order."""
     p: Dict[str, torch.Tensor] = {}
     p.update(_init_norm(pf, cfg, "norm1", L))
-    p.update(init_attention(pf, cfg, stacked_layers=L))
+    if cfg.family != "ssm":
+        p.update(init_attention(pf, cfg, stacked_layers=L))
+    if cfg.family in ("ssm", "hybrid"):
+        p.update(init_ssm(pf, cfg, stacked_layers=L))
+    if cfg.family == "hybrid":
+        p["mix_norm_a"] = pf.ones("mix_norm_a", (L, cfg.d_model))
+        p["mix_norm_s"] = pf.ones("mix_norm_s", (L, cfg.d_model))
     if cfg.family == "moe":
         p.update(_init_norm(pf, cfg, "norm2", L))
         p.update(init_moe(pf, cfg, stacked_layers=L))
         if cfg.shared_expert_ff:
             p.update(init_mlp(pf, cfg, prefix="shared_", stacked_layers=L,
                               d_ff=cfg.shared_expert_ff))
-    elif cfg.d_ff and not cfg.parallel_block:
+    elif cfg.family != "ssm" and cfg.d_ff and not cfg.parallel_block:
         p.update(_init_norm(pf, cfg, "norm2", L))
         p.update(init_mlp(pf, cfg, stacked_layers=L))
     elif cfg.parallel_block and cfg.d_ff:
@@ -110,10 +123,18 @@ def _mlp_op(x, lp, cfg, comm, prefix: str = "") -> torch.Tensor:
 
 def _decoder_block(x, lp, idx: int, cfg: ModelConfig, comm: Comm,
                    plan: TPPlan, q_offset: int) -> Tuple[torch.Tensor, Dict]:
-    """One dense or moe decoder layer; returns (x', aux)."""
+    """One decoder layer of a ported family; returns (x', aux)."""
     h = apply_norm(cfg.norm, x, lp.get("norm1"))
+    if cfg.family == "ssm":
+        return x + ssm_op(h, lp, cfg, comm, plan), {}
     attn = swa_attention_op(h, lp, cfg, comm, plan, layer_idx=idx,
                             q_offset=q_offset)
+    if cfg.family == "hybrid":
+        s_out = ssm_op(h, lp, cfg, comm, plan)
+        x = x + 0.5 * (rms_norm(attn, lp["mix_norm_a"])
+                       + rms_norm(s_out, lp["mix_norm_s"]))
+        h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
+        return x + _mlp_op(h2, lp, cfg, comm), {}
     if cfg.parallel_block:                       # Cohere: attn ∥ mlp
         return x + attn + _mlp_op(h, lp, cfg, comm), {}
     x = x + attn

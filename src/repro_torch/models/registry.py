@@ -41,8 +41,7 @@ class Model:
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """A :class:`Model` on ``device`` (default ``cuda``; no GPU and no
-    ``"cpu"`` raises).  Families other than dense and moe raise "not
-    ported"."""
+    ``"cpu"`` raises).  The vlm and audio families raise "not ported"."""
     lm.require_ported(cfg, "build_model")
     return Model(cfg, resolve_device(device))
 

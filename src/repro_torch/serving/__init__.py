@@ -1,5 +1,6 @@
-"""Serving on the port: the decode/prefill engine for the dense and moe
-families, the paged KV allocator and the continuous-batching scheduler.
+"""Serving on the port: the decode/prefill engine for the dense, moe, ssm
+and hybrid families, the paged KV allocator and the continuous-batching
+scheduler.
 
 Still to port (ROADMAP A6): ``batching`` (``ContinuousBatcher``,
 ``ServePlane``), ``slots`` and ``result_tokens``; ``cache_pspecs`` waits

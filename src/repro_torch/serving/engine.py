@@ -1,19 +1,23 @@
-"""Serving engine: prefill and single-token decode, dense and moe (port).
+"""Serving engine: prefill and single-token decode, dense, moe, ssm and
+hybrid (port).
 
 The mirror of :mod:`repro.serving.engine` at tp = dp = 1.
 
 Cache layout (the reference's global view)::
 
-    k/v  (L, S, B, n_kv, dh)     cfg.dtype, on the model's device
+    k/v        (L, S, B, n_kv, dh)     cfg.dtype (every family but ssm)
+    ssm_state  (L, B, H, N, P)         float32   (ssm, hybrid)
+    conv_tail  (L, K-1, B, d_inner)    cfg.dtype (ssm, hybrid)
 
-Differences from the reference, by design:
+all on the model's device.  Differences from the reference, by design:
 
-* The decode step writes the new K/V rows into the cache **in place**
-  (the reference returns an updated copy); the returned
-  :class:`DecodeCache` shares the tensors and carries ``length + 1``.
+* The decode step writes the new K/V rows, the SSM state and the conv
+  tail into the cache **in place** (the reference returns an updated
+  copy); the returned :class:`DecodeCache` shares the tensors and carries
+  ``length + 1``.
 * ``DecodeCache.length`` is a host int, so no decode step reads anything
   back from the card until the sampled tokens are wanted.
-* ``tp2d``, ``joint_kv`` and every family but dense and moe raise "not
+* ``tp2d``, ``joint_kv`` and the vlm and audio families raise "not
   ported" (ROADMAP.md); so do the cross-attention caches.
 
 Per decode step the RMSNorm kernel runs 4 times a layer (norm1, q_norm,
@@ -22,8 +26,15 @@ decode attention itself is plain PyTorch, as the reference has no Pallas
 kernel for it.  A moe layer routes the step's b tokens through
 :func:`~repro_torch.models.moe.moe_block` (one MoE grouped-matmul kernel
 launch a layer; capacity from T = b) and adds the shared expert, if any,
-through the plain MLP.  Prefill is the full-sequence forward, so it also
-runs the flash-attention kernel once a layer.
+through the plain MLP.  An ssm layer runs the mixer's one-token update
+(:func:`_decode_ssm`: the conv window rolled over the cached tail, the
+plain :func:`~repro_torch.models.ssm.ssd_decode_step`, as the reference
+has no kernel for it) and its gated norm (one RMSNorm launch), so an
+ssm decode step launches RMSNorm twice a layer plus the final norm and
+never the SSD-scan kernel; a hybrid layer adds attention, the two mix
+norms and norm2 (five a layer).  Prefill is the full-sequence forward,
+so it also runs the flash-attention kernel once an attention layer and
+the SSD-scan kernel once an ssm or hybrid layer.
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..core.runtime import resolve_device
 from ..distributed.comm import Comm, local_comm
@@ -43,6 +55,8 @@ from ..models.layers import (apply_norm, apply_rope, gated_activation,
                              greedy_sample, lm_head_logits,
                              mlp_activation, rms_norm, vocab_rows)
 from ..models.moe import moe_block
+from ..models.ssm import (gate_norm_out, softplus_dt, ssd_decode_step,
+                          ssm_in_proj)
 
 
 # ---------------------------------------------------------------------------
@@ -53,20 +67,32 @@ from ..models.moe import moe_block
 class DecodeCache:
     k: Optional[torch.Tensor] = None         # (L, S, b, n_kv, dh)
     v: Optional[torch.Tensor] = None
+    ssm_state: Optional[torch.Tensor] = None  # (L, b, H, N, P) float32
+    conv_tail: Optional[torch.Tensor] = None  # (L, K-1, b, d_inner)
     length: int = 0                          # valid positions (host int)
 
 
 def init_cache(cfg: ModelConfig, seq_len: int, batch: int, *,
                device=None) -> DecodeCache:
     """A zeroed cache of ``seq_len`` positions for ``batch`` sequences on
-    ``device`` (default ``cuda``)."""
+    ``device`` (default ``cuda``): K/V for every family with attention,
+    the SSM state and conv tail for ssm and hybrid."""
     lm_mod.require_ported(cfg, "init_cache")
     dev = resolve_device(device)
-    shape = (cfg.n_layers, seq_len, batch, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return DecodeCache(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                       v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                       length=0)
+    c = DecodeCache(length=0)
+    if cfg.family != "ssm":
+        shape = (cfg.n_layers, seq_len, batch, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        c.k = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+        c.v = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    if cfg.family in ("ssm", "hybrid"):
+        c.ssm_state = torch.zeros(
+            (cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_state,
+             cfg.ssm_headdim), dtype=torch.float32, device=dev)
+        c.conv_tail = torch.zeros(
+            (cfg.n_layers, cfg.ssm_conv_kernel - 1, batch, cfg.ssm_d_inner),
+            dtype=cfg.dtype, device=dev)
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +149,29 @@ def _decode_mlp(x, lp, cfg: ModelConfig, comm: Comm, prefix: str = ""
     return torch.matmul(h, w("w_out", 1))
 
 
+def _decode_ssm(x, lp, cfg: ModelConfig, comm: Comm, state, conv_tail,
+                prefix: str = "ssm_") -> torch.Tensor:
+    """The SSM mixer for a single token.  x (b, d); state (b, H, N, P)
+    and conv_tail (K-1, b, d_inner), both updated in place.  Returns
+    (b, d)."""
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    z, xs, dt_raw, b_t, c_t = ssm_in_proj(x, lp, comm, prefix)
+    # causal conv: roll the tail window
+    window = torch.cat([conv_tail, xs[None]], dim=0)        # (K, b, di)
+    xs_c = torch.einsum("kbc,kc->bc", window.float(),
+                        lp[prefix + "conv_w"].float()).to(x.dtype)
+    conv_tail.copy_(window[1:])
+    xs_c = F.silu(xs_c.float()).to(x.dtype)
+    dt = softplus_dt(dt_raw, lp[prefix + "dt_bias"])
+    h_new, y = ssd_decode_step(
+        state, xs_c.reshape(-1, cfg.ssm_heads, cfg.ssm_headdim), dt,
+        lp[prefix + "a_log"], b_t.reshape(-1, g, n), c_t.reshape(-1, g, n),
+        lp[prefix + "d_skip"])
+    state.copy_(h_new)
+    return gate_norm_out(y.reshape(-1, cfg.ssm_d_inner), z, lp, comm,
+                         prefix)
+
+
 # ---------------------------------------------------------------------------
 # serve_step
 # ---------------------------------------------------------------------------
@@ -134,7 +183,7 @@ def make_serve_step(cfg: ModelConfig, comm: Optional[Comm] = None, *,
     tokens: (b,) ints (a tensor or numpy) — the tokens decoded at
     position ``cache.length``; returns the greedily sampled next tokens,
     (b,) int32 on the model's device, and the cache with ``length + 1``
-    (its K/V tensors updated in place)."""
+    (its K/V, SSM-state and conv-tail tensors updated in place)."""
     lm_mod.require_ported(cfg, "make_serve_step")
     if joint_kv or tp2d:
         raise NotImplementedError("make_serve_step: joint_kv and tp2d "
@@ -153,10 +202,21 @@ def make_serve_step(cfg: ModelConfig, comm: Optional[Comm] = None, *,
         for idx in range(cfg.n_layers):
             lp = lm_mod.layer_params(params, idx)
             h = apply_norm(cfg.norm, x, lp.get("norm1"))
+            if cfg.family == "ssm":
+                x = x + _decode_ssm(h, lp, cfg, comm, cache.ssm_state[idx],
+                                    cache.conv_tail[idx])
+                continue
             window = layer_window(cfg, idx) if cfg.sliding_window else 0
             a_out = _decode_attn_layer(h, lp, cfg, comm, plan, cache.k[idx],
                                        cache.v[idx], pos, window)
-            if cfg.parallel_block:
+            if cfg.family == "hybrid":
+                s_out = _decode_ssm(h, lp, cfg, comm, cache.ssm_state[idx],
+                                    cache.conv_tail[idx])
+                x = x + 0.5 * (rms_norm(a_out, lp["mix_norm_a"])
+                               + rms_norm(s_out, lp["mix_norm_s"]))
+                h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
+                x = x + _decode_mlp(h2, lp, cfg, comm)
+            elif cfg.parallel_block:
                 x = x + a_out + _decode_mlp(h, lp, cfg, comm)
             else:
                 x = x + a_out
@@ -173,8 +233,8 @@ def make_serve_step(cfg: ModelConfig, comm: Optional[Comm] = None, *,
         head = comm.weight(params.get("lm_head", params["emb"]),
                            fsdp_axis=1)
         logits = lm_head_logits(x, head, comm, real_vocab=cfg.vocab)
-        return greedy_sample(logits, comm), DecodeCache(
-            k=cache.k, v=cache.v, length=pos + 1)
+        return greedy_sample(logits, comm), dataclasses.replace(
+            cache, length=pos + 1)
 
     return serve_step
 

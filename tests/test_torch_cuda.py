@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions: the doorbell stage copy (B1), flash attention (B2, any head dim
-up to 256), RMSNorm (B3) and the MoE grouped matmul (B4), plus the model
-path's launch counts.
+up to 256), RMSNorm (B3), the MoE grouped matmul (B4) and the SSD scan
+(B5), plus the model path's launch counts.
 
 Every test here is marked ``gpu`` and skips without a CUDA card (the
 decision is taken in a fixture, never at import).  The file imports no
@@ -10,8 +10,8 @@ JAX, so it runs on the card's machine, which has none:
     python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 ``chip_smoke.py`` holds the same kernels at the main paths' shapes and
-drives the message path, gemma3-1b serving and olmoe-1b-7b serving at
-full width.
+drives the message path, gemma3-1b, olmoe-1b-7b, mamba2-370m and
+hymba-1.5b serving at full width.
 """
 import numpy as np
 import pytest
@@ -25,6 +25,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
                                                  flash_attention_ref)
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bhsp,
+                                          ssd_scan_ref)
 from repro_torch.models.registry import build_model
 from repro_torch.serving import init_cache, make_prefill_step, \
     make_serve_step
@@ -188,38 +190,47 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
 
 #: RMSNorm launches a layer, by smoke config: norm1, q_norm, k_norm, norm2
 #: on the qk-norm models; norm1 and norm2 on moonshot; none for command-r's
-#: LayerNorm
+#: LayerNorm; norm1 and the gated norm on mamba2; norm1, the gated norm,
+#: the two mix norms and norm2 on hymba
 RMS_PER_LAYER = {"gemma3-1b": 4, "command-r-plus-104b": 0, "olmoe-1b-7b": 4,
-                 "moonshot-v1-16b-a3b": 2}
+                 "moonshot-v1-16b-a3b": 2, "mamba2-370m": 2,
+                 "hymba-1.5b": 5}
 
 
 @pytest.mark.parametrize("arch", list(RMS_PER_LAYER))
 def test_model_path_launches_the_kernels(cuda, arch):
-    """Prefill: one flash-attention launch a layer; RMSNorm launches on
-    every rmsnorm of the model plus the final norm (none for command-r's
+    """Prefill: one flash-attention launch an attention layer and one
+    SSD-scan launch an ssm or hybrid layer; RMSNorm launches on every
+    rmsnorm of the model plus the final norm (none for command-r's
     LayerNorm); one MoE grouped-matmul launch a moe layer, in prefill and
-    in every decode step.  (The moe smoke configs have head dim 24, which
-    the flash-attention wrapper pads to 32.)"""
+    in every decode step.  Decode never launches flash attention or the
+    SSD scan.  (The moe smoke configs have head dim 24, which the
+    flash-attention wrapper pads to 32.)"""
     cfg = get_smoke(arch)
     params, _ = build_model(cfg, device=cuda).init(0)
     tokens = torch.randint(0, cfg.vocab, (16, 2), device=cuda)
     per_step = RMS_PER_LAYER[arch] * cfg.n_layers + 1 \
         if RMS_PER_LAYER[arch] else 0
     moe_per_step = cfg.n_layers if cfg.family == "moe" else 0
-    f0, r0, m0 = flash_attention_bhsd.launches, rmsnorm.launches, \
-        moe_gmm.launches
+    n_attn = 0 if cfg.family == "ssm" else cfg.n_layers
+    n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    f0, r0, m0, s0 = flash_attention_bhsd.launches, rmsnorm.launches, \
+        moe_gmm.launches, ssd_scan_bhsp.launches
     tok, _ = make_prefill_step(cfg)(params, {"tokens": tokens})
-    assert flash_attention_bhsd.launches - f0 == cfg.n_layers
+    assert flash_attention_bhsd.launches - f0 == n_attn
     assert rmsnorm.launches - r0 == per_step
     assert moe_gmm.launches - m0 == moe_per_step
+    assert ssd_scan_bhsp.launches - s0 == n_ssd
     step = make_serve_step(cfg)
     cache = init_cache(cfg, 16, 2, device=cuda)
     f0, r0, m0 = flash_attention_bhsd.launches, rmsnorm.launches, \
         moe_gmm.launches
+    s0 = ssd_scan_bhsp.launches
     for i in range(4):
         tok, cache = step(params, cache, tokens[i])
     torch.cuda.synchronize()
     assert flash_attention_bhsd.launches == f0
+    assert ssd_scan_bhsp.launches == s0
     assert rmsnorm.launches - r0 == 4 * per_step
     assert moe_gmm.launches - m0 == 4 * moe_per_step
     assert tok.shape == (2,) and cache.length == 4
@@ -276,3 +287,106 @@ def test_moe_gmm_refuses_what_it_does_not_take(cuda):
         moe_gmm(x, w1[..., :20].contiguous(), w2[:, :10].contiguous())
     with pytest.raises(ValueError):
         moe_gmm(x, w1.cpu(), w2)
+
+
+# ---------------------------------------------------------------------------
+# B5 the SSD scan
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(bs, h, s, p, g, n, dtype, cuda, *, dt_scale=1.0, seed=5):
+    """tests/test_kernels.py::test_ssd_sweep's distributions, dt float32;
+    ``dt_scale`` multiplies dt and divides x, so the decays grow while
+    dt·x (the scale of y and of its rounding) stays the sweep's."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(bs, h, s, p, generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn(bs, h, s, generator=gen))
+    a_log = torch.randn(h, generator=gen) * 0.5
+    b = torch.randn(bs, g, s, n, generator=gen) * 0.3
+    c = torch.randn(bs, g, s, n, generator=gen) * 0.3
+    d = torch.randn(h, generator=gen)
+    return ((x / dt_scale).to(dtype).to(cuda), (dt * dt_scale).to(cuda),
+            a_log.to(cuda),
+            b.to(dtype).to(cuda), c.to(dtype).to(cuda), d.to(cuda))
+
+
+def _ssd_close(out, ref, dtype):
+    """tests/test_kernels.py's tolerances: 5e-4 float32, 5e-2 bfloat16."""
+    tol = 5e-2 if dtype == torch.bfloat16 else 5e-4
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,h,s,p,g,n,with_h0", [
+    (2, 4, 64, 16, 2, 8, False),              # tests/test_kernels.py's sweep
+    (1, 4, 128, 32, 1, 16, False),
+    (3, 6, 48, 8, 3, 4, False),
+    (4, 32, 2048, 64, 1, 128, False),         # mamba2-370m's prefill
+    (4, 50, 2048, 64, 1, 16, False),          # hymba-1.5b's prefill
+    (1, 8, 1000, 64, 1, 128, True),           # ragged s, an initial state
+    (2, 4, 1, 64, 1, 128, True),              # one token
+    (1, 6, 100, 40, 2, 256, True),            # P not a multiple of 32, N 256
+])
+def test_ssd_scan_matches_plain(cuda, bs, h, s, p, g, n, with_h0, dtype):
+    x, dt, a_log, b, c, d = _ssd_inputs(bs, h, s, p, g, n, dtype, cuda)
+    h0 = torch.randn(bs, h, n, p, device=cuda) if with_h0 else None
+    before = ssd_scan_bhsp.launches
+    y, h_final = ssd_scan_bhsp(x, dt, a_log, b, c, d, h0=h0)
+    assert ssd_scan_bhsp.launches == before + 1
+    torch.cuda.synchronize()
+    ref_y, ref_h = ssd_scan_ref(x, dt, a_log, b, c, d, h0=h0)
+    assert y.dtype == dtype and y.shape == x.shape
+    _ssd_close(y, ref_y, dtype)
+    _ssd_close(h_final, ref_h, torch.float32)
+
+
+def test_ssd_scan_large_dt_stays_finite(cuda):
+    """dt ~ 40 (x / 40): exp(cum) underflows to 0 within a chunk; y stays
+    finite and equal to the recurrence."""
+    x, dt, a_log, b, c, d = _ssd_inputs(2, 8, 512, 64, 1, 128,
+                                        torch.float32, cuda, dt_scale=40.0)
+    y, h_final = ssd_scan_bhsp(x, dt, a_log, b, c, d)
+    torch.cuda.synchronize()
+    ref_y, ref_h = ssd_scan_ref(x, dt, a_log, b, c, d)
+    _ssd_close(y, ref_y, torch.float32)
+    _ssd_close(h_final, ref_h, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_seq_major_reads_strided_views(cuda, dtype):
+    """The seq-major adapter on the model's layout: B and C are column
+    views of one fused projection; no copy is made, y is seq-major."""
+    x, dt, a_log, b, c, d = _ssd_inputs(2, 8, 300, 64, 2, 16, dtype, cuda)
+    xs, dts = x.permute(2, 0, 1, 3).contiguous(), dt.permute(2, 0, 1)
+    bc = torch.cat([b.permute(2, 0, 1, 3).reshape(300, 2, 32),
+                    c.permute(2, 0, 1, 3).reshape(300, 2, 32)], dim=-1)
+    bs_, cs_ = (t.reshape(300, 2, 2, 16) for t in bc.chunk(2, dim=-1))
+    y, h_final = ssd_scan(xs, dts.contiguous(), a_log, bs_, cs_, d)
+    torch.cuda.synchronize()
+    assert y.shape == xs.shape and y.is_contiguous()
+    ref_y, ref_h = ssd_scan_ref(x, dt, a_log, b, c, d)
+    _ssd_close(y, ref_y.permute(2, 0, 1, 3), dtype)
+    _ssd_close(h_final, ref_h, torch.float32)
+
+
+def test_ssd_scan_refuses_what_it_does_not_take(cuda):
+    x, dt, a_log, b, c, d = _ssd_inputs(1, 4, 16, 8, 2, 8, torch.float32,
+                                        cuda)
+    with pytest.raises(ValueError):
+        ssd_scan_bhsp(x.half(), dt, a_log, b.half(), c.half(), d)
+    with pytest.raises(ValueError):
+        ssd_scan_bhsp(x, dt, a_log, b.bfloat16(), c, d)     # mixed types
+    with pytest.raises(ValueError):
+        ssd_scan_bhsp(x, dt.bfloat16(), a_log, b, c, d)     # dt not f32
+    with pytest.raises(ValueError):
+        ssd_scan_bhsp(x, dt[..., :8], a_log, b, c, d)       # s mismatch
+    with pytest.raises(ValueError):
+        ssd_scan_bhsp(x[:, :3], dt[:, :3], a_log[:3], b, c, d[:3])  # 3 % 2
+    big = torch.zeros(1, 2, 16, 300, device=cuda)           # N > 256
+    with pytest.raises(ValueError):
+        ssd_scan_bhsp(x, dt, a_log, big, big, d)
+    with pytest.raises(ValueError):
+        ssd_scan_bhsp(x, dt, a_log, b, c, d, h0=torch.zeros(1, 4, 8, 7,
+                                                           device=cuda))
+    with pytest.raises(ValueError):
+        ssd_scan_bhsp(x, dt, a_log.cpu(), b, c, d)

@@ -134,7 +134,7 @@ def test_prefill_step_matches_reference(case):
 
 def test_unported_paths_raise():
     from repro_torch.configs import get_smoke
-    for arch in ("mamba2-370m", "hymba-1.5b"):        # ssm, hybrid
+    for arch in ("llama-3.2-vision-90b", "whisper-tiny"):   # vlm, audio
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(get_smoke(arch), device="cpu")
     pcfg = carried_model(MODEL_CASES["dense"], "float32")[2]
@@ -254,7 +254,9 @@ def test_launcher_loop_matches_reference_launcher_moe():
 
 
 def _launcher_loops_agree(case):
-    rcfg, params, pcfg, pparams = carried_model(MODEL_CASES[case], "float32")
+    """``case``: a name of MODEL_CASES or a reference config."""
+    cfg = MODEL_CASES[case] if isinstance(case, str) else case
+    rcfg, params, pcfg, pparams = carried_model(cfg, "float32")
     requests, max_new, max_batch, cache_len = 6, 5, 4, 32
     # the reference launcher's loop, as repro/launch/serve.py runs it
     serve = jax.jit(r_make_serve_step(rcfg))
