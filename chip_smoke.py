@@ -39,8 +39,14 @@ The phases:
 8. the MoE grouped matmul (B4) against its plain version: the sweep of
    ``tests/test_kernels.py`` (4 activations x 2 shapes x f32/bf16),
    olmoe-1b-7b's decode shape (64 experts x 8 slots) and prefill shape (64
-   x 640) at d 2048, f 1024, a ragged capacity and an all-zero expert;
-   each timed case also times the plain version and one PyTorch yardstick
+   x 640) at d 2048, f 1024 in both variants (bf16: the tensor cores,
+   float32: the CUDA cores; each case asserts the variant it launched), the
+   tensor-core tiles' edges (C = 1, 9, 16, 17, 63, 65), a ragged capacity
+   and an all-zero expert; ``rows`` (each expert's filled slots) at the
+   decode and prefill shapes, bitwise equal to the call without it on
+   inputs zeroed past each fill; a served-path decode case whose operands
+   and ``rows`` come from ``moe_block``'s routing of 8 tokens; each timed
+   case also times the plain version and one PyTorch yardstick
    (``torch.bmm`` -> activation -> ``torch.bmm``, which rounds h to x's
    dtype); flash attention at olmoe's prefill shape (dh 128) and at a
    padded head dim (24);
@@ -50,8 +56,10 @@ The phases:
    the config's own capacity factor 1.25;
 10. olmoe-1b-7b's full config in bf16: ``make_prefill_step`` on 4 prompts
    of 1024 tokens (exactly 16 flash-attention, 65 RMSNorm and 16 MoE
-   grouped-matmul launches a call), then the serve launcher's loop as in
-   phase 7 (65 RMSNorm and 16 grouped-matmul launches a step);
+   grouped-matmul launches a call, every one on the tensor-core variant),
+   then the serve launcher's loop as in phase 7 (65 RMSNorm and 16
+   tensor-core grouped-matmul launches a step), with the experts' mean
+   fill and the share of empty experts at prefill and decode;
 11. the SSD scan (B5) against its plain recurrence: the cases of
    ``tests/test_kernels.py::test_ssd_sweep`` (float32 and bf16),
    mamba2-370m's prefill shape (x (4, 32, 2048, 64), N 128) and
@@ -748,12 +756,51 @@ SERVING = {
 
 
 def _counts():
+    """Launches of B2, B3, B4, B4's tensor-core variant and B5."""
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
     return (flash_attention_bhsd.launches, rmsnorm.launches,
-            moe_gmm.launches, ssd_scan_bhsp.launches)
+            moe_gmm.launches, moe_gmm.launches_by_variant["tc"],
+            ssd_scan_bhsp.launches)
+
+
+class _FillLog:
+    """Wraps ``models/moe.py``'s ``moe_gmm`` while installed, keeping the
+    ``rows`` and capacity of each call, for the experts' fill, and the
+    operands of the last call."""
+
+    def __init__(self):
+        import repro_torch.models.moe as moe_mod
+        self.mod, self.real, self.calls = moe_mod, moe_mod.moe_gmm, []
+        self.last = None
+
+    def __enter__(self):
+        def logged(x, w1, w2, *, act, rows=None, **kw):
+            self.calls.append((rows, x.shape[1]))
+            self.last = (x, w1, w2, act, rows)
+            return self.real(x, w1, w2, act=act, rows=rows, **kw)
+        self.mod.moe_gmm = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_gmm = self.real
+
+    def summary(self):
+        """Mean fill (filled slots over capacity) and share of experts
+        with no token, over the calls logged."""
+        import torch
+        if not self.calls:
+            return None
+        if any(r is None for r, _ in self.calls):
+            raise AssertionError("moe_block passed no rows at one rank")
+        rows = torch.stack([r.float() for r, _ in self.calls])
+        cap = torch.tensor([c for _, c in self.calls], device=rows.device)
+        return {"calls": len(self.calls), "capacity": sorted(
+                    {c for _, c in self.calls}),
+                "mean_fill": float((rows / cap[:, None]).mean()),
+                "empty_expert_share": float((rows == 0).float().mean())}
 
 
 def serving_phase(torch, arch: str, profile: bool):
@@ -767,7 +814,9 @@ def serving_phase(torch, arch: str, profile: bool):
     from repro_torch.serving import make_prefill_step
     want = SERVING[arch]
     pb, ps = want["batch"], want["seq"]
-    per_call = (want["flash"], want["rms"], want["moe"], want["ssd"])
+    # every B4 launch of a bf16 path takes the tensor-core variant
+    per_call = (want["flash"], want["rms"], want["moe"], want["moe"],
+                want["ssd"])
     cfg = get_config(arch)
     model = build_model(cfg, device=DEVICE)
     t0 = time.perf_counter()
@@ -787,15 +836,19 @@ def serving_phase(torch, arch: str, profile: bool):
         c0 = _counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        tok, last = prefill(params, {"tokens": tokens})
+        if i:
+            tok, last = prefill(params, {"tokens": tokens})
+        else:
+            with _FillLog() as prefill_fill:
+                tok, last = prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
         if i:
             times.append(time.perf_counter() - t)
         got = tuple(b - a for a, b in zip(c0, _counts()))
         if got != per_call:
             raise AssertionError(f"{arch} prefill launched (flash, RMSNorm, "
-                                 f"MoE GMM, SSD scan) {got} times (want "
-                                 f"{per_call})")
+                                 f"MoE GMM, MoE GMM tensor-core, SSD scan) "
+                                 f"{got} times (want {per_call})")
     if not torch.isfinite(last.float()).all() or tok.shape != (pb,) \
             or not ((tok >= 0) & (tok < cfg.vocab)).all():
         raise AssertionError(f"{arch} prefill: bad tokens or non-finite "
@@ -805,13 +858,16 @@ def serving_phase(torch, arch: str, profile: bool):
 
     # decode: the launcher's loop
     c0 = _counts()
-    out = serve(cfg, params, device=DEVICE, **SERVE_ARGS)
-    nf, nr, nm, ns = (b - a for a, b in zip(c0, _counts()))
+    with _FillLog() as decode_fill:
+        out = serve(cfg, params, device=DEVICE, **SERVE_ARGS)
+    nf, nr, nm, ntc, ns = (b - a for a, b in zip(c0, _counts()))
     steps = out["decode_calls"]
-    if steps == 0 or nr != want["rms"] * steps or nm != want["moe"] * steps:
+    if steps == 0 or nr != want["rms"] * steps or \
+            nm != want["moe"] * steps or ntc != nm:
         raise AssertionError(f"{arch} decode: {nr} RMSNorm and {nm} MoE GMM "
-                             f"launches in {steps} steps (want "
-                             f"{want['rms']} and {want['moe']} a step)")
+                             f"({ntc} tensor-core) launches in {steps} "
+                             f"steps (want {want['rms']} and {want['moe']} "
+                             "a step, all tensor-core)")
     if nf or ns:
         raise AssertionError("decode launched the prefill attention or the "
                              "SSD-scan kernel")
@@ -830,6 +886,8 @@ def serving_phase(torch, arch: str, profile: bool):
                        "flash_launches_per_call": want["flash"],
                        "rmsnorm_launches_per_call": want["rms"],
                        "moe_gmm_launches_per_call": want["moe"],
+                       "moe_gmm_tc_launches_per_call": want["moe"],
+                       "moe_fill": prefill_fill.summary(),
                        "ssd_scan_launches_per_call": want["ssd"],
                        "peak_memory_bytes": prefill_peak},
            "decode": {**SERVE_ARGS, "prompt_len": PROMPT_LEN,
@@ -840,7 +898,9 @@ def serving_phase(torch, arch: str, profile: bool):
                       "tokens_per_s": out["tokens"] / out["seconds"],
                       "ms_per_step": out["seconds"] / steps * 1e3,
                       "rmsnorm_launches_per_step": nr / steps,
-                      "moe_gmm_launches_per_step": nm / steps}}
+                      "moe_gmm_launches_per_step": nm / steps,
+                      "moe_gmm_tc_launches_per_step": ntc / steps,
+                      "moe_fill": decode_fill.summary()}}
     if profile:
         rec["profile"] = profile_phase(torch, cfg, params, tokens)
     del params
@@ -865,9 +925,11 @@ def profile_phase(torch, cfg, params, tokens):
                        and e.self_device_time_total > 0),
                       key=lambda r: -r[1])
         total = sum(r[1] for r in rows)
-        mine = {n: sum(r[1] for r in rows if n in r[0])
-                for n in ("flash_fwd_kernel", "rmsnorm_kernel",
-                          "gmm_kernel", "ssd_scan_kernel")}
+        mine = {n: sum(r[1] for r in rows if key in r[0])
+                for n, key in (("flash_attention", "flash_fwd_kernel"),
+                               ("rmsnorm", "rmsnorm_kernel"),
+                               ("moe_gmm", "gmm_"),
+                               ("ssd_scan", "ssd_scan_kernel"))}
         return {"wall_ms": wall_s * 1e3, "device_ms": total,
                 "device_busy_share": total / (wall_s * 1e3),
                 "hand_written_ms": mine,
@@ -908,6 +970,14 @@ def profile_phase(torch, cfg, params, tokens):
 
 MOE_SOURCE = "src/repro_torch/csrc/moe_gmm.cu"
 MOE_REPLACES = "src/repro/kernels/moe_gmm/kernel.py:42"
+#: the variants of csrc/moe_gmm.cu, for the kernels line
+MOE_DESIGN = {"tc": "prefill (C > 16): wgmma m64n256k16 + TMA, 4 stages "
+                    "(mbarrier ring), 128x256 tiles, 2 MMA warpgroups + a "
+                    "loader warp; decode (C <= 16): mma.sync m16n8k16 "
+                    "transposed (weights on M, tokens on N) + cp.async, 4 "
+                    "stages; empty capacity rows skipped",
+              "simt": "float32 CUDA-core register tiles (float32 and "
+                      "unaligned bf16)"}
 #: olmoe-1b-7b's expert shapes: 64 experts, d 2048, f 1024 (swiglu)
 OLMOE_E, OLMOE_D, OLMOE_F = 64, 2048, 1024
 
@@ -933,23 +1003,47 @@ def _library_ffn(act):
     return ffn
 
 
+def _variant_of(call):
+    """Run ``call`` (one wrapper call) and return (its result, the variant
+    it launched)."""
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    before = dict(moe_gmm.launches_by_variant)
+    out = call()
+    ran = [k for k, n in moe_gmm.launches_by_variant.items()
+           if n != before[k]]
+    if len(ran) != 1:
+        raise AssertionError(f"moe_gmm: variants {ran} launched in one call")
+    return out, ran[0]
+
+
 def moe_gmm_case(torch, label, e, c, d, f, act, dtype, g, *, w_scale=None,
-                 zero_expert=None, time_it=True):
+                 zero_expert=None, time_it=True, operands=None, rows=None):
     """B4 on x (e, c, d), w1 (e, d, m·f), w2 (e, f, d) against its plain
     version at tests/test_kernels.py's tolerance (1e-4 float32, 3e-2
-    bf16).  Weights are N(0, 1) times ``w_scale`` (default 1/sqrt(fan
-    in), which keeps h and the output O(1) at olmoe's width)."""
+    bf16); asserts the variant it launched (bf16 with d, f multiples of 8:
+    the tensor cores).  Weights are N(0, 1) times ``w_scale`` (default
+    1/sqrt(fan in), which keeps h and the output O(1) at olmoe's width);
+    ``operands`` (x, w1, w2) replaces the random draw.  With ``rows`` the
+    call passes each expert's filled rows, and the bound counts only the
+    weights of experts that hold a token (what this data needs)."""
     from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
     mult = 2 if act in ("swiglu", "geglu") else 1
-    x = torch.randn(e, c, d, generator=g, device=DEVICE).to(dtype)
-    w1 = torch.randn(e, d, mult * f, generator=g, device=DEVICE)
-    w1 = (w1 * (w_scale or d ** -0.5)).to(dtype)
-    w2 = torch.randn(e, f, d, generator=g, device=DEVICE)
-    w2 = (w2 * (w_scale or f ** -0.5)).to(dtype)
+    if operands is None:
+        x = torch.randn(e, c, d, generator=g, device=DEVICE).to(dtype)
+        w1 = torch.randn(e, d, mult * f, generator=g, device=DEVICE)
+        w1 = (w1 * (w_scale or d ** -0.5)).to(dtype)
+        w2 = torch.randn(e, f, d, generator=g, device=DEVICE)
+        w2 = (w2 * (w_scale or f ** -0.5)).to(dtype)
+    else:
+        x, w1, w2 = operands
     if zero_expert is not None:
         x[zero_expert] = 0
-    out = moe_gmm(x, w1, w2, act=act)
-    ref = moe_gmm_ref(x, w1, w2, act=act)
+    want = "tc" if dtype == torch.bfloat16 and d % 8 == 0 else "simt"
+    out, ran = _variant_of(lambda: moe_gmm(x, w1, w2, act=act, rows=rows))
+    if ran != want:
+        raise AssertionError(f"{label}: launched the {ran} variant, not "
+                             f"{want}")
+    ref = moe_gmm_ref(x, w1, w2, act=act, rows=rows)
     torch.cuda.synchronize()
     tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
     a, b = out.double(), ref.double()
@@ -965,30 +1059,107 @@ def moe_gmm_case(torch, label, e, c, d, f, act, dtype, g, *, w_scale=None,
         raise AssertionError(f"{label}: an expert with no token gave "
                              "non-zero rows")
     dname = str(dtype).split(".")[1]
-    flops = 2 * e * c * d * mult * f + 2 * e * c * f * d
-    nbytes = x.nbytes + w1.nbytes + w2.nbytes + out.nbytes
+    # experts with a token, and the token rows: all, or what rows says
+    busy = e if rows is None else int((rows > 0).sum())
+    filled = e * c if rows is None else int(rows.clamp(max=c).sum())
+    flops = 2 * filled * d * mult * f + 2 * filled * f * d
+    nbytes = x.nbytes + out.nbytes + (w1.nbytes + w2.nbytes) * busy // e
     t_ops = flops / PEAK_FLOPS[dname] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     case = {"case": label, "shape_x": [e, c, d], "f": f, "act": act,
-            "dtype": dname, "ok": True,
+            "dtype": dname, "variant": ran, "ok": True,
             "max_abs_err": float((a - b).abs().max()),
             "tolerance": tol, "flops": flops, "bytes": nbytes,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if rows is not None:
+        case.update({"busy_experts": busy, "filled_rows": filled})
     del a, b, ref, bad
     if time_it:
         xs = cold_copies(x, limit=4)
         lib = _library_ffn(act)
         case.update({
-            "kernel_ms": device_ms(lambda t: moe_gmm(t, w1, w2, act=act),
-                                   xs),
-            "plain_ms": device_ms(lambda t: moe_gmm_ref(t, w1, w2, act=act),
-                                  xs[:2]),
+            "kernel_ms": device_ms(
+                lambda t: moe_gmm(t, w1, w2, act=act, rows=rows), xs),
+            "plain_ms": device_ms(
+                lambda t: moe_gmm_ref(t, w1, w2, act=act, rows=rows),
+                xs[:2]),
             "library_ms": device_ms(lambda t: lib(t, w1, w2), xs)})
+        if rows is not None:
+            case["kernel_no_rows_ms"] = device_ms(
+                lambda t: moe_gmm(t, w1, w2, act=act), xs)
         case["achieved_tflops"] = flops / case["kernel_ms"] / 1e9
         case["achieved_GB_per_s"] = nbytes / case["kernel_ms"] / 1e6
     del x, w1, w2, out
     torch.cuda.empty_cache()
+    return case
+
+
+def moe_rows_case(torch, c, dtype, g):
+    """``rows`` at olmoe's width: partial fills, experts at 0 rows, full
+    ones.  The call with ``rows`` equals, bit for bit, the call without it
+    on x zeroed past each fill, and the call with ``rows`` on x that holds
+    tokens past each fill."""
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    E, D, Fh = OLMOE_E, OLMOE_D, OLMOE_F
+    x = torch.randn(E, c, D, generator=g, device=DEVICE).to(dtype)
+    w1 = (torch.randn(E, D, 2 * Fh, generator=g, device=DEVICE)
+          * D ** -0.5).to(dtype)
+    w2 = (torch.randn(E, Fh, D, generator=g, device=DEVICE)
+          * Fh ** -0.5).to(dtype)
+    rows = torch.randint(0, c + 1, (E,), generator=g, device=DEVICE,
+                         dtype=torch.int32)
+    rows[::4] = 0                            # a quarter of them empty
+    rows[1::8] = c                           # some full
+    zeroed = torch.where(torch.arange(c, device=DEVICE)[None, :, None]
+                         < rows[:, None, None], x, x.new_zeros(()))
+    with_rows = moe_gmm(zeroed, w1, w2, rows=rows)
+    without = moe_gmm(zeroed, w1, w2)
+    past_fill = moe_gmm(x, w1, w2, rows=rows)
+    torch.cuda.synchronize()
+    dn = str(dtype).split(".")[1]
+    if not (torch.equal(with_rows, without) and
+            torch.equal(past_fill, without)):
+        raise AssertionError(f"rows C={c} {dn}: the output with rows "
+                             "differs from the output without them")
+    del with_rows, without, past_fill, x
+    case = moe_gmm_case(torch, f"olmoe_rows_c{c}_{dn}", E, c, D, Fh,
+                        "swiglu", dtype, g, operands=(zeroed, w1, w2),
+                        rows=rows, time_it=dtype == torch.bfloat16)
+    case["bitwise_equal_to_no_rows"] = True
+    return case
+
+
+def served_decode_case(torch, g):
+    """B4 on a served decode step's operands: ``moe_block`` at olmoe's
+    width routes 8 tokens (one a decode slot) through a router drawn as
+    the model's init draws it; the dispatch, the weights and ``rows`` are
+    taken at the kernel's call, and the kernel is timed on them with and
+    without ``rows``."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import local_comm
+    from repro_torch.models.common import truncated_normal_init
+    from repro_torch.models.moe import moe_block
+    cfg = get_config("olmoe-1b-7b")
+    E, D, Fh = cfg.n_experts, cfg.d_model, cfg.d_ff
+    bf16 = torch.bfloat16
+    cpu = torch.Generator().manual_seed(SEED + 9)
+    p = {"router": truncated_normal_init(cpu, (D, E), 0.1, bf16,
+                                         "cpu").to(DEVICE),
+         "we_in": (torch.randn(E, D, 2 * Fh, generator=g, device=DEVICE)
+                   * D ** -0.5).to(bf16),
+         "we_out": (torch.randn(E, Fh, D, generator=g, device=DEVICE)
+                    * Fh ** -0.5).to(bf16)}
+    x = torch.randn(1, 8, D, generator=g, device=DEVICE).to(bf16)
+    with _FillLog() as log:
+        moe_block(x, p, cfg, local_comm())
+    log.summary()                            # raises if rows were not passed
+    xe, w1, w2, act, rows = log.last
+    case = moe_gmm_case(torch, "olmoe_served_decode_rows_bfloat16", E,
+                        xe.shape[1], D, Fh, act, bf16, g,
+                        operands=(xe, w1, w2), rows=rows)
+    case.update({"mean_fill": float(rows.float().mean() / xe.shape[1]),
+                 "empty_expert_share": float((rows == 0).float().mean())})
     return case
 
 
@@ -1008,6 +1179,15 @@ def moe_kernel_phase(torch):
         moe.append(moe_gmm_case(torch, f"ragged_{dn}_3x20x40x16", 3, 20, 40,
                                 16, "swiglu", dtype, g, zero_expert=1,
                                 time_it=False))
+    # the tensor-core tiles' edges: the transposed decode tile (C <= 8,
+    # C <= 16), the row tile past it, d and f multiples of 8 only
+    for act in ("swiglu", "gelu"):
+        for e, c, d, f in ((3, 1, 64, 64), (2, 9, 64, 128), (2, 16, 56, 24),
+                           (2, 17, 64, 64), (2, 63, 72, 40),
+                           (2, 65, 64, 192)):
+            moe.append(moe_gmm_case(
+                torch, f"edge_bfloat16_{act}_{e}x{c}x{d}x{f}", e, c, d, f,
+                act, torch.bfloat16, g, time_it=False))
     E, D, Fh = OLMOE_E, OLMOE_D, OLMOE_F
     bf16 = torch.bfloat16
     moe.append(moe_gmm_case(torch, "olmoe_decode_bfloat16", E, 8, D, Fh,
@@ -1016,6 +1196,12 @@ def moe_kernel_phase(torch):
                             "swiglu", torch.float32, g))
     moe.append(moe_gmm_case(torch, "olmoe_prefill_bfloat16", E, 640, D, Fh,
                             "swiglu", bf16, g))
+    moe.append(moe_gmm_case(torch, "olmoe_prefill_float32", E, 640, D, Fh,
+                            "swiglu", torch.float32, g))
+    for c in (8, 640):
+        moe.append(moe_rows_case(torch, c, bf16, g))
+    moe.append(moe_rows_case(torch, 8, torch.float32, g))
+    moe.append(served_decode_case(torch, g))
     moe.append(moe_gmm_case(torch, "olmoe_ragged_c100_bfloat16", E, 100, D,
                             Fh, "swiglu", bf16, g, time_it=False))
     moe.append(moe_gmm_case(torch, "olmoe_decode_zero_expert_bfloat16", E,
@@ -1176,6 +1362,15 @@ def _summary(cases, keys):
     return [{k: c.get(k) for k in keys} for c in cases]
 
 
+def _zero_counts(counters):
+    """Every launch count to 0, B4's count by variant too."""
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    for c in counters:
+        c.launches = 0
+    moe_gmm.launches_by_variant = dict.fromkeys(moe_gmm.launches_by_variant,
+                                                0)
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1224,8 +1419,7 @@ def main(argv=None) -> int:
     record("kernel_cases", cases=cases)
 
     # 4. the message path: counts set to 0 just before, read just after
-    for c in counters:
-        c.launches = 0
+    _zero_counts(counters)
     runs = [main_path_case(torch, "a", "am", torch.float32, 65536, False),
             main_path_case(torch, "b", "am", torch.float32, 65536, True),
             main_path_case(torch, "c", "send", torch.float32, 8192, False),
@@ -1248,8 +1442,7 @@ def main(argv=None) -> int:
     record("model_parity", seconds=time.perf_counter() - t0, **parity)
 
     # 7. the dense serving path: counts set to 0 just before, read after
-    for c in counters:
-        c.launches = 0
+    _zero_counts(counters)
     t0 = time.perf_counter()
     served = serving_phase(torch, "gemma3-1b", args.profile)
     n_flash, n_rms = flash_attention_bhsd.launches, rmsnorm.launches
@@ -1272,18 +1465,22 @@ def main(argv=None) -> int:
     record("moe_model_parity", seconds=time.perf_counter() - t0, **parity)
 
     # 10. the moe serving path: counts set to 0 just before, read after
-    for c in counters:
-        c.launches = 0
+    _zero_counts(counters)
     t0 = time.perf_counter()
     served = serving_phase(torch, "olmoe-1b-7b", args.profile)
     m_flash, m_rms, n_moe = (flash_attention_bhsd.launches, rmsnorm.launches,
                              moe_gmm.launches)
+    moe_by_variant = dict(moe_gmm.launches_by_variant)
     record("moe_serving_main_path", seconds=time.perf_counter() - t0,
            flash_attention_launches=m_flash, rmsnorm_launches=m_rms,
-           moe_gmm_launches=n_moe, **served)
+           moe_gmm_launches=n_moe,
+           moe_gmm_launches_by_variant=moe_by_variant, **served)
     if m_flash == 0 or m_rms == 0 or n_moe == 0:
         raise AssertionError("the moe serving path launched no "
                              "flash-attention, RMSNorm or MoE GMM kernel")
+    if moe_by_variant["tc"] != n_moe:
+        raise AssertionError(f"the moe serving path's B4 launches "
+                             f"{moe_by_variant} were not all tensor-core")
 
     # 11. the SSD scan (B5) against its plain version
     t0 = time.perf_counter()
@@ -1297,8 +1494,7 @@ def main(argv=None) -> int:
     record("ssm_model_parity", seconds=time.perf_counter() - t0, **parity)
 
     # 13. the ssm serving path: counts set to 0 just before, read after
-    for c in counters:
-        c.launches = 0
+    _zero_counts(counters)
     t0 = time.perf_counter()
     served = serving_phase(torch, "mamba2-370m", args.profile)
     s_rms, s_ssd = rmsnorm.launches, ssd_scan_bhsp.launches
@@ -1311,8 +1507,7 @@ def main(argv=None) -> int:
                              "SSD-scan kernel")
 
     # 14. the hybrid serving path: counts set to 0 just before, read after
-    for c in counters:
-        c.launches = 0
+    _zero_counts(counters)
     t0 = time.perf_counter()
     served = serving_phase(torch, "hymba-1.5b", args.profile)
     y_flash, y_rms, y_ssd = (flash_attention_bhsd.launches, rmsnorm.launches,
@@ -1331,6 +1526,7 @@ def main(argv=None) -> int:
                  if c["case"] == "gemma3_prefill_local512_bfloat16")
     rhead = next(c for c in rms if c["case"] == "serve_bfloat16_8192x1152")
     mhead = next(c for c in moe if c["case"] == "olmoe_decode_bfloat16")
+    mpre = next(c for c in moe if c["case"] == "olmoe_prefill_bfloat16")
     shead = next(c for c in ssd if c["case"] == "mamba2_prefill_bfloat16")
     timed = ("case", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
              "bound_by", "max_abs_err")
@@ -1375,8 +1571,12 @@ def main(argv=None) -> int:
         "bound_ms": mhead["bound_ms"], "bound_by": mhead["bound_by"],
         "library_ms": mhead["library_ms"], "shape": mhead["shape_x"],
         "f": mhead["f"], "act": mhead["act"],
+        "design": MOE_DESIGN, "launches_by_variant": moe_by_variant,
+        "prefill": {k: mpre[k] for k in ("shape_x", "kernel_ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_by")},
         "cases": _summary([c for c in moe if "kernel_ms" in c],
-                          timed)}, {
+                          timed + ("variant", "kernel_no_rows_ms"))}, {
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
         "replaces": SSD_REPLACES, "launches": s_ssd + y_ssd,
         "launches_by_path": {"mamba2-370m": s_ssd, "hymba-1.5b": y_ssd},

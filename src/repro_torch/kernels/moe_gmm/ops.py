@@ -1,16 +1,22 @@
 """Public wrapper of the MoE grouped-matmul kernel.
 
-For CUDA tensors :func:`moe_gmm` launches the hand-written Hopper kernel
-(``csrc/moe_gmm.cu``) on the current stream, without synchronising, or
-raises; for CPU tensors it takes the plain version in :mod:`.ref`.  There
-is no fallback.  The kernel runs as two launches inside one C call (the
-first product with the activation into a float32 scratch ``h`` that this
-wrapper allocates, then the second product); ``moe_gmm.launches`` counts
-wrapper calls that launched it.
+For CUDA tensors :func:`moe_gmm` launches one of the two hand-written
+Hopper variants of ``csrc/moe_gmm.cu`` on the current stream, without
+synchronising, or raises; for CPU tensors it takes the plain version in
+:mod:`.ref`.  There is no fallback.  :func:`variant` picks the variant
+from dtype and shape: ``"tc"`` (the tensor cores, h rounded to bf16)
+for bf16 whose d and f are multiples of 8 with 16-byte-aligned tensors,
+``"simt"`` (float32 CUDA-core products, h in float32) for everything
+else.  Either runs as two launches inside one C call (the first product
+with the activation into a scratch ``h`` that this wrapper allocates,
+then the second product).  ``moe_gmm.launches`` counts wrapper calls
+that launched the kernel, ``moe_gmm.launches_by_variant`` the same by
+variant.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -20,6 +26,8 @@ from .ref import ACTS, moe_gmm_ref
 _DTYPES = (torch.float32, torch.bfloat16)
 #: activation codes of the C interface
 _ACT = {a: i for i, a in enumerate(ACTS)}
+#: variant codes of the C interface
+VARIANTS = ("simt", "tc")
 
 
 def _kernel():
@@ -27,13 +35,14 @@ def _kernel():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
-def _check(x, w1, w2, act) -> int:
+def _check(x, w1, w2, act, rows) -> int:
     """Validate a CUDA call; returns f (the expert FFN width)."""
     if act not in _ACT:
         raise ValueError(f"moe_gmm: act must be one of {ACTS}, got {act!r}")
@@ -58,33 +67,60 @@ def _check(x, w1, w2, act) -> int:
     if not (x.is_contiguous() and w1.is_contiguous() and
             w2.is_contiguous()):
         raise ValueError("moe_gmm: x, w1, w2 must be contiguous")
+    if rows is not None and (rows.device != x.device or
+                             rows.dtype != torch.int32 or
+                             rows.shape != (e,) or
+                             not rows.is_contiguous()):
+        raise ValueError(f"moe_gmm: rows must be a contiguous int32 ({e},) "
+                         f"tensor on {x.device}")
     return f
 
 
+def variant(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> str:
+    """The kernel variant a CUDA call takes: ``"tc"`` for bf16 with d and
+    f multiples of 8 (16-byte rows, which ``cp.async`` needs) and
+    16-byte-aligned tensors, else ``"simt"``."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w1, w2))
+    if x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0 and \
+            w2.shape[1] % 8 == 0 and aligned:
+        return "tc"
+    return "simt"
+
+
 def moe_gmm(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
-            act: str = "swiglu", block_c: int = 128) -> torch.Tensor:
+            act: str = "swiglu", block_c: int = 128,
+            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (E, C, d); w1 (E, d, m·f); w2 (E, f, d) -> (E, C, d) in x.dtype:
-    ``act(x[e] @ w1[e]) @ w2[e]`` with ``h`` kept in float32.
-    ``block_c`` is the reference's TPU tiling hint; the CUDA kernel picks
-    its own tile from C."""
+    ``act(x[e] @ w1[e]) @ w2[e]``.  ``rows`` (optional, int32 (E,) on x's
+    device) gives each expert's filled rows: rows at or past ``rows[e]``
+    come out zero, and an expert with none reads no weight.  The kernel
+    reads it itself, with no host sync.  ``block_c`` is the reference's
+    TPU tiling hint; the CUDA kernel picks its own tile from C."""
     del block_c
     if x.device.type == "cpu":
-        return moe_gmm_ref(x, w1, w2, act=act)
-    f = _check(x, w1, w2, act)
+        return moe_gmm_ref(x, w1, w2, act=act, rows=rows)
+    f = _check(x, w1, w2, act, rows)
     e, c, d = x.shape
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    h = torch.empty((e, c, f), dtype=torch.float32, device=x.device)
+    kind = variant(x, w1, w2)
+    h = torch.empty((e, c, f), device=x.device,
+                    dtype=torch.bfloat16 if kind == "tc" else torch.float32)
     with torch.cuda.device(x.device):
         rc = _kernel()(x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                       h.data_ptr(), out.data_ptr(), e, c, d, f, _ACT[act],
-                       int(x.dtype == torch.bfloat16),
+                       h.data_ptr(), out.data_ptr(),
+                       None if rows is None else rows.data_ptr(), e, c, d,
+                       f, _ACT[act], int(x.dtype == torch.bfloat16),
+                       VARIANTS.index(kind),
                        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"moe_gmm kernel ({kind}) launch failed: CUDA "
+                           f"error {rc}")
     moe_gmm.launches += 1
+    moe_gmm.launches_by_variant[kind] += 1
     return out
 
 
 moe_gmm.launches = 0
+moe_gmm.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -4,9 +4,12 @@ The mirror of ``repro/kernels/moe_gmm/ref.py``: ``out[e] = act(x[e] @
 w1[e]) @ w2[e]`` with both products and the activation in float32 and the
 result cast to x.dtype.  swiglu and geglu split w1's output dim as
 [gate | up]; JAX's ``gelu(approximate=True)`` is torch's
-``gelu(approximate="tanh")``.
+``gelu(approximate="tanh")``.  The kernel's optional ``rows`` (each
+expert's filled rows) zeroes the rows past each fill.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -31,9 +34,16 @@ def activation_f32(act: str, h: torch.Tensor) -> torch.Tensor:
 
 
 def moe_gmm_ref(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
-                act: str = "swiglu") -> torch.Tensor:
-    """x (E, C, d); w1 (E, d, m·f); w2 (E, f, d) -> (E, C, d) in x.dtype."""
+                act: str = "swiglu",
+                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (E, C, d); w1 (E, d, m·f); w2 (E, f, d) -> (E, C, d) in x.dtype;
+    with ``rows`` ((E,) integers), expert e's rows at or past ``rows[e]``
+    are zero."""
     h = torch.einsum("ecd,edf->ecf", x.float(), w1.float())
     h = activation_f32(act, h)
     o = torch.einsum("ecf,efd->ecd", h, w2.float())
+    if rows is not None:
+        slot = torch.arange(o.shape[1], device=o.device)
+        keep = slot[None, :] < rows.to(device=o.device)[:, None]  # (E, C)
+        o = torch.where(keep[..., None], o, o.new_zeros(()))
     return o.to(x.dtype)

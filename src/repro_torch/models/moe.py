@@ -11,8 +11,10 @@ joining each token's top-k replies weighted by its router probabilities.
 
 The expert FFN goes through :func:`repro_torch.kernels.moe_gmm.moe_gmm`:
 the hand-written Hopper kernel for CUDA tensors, its plain version for
-CPU tensors.  That kernel keeps ``h`` in float32 between the two
-products, where the reference's einsums round it to x's dtype; in
+CPU tensors, told each expert's filled slots (``rows``) so that it skips
+the empty ones.  The plain version and the kernel's float32 variant keep
+``h`` in float32 between the two products, where the reference's einsums
+round it to x's dtype, as the kernel's bf16 tensor-core variant does; in
 float32 the two are the same function.
 
 No step reads anything back to the host: the capacity is a Python int of
@@ -133,8 +135,11 @@ def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
     # -- expert compute: the grouped-matmul kernel over local experts ------
     we_in = comm.weight(p["we_in"], fsdp_axis=1)         # (E_l, d, m·ff)
     we_out = comm.weight(p["we_out"], fsdp_axis=2)       # (E_l, ff, d)
+    # each expert's filled slots, so the kernel skips the empty ones; with
+    # one rank (comm.a2a the identity) they are this rank's own counts
+    rows = count.clamp(max=cap).int() if tp == 1 else None
     out = moe_gmm(recv.contiguous(), we_in.contiguous(),
-                  we_out.contiguous(), act=cfg.mlp)
+                  we_out.contiguous(), act=cfg.mlp, rows=rows)
 
     # -- completion: return replies, combine with synchronizer weights -----
     back = comm.a2a(out, split_axis=1, concat_axis=0)    # (E, cap, d)

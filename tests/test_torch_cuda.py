@@ -24,6 +24,7 @@ from repro_torch.kernels import doorbell as db
 from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
                                                  flash_attention_ref)
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
+from repro_torch.kernels.moe_gmm.ref import activation_f32
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bhsp,
                                           ssd_scan_ref)
@@ -240,13 +241,48 @@ def test_model_path_launches_the_kernels(cuda, arch):
 # B4 the MoE grouped matmul
 # ---------------------------------------------------------------------------
 
-def _gmm_inputs(e, cap, d, f, act, dtype, cuda, seed=4):
+def _gmm_inputs(e, cap, d, f, act, dtype, cuda, seed=4, w_scale=0.2):
+    """x ~ N(0, 1); weights N(0, 1) times ``w_scale`` (tests/test_kernels.py's
+    0.2, or None for 1/sqrt(fan in), olmoe's scale)."""
     mult = 2 if act in ("swiglu", "geglu") else 1
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(e, cap, d, generator=g)
-    w1 = torch.randn(e, d, mult * f, generator=g) * 0.2
-    w2 = torch.randn(e, f, d, generator=g) * 0.2
+    w1 = torch.randn(e, d, mult * f, generator=g) * (w_scale or d ** -0.5)
+    w2 = torch.randn(e, f, d, generator=g) * (w_scale or f ** -0.5)
     return (t.to(dtype).to(cuda) for t in (x, w1, w2))
+
+
+def _want_variant(d, dtype):
+    """bf16 with d (and f) a multiple of 8 takes the tensor cores."""
+    return "tc" if dtype == torch.bfloat16 and d % 8 == 0 else "simt"
+
+
+def _plain_of(kind, x, w1, w2, act, rows=None):
+    """The plain version of what each variant computes: the CUDA-core
+    variant keeps h in float32 (``moe_gmm_ref``); the tensor-core variant
+    rounds h to bfloat16 between the products (its operand type, the JAX
+    model's rounding).  At these inputs' scale (h ~ 10 at d = 256) that
+    rounding alone moves outputs near 0 by up to ~0.06, past 3e-2 of the
+    float32-h version; at olmoe's weight scale (chip_smoke.py) the
+    tensor-core variant stays within 3e-2 of ``moe_gmm_ref`` itself."""
+    if kind == "simt":
+        return moe_gmm_ref(x, w1, w2, act=act, rows=rows)
+    h = activation_f32(act, torch.einsum("ecd,edf->ecf", x.float(),
+                                         w1.float()))
+    o = torch.einsum("ecf,efd->ecd", h.to(torch.bfloat16).float(),
+                     w2.float())
+    if rows is not None:
+        keep = torch.arange(o.shape[1], device=o.device) < rows[:, None]
+        o = o * keep[..., None]
+    return o.to(x.dtype)
+
+
+#: the tensor-core variant's tiles and their edges: the transposed decode
+#: tile (C <= 8, C <= 16), the row tile past it (C > 16), d and f
+#: multiples of 8 only (ragged slices and strips) or of 64
+TILE_EDGES = [(3, 1, 64, 64), (3, 1, 24, 8), (2, 9, 64, 128),
+              (2, 16, 56, 24), (2, 17, 64, 64), (2, 63, 72, 40),
+              (2, 64, 128, 64), (2, 65, 64, 192), (2, 640, 256, 128)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -256,21 +292,64 @@ def _gmm_inputs(e, cap, d, f, act, dtype, cuda, seed=4):
     (3, 20, 40, 16),                          # ragged C (no tile divides it)
     (2, 5, 100, 8),                           # C < 8, d not a vector multiple
     (4, 8, 256, 64),                          # the decode tile (C <= 8)
+    *TILE_EDGES,
 ])
 def test_moe_gmm_matches_plain(cuda, e, cap, d, f, act, dtype):
-    """tests/test_kernels.py's tolerances: 1e-4 float32, 3e-2 bfloat16."""
+    """tests/test_kernels.py's tolerances: 1e-4 float32, 3e-2 bfloat16;
+    each case asserts the variant it launched.  The tile-edge cases draw
+    their weights at 1/sqrt(fan in), as chip_smoke.py does: at the sweep's
+    fixed 0.2 and d = 256, h reaches ~100, where one bf16 ulp of h (which
+    the tensor-core variant rounds h to) moves an output by ~0.1."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    x, w1, w2 = _gmm_inputs(e, cap, d, f, act, dtype, cuda)
+    x, w1, w2 = _gmm_inputs(
+        e, cap, d, f, act, dtype, cuda,
+        w_scale=None if (e, cap, d, f) in TILE_EDGES else 0.2)
     x[-1] = 0                                 # an expert with no token
+    want = _want_variant(d, dtype)
     before = moe_gmm.launches
+    by_variant = dict(moe_gmm.launches_by_variant)
     out = moe_gmm(x, w1, w2, act=act)
     assert moe_gmm.launches == before + 1
+    by_variant[want] += 1
+    assert moe_gmm.launches_by_variant == by_variant
     torch.cuda.synchronize()
-    ref = moe_gmm_ref(x, w1, w2, act=act)
+    ref = _plain_of(want, x, w1, w2, act)
     assert out.dtype == dtype and out.shape == x.shape
     assert torch.count_nonzero(out[-1]) == 0
     tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["swiglu", "relu2"])
+@pytest.mark.parametrize("cap,d,f", [(8, 64, 64), (16, 64, 32),
+                                     (200, 128, 64), (30, 100, 16)])
+def test_moe_gmm_rows_skip_empty_capacity(cuda, cap, d, f, act, dtype):
+    """Partial fills, one expert at 0 rows, one full: with ``rows`` the
+    output equals, bit for bit, the output without it on inputs zeroed
+    past each fill, and rows past a fill are zero whatever the input
+    holds there."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w1, w2 = _gmm_inputs(5, cap, d, f, act, dtype, cuda, seed=6)
+    fill = [cap // 2, 0, cap, 1, cap - 3]
+    rows = torch.tensor(fill, dtype=torch.int32, device=cuda)
+    zeroed = x.clone()
+    for e, n in enumerate(fill):
+        zeroed[e, n:] = 0
+    want = _want_variant(d, dtype)
+    before = moe_gmm.launches_by_variant[want]
+    with_rows = moe_gmm(zeroed, w1, w2, act=act, rows=rows)
+    without = moe_gmm(zeroed, w1, w2, act=act)
+    garbage_past_fill = moe_gmm(x, w1, w2, act=act, rows=rows)
+    assert moe_gmm.launches_by_variant[want] == before + 3
+    torch.cuda.synchronize()
+    assert torch.equal(with_rows, without)
+    assert torch.equal(garbage_past_fill, without)
+    assert torch.count_nonzero(without[1]) == 0
+    ref = _plain_of(want, x, w1, w2, act, rows)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(with_rows.float(), ref.float(), atol=tol,
+                               rtol=tol)
 
 
 def test_moe_gmm_refuses_what_it_does_not_take(cuda):
@@ -287,6 +366,11 @@ def test_moe_gmm_refuses_what_it_does_not_take(cuda):
         moe_gmm(x, w1[..., :20].contiguous(), w2[:, :10].contiguous())
     with pytest.raises(ValueError):
         moe_gmm(x, w1.cpu(), w2)
+    for rows in (torch.zeros(2, dtype=torch.int64, device=cuda),  # dtype
+                 torch.zeros(3, dtype=torch.int32, device=cuda),  # shape
+                 torch.zeros(2, dtype=torch.int32)):              # device
+        with pytest.raises(ValueError):
+            moe_gmm(x, w1, w2, rows=rows)
 
 
 # ---------------------------------------------------------------------------

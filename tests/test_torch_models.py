@@ -20,7 +20,8 @@ packages:
   2e-2; the aux terms (router losses, dropped fraction) at 1e-5.  A moe
   model in bfloat16 runs its expert FFN with ``h`` rounded to bfloat16
   between the products, as the reference's einsums round it
-  (:func:`rounding_h_gmm`); the port's kernel keeps ``h`` in float32, and
+  (:func:`rounding_h_gmm`, as the kernel's bf16 tensor-core variant does
+  on the card); the port's plain version keeps ``h`` in float32, and
   ``tests/test_torch_moe.py`` measures what that changes.
 """
 import dataclasses
@@ -304,13 +305,18 @@ def reference_compiled(fn, *args):
         compiler_options={"xla_allow_excess_precision": False})
 
 
-def rounding_h_gmm(x, w1, w2, *, act="swiglu"):
+def rounding_h_gmm(x, w1, w2, *, act="swiglu", rows=None):
     """The reference moe_block's expert FFN (``models/moe.py:123-127``):
     ``h`` rounded to x.dtype after the first product and through the
-    activation, where the port's kernel keeps it in float32."""
+    activation, where the port's plain version keeps it in float32.
+    Takes the kernel's ``rows`` (each expert's filled slots) and zeroes
+    the rows past each fill, as the kernel does."""
     h = torch.einsum("ecd,edf->ecf", x.float(), w1.float()).to(x.dtype)
     h = p_layers.mlp_activation(act, h)
-    return torch.einsum("ecf,efd->ecd", h.float(), w2.float()).to(x.dtype)
+    o = torch.einsum("ecf,efd->ecd", h.float(), w2.float())
+    if rows is not None:
+        o = o * (torch.arange(o.shape[1]) < rows[:, None])[..., None]
+    return o.to(x.dtype)
 
 
 def carried_model(cfg: RConfig, dtype: str, seed: int = 0):

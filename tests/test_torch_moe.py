@@ -12,10 +12,16 @@ The same numpy-seeded inputs go through both packages:
   moonshot-v1-16b-a3b smoke configs: the expert choices are asserted
   equal first, then the outputs and the aux terms, float32 at 1e-5 (the
   same sums in another order) and bfloat16 at 2e-2.  In bfloat16 the
-  port's expert FFN keeps ``h`` in float32 where the reference rounds it
-  to bfloat16, so the two differ by a few ulps (``BF16_H_ROUNDING``
-  records the largest difference seen); a case with a low capacity
-  factor drops assignments (``dropped_frac > 0``);
+  port's expert FFN on the CPU (the kernel's plain version) keeps ``h`` in
+  float32 where the reference rounds it to bfloat16, so the two differ
+  by a few ulps (``BF16_H_ROUNDING`` records the largest difference
+  seen); a case with a low capacity factor drops assignments
+  (``dropped_frac > 0``); ``moe_block``'s ``rows`` (each expert's filled
+  slots, so the kernel skips the empty ones) leave its outputs the same
+  bit for bit;
+* the plain version with ``rows`` (rows past each fill exactly zero) and
+  the kernel's variant choice (bf16 with d, f multiples of 8: the tensor
+  cores);
 * moonshot's decoder layer with its shared expert, on the reference's
   params carried across;
 * the whole bfloat16 forward of both smoke models with the float32 ``h``
@@ -46,7 +52,7 @@ from repro.models.registry import build_model as r_build_model
 import repro_torch.models.lm as p_lm
 import repro_torch.models.moe as p_moe
 from repro_torch.distributed import local_comm
-from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
+from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref, variant
 from repro_torch.models.blocks import tp_plan
 from repro_torch.models.registry import build_model
 from test_torch_models import (DTYPES, _np, _pair, carried_model, port_config,
@@ -104,6 +110,52 @@ def test_moe_gmm_plain_ragged_capacity_and_empty_expert(act):
     np.testing.assert_allclose(_np(got), _np(r_moe_gmm_ref(jx, jw1, jw2,
                                                            act=act)),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu", "relu2"])
+def test_moe_gmm_plain_rows_zero_past_each_fill(act, dtype):
+    """The plain version through the wrapper with ``rows`` (partial fills,
+    an expert at 0 rows, one full, one past C): rows past each fill are
+    exactly 0 whatever x holds there, the rest equal the call without
+    ``rows`` bit for bit and match the reference's ref on x zeroed past
+    each fill."""
+    cap = 12
+    x, w1, w2 = _gmm_inputs(5, cap, 40, 16, act, seed=2)
+    fill = [5, 0, cap, 1, cap + 4]
+    zeroed = x.copy()
+    for e, n in enumerate(fill):
+        zeroed[e, n:] = 0.0
+    (jz, _), (jw1, tw1), (jw2, tw2) = (_pair(a, dtype)
+                                       for a in (zeroed, w1, w2))
+    _, tx = _pair(x, dtype)
+    rows = torch.tensor(fill, dtype=torch.int32)
+    got = moe_gmm(tx, tw1, tw2, act=act, rows=rows)
+    full = moe_gmm(tx, tw1, tw2, act=act)
+    for e, n in enumerate(fill):
+        assert torch.count_nonzero(got[e, n:]) == 0
+        assert torch.equal(got[e, :n], full[e, :n])
+    tol = 3e-2 if dtype == "bfloat16" else 1e-4
+    np.testing.assert_allclose(_np(got), _np(r_moe_gmm_ref(jz, jw1, jw2,
+                                                           act=act)),
+                               atol=tol, rtol=tol)
+
+
+def test_moe_gmm_variant_choice():
+    """bf16 with d and f multiples of 8 takes the tensor-core variant;
+    float32, an unaligned d, or a tensor off a 16-byte boundary the
+    CUDA-core one."""
+    def pick(dtype, d, f, offset=0):
+        x = torch.zeros(2 * 4 * d + offset, dtype=dtype)[offset:]
+        x = x[:2 * 4 * d].view(2, 4, d)
+        return variant(x, torch.zeros(2, d, 2 * f, dtype=dtype),
+                       torch.zeros(2, f, d, dtype=dtype))
+    assert pick(torch.bfloat16, 64, 32) == "tc"
+    assert pick(torch.bfloat16, 2048, 1024) == "tc"
+    assert pick(torch.bfloat16, 40, 24) == "tc"
+    assert pick(torch.float32, 64, 32) == "simt"
+    assert pick(torch.bfloat16, 100, 8) == "simt"
+    assert pick(torch.bfloat16, 64, 32, offset=1) == "simt"
 
 
 def test_moe_gmm_refuses_what_it_does_not_take():
@@ -224,6 +276,39 @@ def test_moe_block_matches_reference(case, dtype):
     np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
     if dtype == "bfloat16":
         BF16_H_ROUNDING[case] = float(np.abs(_np(got) - _np(want)).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(MOE_BLOCK_CASES))
+def test_moe_block_rows_leave_outputs_identical(case, dtype, monkeypatch):
+    """moe_block hands the kernel each expert's filled slots (``rows``,
+    int32, clamped to the capacity); the block's outputs are the same,
+    bit for bit, as with ``rows`` dropped."""
+    arch, over, (s, b) = MOE_BLOCK_CASES[case]
+    _, pcfg = _cfgs(arch, dtype, **over)
+    params = {k: _pair(v, dtype)[1]
+              for k, v in _moe_params(_cfgs(arch, **over)[0], 3).items()}
+    x = _pair(np.random.default_rng(4).standard_normal(
+        (s, b, pcfg.d_model), np.float32), dtype)[1]
+    seen = []
+
+    def spy(*args, rows=None, **kw):
+        seen.append(rows)
+        return moe_gmm(*args, rows=rows, **kw)
+
+    def dropped(*args, rows=None, **kw):
+        return moe_gmm(*args, **kw)
+
+    monkeypatch.setattr(p_moe, "moe_gmm", spy)
+    got, aux = p_moe.moe_block(x, params, pcfg, PCOMM)
+    monkeypatch.setattr(p_moe, "moe_gmm", dropped)
+    want, _ = p_moe.moe_block(x, params, pcfg, PCOMM)
+    (rows,) = seen
+    cap = p_moe.capacity(s * b, pcfg)
+    assert rows.dtype == torch.int32 and rows.shape == (pcfg.n_experts,)
+    assert int(rows.max()) <= cap and int(rows.sum()) == round(
+        s * b * pcfg.top_k * (1 - float(aux["dropped_frac"])))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
