@@ -24,18 +24,23 @@ The phases:
    the sweeps of ``tests/test_kernels.py``, gemma3-1b's prefill shapes
    (window 512 and global, bf16 and float32), a ragged s = 1000, a q
    offset whose later rows see no key, and the serving path's RMSNorm
-   shapes; each timed case also times the plain version and one PyTorch
-   call (``F.scaled_dot_product_attention`` with an explicit mask,
-   ``F.rms_norm``) as a yardstick;
+   shapes; each B2 case reports the variant it launched (bf16 at dh
+   64/128/256: "tc", the tensor cores; float32 and dh 16/32: "simt"), and
+   a "tc" case is also held against the plain version with P rounded to
+   bf16, as the variant computes it; each timed case also times the plain
+   version and one PyTorch call (``F.scaled_dot_product_attention`` with
+   an explicit mask, and for a plain causal mask also with
+   ``is_causal=True``; ``F.rms_norm``) as a yardstick;
 6. gemma3-1b's full config in float32 with seeded random weights:
    teacher-forced ``make_serve_step`` over 32 positions agrees with
    ``forward``'s greedy tokens on more than 0.95 of them, and
    ``make_prefill_step``'s token equals forward's last position;
 7. gemma3-1b's full config in bf16: ``make_prefill_step`` on 4 prompts of
-   2048 tokens (exactly 26 flash-attention and 105 RMSNorm launches a
-   call), then the serve launcher's loop (``ServeScheduler`` +
-   ``make_serve_step``, 16 requests of 8-token prompts, 16 new tokens
-   each, 8 slots, a 256-position cache; 105 RMSNorm launches a step);
+   2048 tokens (exactly 26 flash-attention launches a call, every one
+   on the "tc" variant, and 105 RMSNorm launches), then the serve
+   launcher's loop (``ServeScheduler`` + ``make_serve_step``, 16 requests
+   of 8-token prompts, 16 new tokens each, 8 slots, a 256-position cache;
+   105 RMSNorm launches a step);
 8. the MoE grouped matmul (B4) against its plain version: the sweep of
    ``tests/test_kernels.py`` (4 activations x 2 shapes x f32/bf16),
    olmoe-1b-7b's decode shape (64 experts x 8 slots) and prefill shape (64
@@ -56,7 +61,8 @@ The phases:
    the config's own capacity factor 1.25;
 10. olmoe-1b-7b's full config in bf16: ``make_prefill_step`` on 4 prompts
    of 1024 tokens (exactly 16 flash-attention, 65 RMSNorm and 16 MoE
-   grouped-matmul launches a call, every one on the tensor-core variant),
+   grouped-matmul launches a call, every B2 and B4 one on its
+   tensor-core variant),
    then the serve launcher's loop as in phase 7 (65 RMSNorm and 16
    tensor-core grouped-matmul launches a step), with the experts' mean
    fill and the share of empty experts at prefill and decode;
@@ -78,7 +84,8 @@ The phases:
    launcher's loop as in phase 7 (97 RMSNorm and no SSD-scan launch a
    step);
 14. hymba-1.5b's full config in bf16: prefill of 4 x 2048 tokens (exactly
-   32 flash-attention, 32 SSD-scan and 161 RMSNorm launches a call: norm1,
+   32 flash-attention launches, all "tc", 32 SSD-scan and 161 RMSNorm
+   launches a call: norm1,
    the gated norm, the two mix norms and norm2 a layer, plus the final
    norm), then the same launcher loop (161 RMSNorm launches a step).
 
@@ -95,6 +102,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -118,6 +126,35 @@ REPLACES = "src/repro/kernels/doorbell/kernel.py:22"
 
 def record(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<template args>`` of a mangled kernel symbol, e.g.
+    ``flash_fwd_tc_kernel<256>``."""
+    end = mangled.find("kernel") + len("kernel")
+    for start in range(end - 1, 0, -1):
+        for digits in (1, 2, 3):
+            d = mangled[start - digits:start]
+            if d.isdigit() and int(d) == end - start:
+                args = re.match(r"I(.*?)EEv", mangled[end:])
+                inner = args.group(1) if args else ""
+                kind = ["float"] if inner.startswith("f") else \
+                    ["bf16"] if inner.startswith("13__nv_bfloat16") else []
+                vals = kind + re.findall(r"Li(\d+)E", inner)
+                return f"{mangled[start:end]}<{','.join(vals)}>"
+    return mangled
+
+
+def ptxas_report(log: str) -> list:
+    """Each kernel's registers and spill bytes from nvcc's -Xptxas -v
+    output."""
+    return [{"kernel": _kernel_name(m.group(1)),
+             "registers": int(m.group(4)), "spill_stores": int(m.group(2)),
+             "spill_loads": int(m.group(3))}
+            for m in re.finditer(
+                r"Compiling entry function '([^']+)'.*?(\d+) bytes spill "
+                r"stores, (\d+) bytes spill loads.*?Used (\d+) registers",
+                log, re.S)]
 
 
 # ---------------------------------------------------------------------------
@@ -480,6 +517,16 @@ def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16):
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:85"
+#: the variants of csrc/flash_attention.cu, for the kernels line
+FLASH_DESIGN = {"tc": "bf16, dh 64/128/256: wgmma (S = Q K^T from shared "
+                      "memory; O += P V with P in bf16 from registers, V "
+                      "MN-major) + TMA (2-stage K/V ring, mbarriers), 128 "
+                      "q rows a block in 2 consumer warpgroups + a loader "
+                      "warpgroup (setmaxnreg 240/24), online softmax in "
+                      "registers, masked-band tiles skipped, seq-major "
+                      "views read and written in place",
+                "simt": "float32 and dh 16/32: CUDA-core register tiles, "
+                        "softmax through shared memory"}
 RMS_SOURCE = "src/repro_torch/csrc/rmsnorm.cu"
 RMS_REPLACES = "src/repro/kernels/rmsnorm/kernel.py:25"
 GEMMA_GLOBAL = 1 << 30                  # blocks.py: a global layer's window
@@ -519,15 +566,24 @@ def flash_case(torch, label, b, hq, hkv, sq, skv, dh, causal, window,
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
                                                      flash_attention_ref)
+    from repro_torch.kernels.flash_attention import variant as flash_variant
     from repro_torch.kernels.flash_attention.ref import attention_mask
     q = torch.randn(b, hq, sq, dh, generator=g, device=DEVICE).to(dtype)
     k = torch.randn(b, hkv, skv, dh, generator=g, device=DEVICE).to(dtype)
     v = torch.randn(b, hkv, skv, dh, generator=g, device=DEVICE).to(dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    out = flash_attention_bhsd(q, k, v, **kw)
+    out, kind = _flash_variant_of(
+        lambda: flash_attention_bhsd(q, k, v, **kw))
+    if kind != flash_variant(q, k, v):
+        raise AssertionError(f"{label}: launched {kind}, variant() says "
+                             f"{flash_variant(q, k, v)}")
     ref = flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     err = _close(label, out, ref, dtype)
+    err_bf16_p = None
+    if kind == "tc":                    # P in bf16, as the variant rounds it
+        err_bf16_p = _close(f"{label} (bf16 P)", out, flash_attention_ref(
+            q, k, v, p_dtype=torch.bfloat16, **kw), dtype)
     mask = attention_mask(sq, skv, causal=causal, window=window,
                           q_offset=q_offset, device=DEVICE)
     pairs = int(mask.sum()) * b * hq
@@ -539,8 +595,9 @@ def flash_case(torch, label, b, hq, hkv, sq, skv, dh, causal, window,
     case = {"case": label, "shape_q": [b, hq, sq, dh],
             "shape_kv": [b, hkv, skv, dh], "dtype": dname,
             "causal": causal, "window": window, "q_offset": q_offset,
-            "visible_pairs": pairs, "flops": flops, "bytes": nbytes,
-            "ok": True, "max_abs_err": err,
+            "variant": kind, "visible_pairs": pairs, "flops": flops,
+            "bytes": nbytes, "ok": True, "max_abs_err": err,
+            "max_abs_err_bf16_p": err_bf16_p,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
     if time_it:
@@ -556,8 +613,54 @@ def flash_case(torch, label, b, hq, hkv, sq, skv, dh, causal, window,
                     t[0], t[1], t[2], attn_mask=mask_, enable_gqa=True),
                 xs),
         })
+        # a plain causal mask: also the library's causal-only call, which
+        # does the visible half of the work, as the kernel does
+        if causal and q_offset == 0 and sq == skv and \
+                (window == 0 or window >= skv):
+            fn, inputs, form = _causal_sdpa(xs)
+            case["library_causal_ms"] = device_ms(fn, inputs)
+            case["library_causal_form"] = form
         case["achieved_tflops"] = flops / case["kernel_ms"] / 1e9
+        case["bound_share"] = case["bound_ms"] / case["kernel_ms"]
     return case
+
+
+def _flash_variant_of(call):
+    """Run ``call`` (one flash-attention wrapper call) and return (its
+    result, the variant it launched)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    before = dict(flash_attention_bhsd.launches_by_variant)
+    out = call()
+    ran = [k for k, n in flash_attention_bhsd.launches_by_variant.items()
+           if n != before[k]]
+    if len(ran) != 1:
+        raise AssertionError(f"flash_attention: variants {ran} launched in "
+                             "one call")
+    return out, ran[0]
+
+
+def _causal_sdpa(xs):
+    """``F.scaled_dot_product_attention(..., is_causal=True)`` over the
+    (q, k, v) tuples ``xs``: (the call, its inputs, the form).  The form
+    is ``enable_gqa`` where the chosen backend takes it, else k and v are
+    expanded to q's heads here, outside the timed calls (a GQA shape then
+    reads hq / hkv times the kv bytes)."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v = xs[0]
+    try:
+        F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                       enable_gqa=True)
+        torch.cuda.synchronize()
+        return (lambda t: F.scaled_dot_product_attention(
+            t[0], t[1], t[2], is_causal=True, enable_gqa=True)), xs, \
+            "enable_gqa"
+    except RuntimeError:
+        g = q.shape[1] // k.shape[1]
+        return (lambda t: F.scaled_dot_product_attention(
+            t[0], t[1], t[2], is_causal=True)), [
+            (t[0], t[1].repeat_interleave(g, dim=1),
+             t[2].repeat_interleave(g, dim=1)) for t in xs], "expanded"
 
 
 def rmsnorm_case(torch, label, rows, d, dtype, g, with_w=True,
@@ -756,14 +859,16 @@ SERVING = {
 
 
 def _counts():
-    """Launches of B2, B3, B4, B4's tensor-core variant and B5."""
+    """Launches of B2, B3, B4, B4's tensor-core variant, B5 and B2's
+    tensor-core variant."""
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
     return (flash_attention_bhsd.launches, rmsnorm.launches,
             moe_gmm.launches, moe_gmm.launches_by_variant["tc"],
-            ssd_scan_bhsp.launches)
+            ssd_scan_bhsp.launches,
+            flash_attention_bhsd.launches_by_variant["tc"])
 
 
 class _FillLog:
@@ -814,9 +919,9 @@ def serving_phase(torch, arch: str, profile: bool):
     from repro_torch.serving import make_prefill_step
     want = SERVING[arch]
     pb, ps = want["batch"], want["seq"]
-    # every B4 launch of a bf16 path takes the tensor-core variant
+    # every B2 and B4 launch of a bf16 path takes the tensor-core variant
     per_call = (want["flash"], want["rms"], want["moe"], want["moe"],
-                want["ssd"])
+                want["ssd"], want["flash"])
     cfg = get_config(arch)
     model = build_model(cfg, device=DEVICE)
     t0 = time.perf_counter()
@@ -847,8 +952,9 @@ def serving_phase(torch, arch: str, profile: bool):
         got = tuple(b - a for a, b in zip(c0, _counts()))
         if got != per_call:
             raise AssertionError(f"{arch} prefill launched (flash, RMSNorm, "
-                                 f"MoE GMM, MoE GMM tensor-core, SSD scan) "
-                                 f"{got} times (want {per_call})")
+                                 f"MoE GMM, MoE GMM tensor-core, SSD scan, "
+                                 f"flash tensor-core) {got} times (want "
+                                 f"{per_call})")
     if not torch.isfinite(last.float()).all() or tok.shape != (pb,) \
             or not ((tok >= 0) & (tok < cfg.vocab)).all():
         raise AssertionError(f"{arch} prefill: bad tokens or non-finite "
@@ -860,7 +966,7 @@ def serving_phase(torch, arch: str, profile: bool):
     c0 = _counts()
     with _FillLog() as decode_fill:
         out = serve(cfg, params, device=DEVICE, **SERVE_ARGS)
-    nf, nr, nm, ntc, ns = (b - a for a, b in zip(c0, _counts()))
+    nf, nr, nm, ntc, ns, _ = (b - a for a, b in zip(c0, _counts()))
     steps = out["decode_calls"]
     if steps == 0 or nr != want["rms"] * steps or \
             nm != want["moe"] * steps or ntc != nm:
@@ -884,6 +990,7 @@ def serving_phase(torch, arch: str, profile: bool):
                        "ms_each": [t * 1e3 for t in times],
                        "tokens_per_s": pb * ps / (prefill_ms / 1e3),
                        "flash_launches_per_call": want["flash"],
+                       "flash_tc_launches_per_call": want["flash"],
                        "rmsnorm_launches_per_call": want["rms"],
                        "moe_gmm_launches_per_call": want["moe"],
                        "moe_gmm_tc_launches_per_call": want["moe"],
@@ -926,7 +1033,7 @@ def profile_phase(torch, cfg, params, tokens):
                       key=lambda r: -r[1])
         total = sum(r[1] for r in rows)
         mine = {n: sum(r[1] for r in rows if key in r[0])
-                for n, key in (("flash_attention", "flash_fwd_kernel"),
+                for n, key in (("flash_attention", "flash_fwd"),
                                ("rmsnorm", "rmsnorm_kernel"),
                                ("moe_gmm", "gmm_"),
                                ("ssd_scan", "ssd_scan_kernel"))}
@@ -1363,12 +1470,21 @@ def _summary(cases, keys):
 
 
 def _zero_counts(counters):
-    """Every launch count to 0, B4's count by variant too."""
-    from repro_torch.kernels.moe_gmm import moe_gmm
+    """Every launch count to 0, B2's and B4's counts by variant too."""
     for c in counters:
         c.launches = 0
-    moe_gmm.launches_by_variant = dict.fromkeys(moe_gmm.launches_by_variant,
-                                                0)
+        if hasattr(c, "launches_by_variant"):
+            c.launches_by_variant = dict.fromkeys(c.launches_by_variant, 0)
+
+
+def _all_tc(path, fn) -> dict:
+    """B2's launches by variant since the counts were set to 0; raises
+    unless every one took the tensor-core variant."""
+    by = dict(fn.launches_by_variant)
+    if by["tc"] != fn.launches:
+        raise AssertionError(f"the {path} path's flash-attention launches "
+                             f"{by} were not all tensor-core")
+    return by
 
 
 def main(argv=None) -> int:
@@ -1406,13 +1522,17 @@ def main(argv=None) -> int:
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     built = _build.build()
+    ptxas = {n: ptxas_report(b["ptxas"]) for n, b in built.items()}
     record("build", seconds=time.perf_counter() - t0,
            built=sorted(built), libraries=[
                os.path.relpath(_build.library_path(n), ROOT)
-               for n in _build.SOURCES],
-           ptxas={n: [ln.strip() for ln in b["ptxas"].splitlines()
-                      if "registers" in ln or "spill" in ln]
-                  for n, b in built.items()})
+               for n in _build.SOURCES], ptxas=ptxas)
+    spilled = [k for k in ptxas.get("flash_attention", [])
+               if "tc_kernel" in k["kernel"] and
+               k["spill_stores"] + k["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"the flash-attention tensor-core kernels "
+                             f"spill registers: {spilled}")
 
     # 3. the doorbell kernel against its plain version
     cases = kernel_phase(torch)
@@ -1446,9 +1566,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     served = serving_phase(torch, "gemma3-1b", args.profile)
     n_flash, n_rms = flash_attention_bhsd.launches, rmsnorm.launches
+    flash_by = {"gemma3-1b": _all_tc("serving", flash_attention_bhsd)}
     record("serving_main_path", seconds=time.perf_counter() - t0,
-           flash_attention_launches=n_flash, rmsnorm_launches=n_rms,
-           moe_gmm_launches=moe_gmm.launches, **served)
+           flash_attention_launches=n_flash,
+           flash_attention_launches_by_variant=flash_by["gemma3-1b"],
+           rmsnorm_launches=n_rms, moe_gmm_launches=moe_gmm.launches,
+           **served)
     if n_flash == 0 or n_rms == 0:
         raise AssertionError("the serving path launched no flash-attention "
                              "or RMSNorm kernel")
@@ -1471,9 +1594,11 @@ def main(argv=None) -> int:
     m_flash, m_rms, n_moe = (flash_attention_bhsd.launches, rmsnorm.launches,
                              moe_gmm.launches)
     moe_by_variant = dict(moe_gmm.launches_by_variant)
+    flash_by["olmoe-1b-7b"] = _all_tc("moe serving", flash_attention_bhsd)
     record("moe_serving_main_path", seconds=time.perf_counter() - t0,
-           flash_attention_launches=m_flash, rmsnorm_launches=m_rms,
-           moe_gmm_launches=n_moe,
+           flash_attention_launches=m_flash,
+           flash_attention_launches_by_variant=flash_by["olmoe-1b-7b"],
+           rmsnorm_launches=m_rms, moe_gmm_launches=n_moe,
            moe_gmm_launches_by_variant=moe_by_variant, **served)
     if m_flash == 0 or m_rms == 0 or n_moe == 0:
         raise AssertionError("the moe serving path launched no "
@@ -1512,10 +1637,12 @@ def main(argv=None) -> int:
     served = serving_phase(torch, "hymba-1.5b", args.profile)
     y_flash, y_rms, y_ssd = (flash_attention_bhsd.launches, rmsnorm.launches,
                              ssd_scan_bhsp.launches)
+    flash_by["hymba-1.5b"] = _all_tc("hybrid serving", flash_attention_bhsd)
     record("hybrid_serving_main_path", seconds=time.perf_counter() - t0,
-           flash_attention_launches=y_flash, rmsnorm_launches=y_rms,
-           moe_gmm_launches=moe_gmm.launches, ssd_scan_launches=y_ssd,
-           **served)
+           flash_attention_launches=y_flash,
+           flash_attention_launches_by_variant=flash_by["hymba-1.5b"],
+           rmsnorm_launches=y_rms, moe_gmm_launches=moe_gmm.launches,
+           ssd_scan_launches=y_ssd, **served)
     if y_flash == 0 or y_rms == 0 or y_ssd == 0:
         raise AssertionError("the hybrid serving path launched no "
                              "flash-attention, RMSNorm or SSD-scan kernel")
@@ -1554,7 +1681,14 @@ def main(argv=None) -> int:
         "bound_ms": fhead["bound_ms"], "bound_by": fhead["bound_by"],
         "library_ms": fhead["library_ms"], "shape_q": fhead["shape_q"],
         "shape_kv": fhead["shape_kv"], "window": fhead["window"],
-        "cases": _summary([c for c in flash if "kernel_ms" in c], timed)}, {
+        "variant": fhead["variant"], "design": FLASH_DESIGN,
+        "launches_by_variant": {
+            k: sum(by[k] for by in flash_by.values()) for k in FLASH_DESIGN},
+        "launches_by_variant_by_path": flash_by,
+        "cases": _summary([c for c in flash if "kernel_ms" in c],
+                          timed + ("variant", "library_causal_ms",
+                                   "library_causal_form", "achieved_tflops",
+                                   "bound_share"))}, {
         "name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
         "replaces": RMS_REPLACES, "launches": n_rms + m_rms + s_rms + y_rms,
         "launches_by_path": {"gemma3-1b": n_rms, "olmoe-1b-7b": m_rms,

@@ -5,8 +5,9 @@ with ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>.so`` at the
 repository root, then loaded with :mod:`ctypes`.  This takes seconds,
 where ``torch.utils.cpp_extension.load`` (whose sources include
 PyTorch's headers) takes minutes.  A library is rebuilt when it is
-missing or older than its source; nothing is built at import time, only
-at first use on the card.
+missing or older than its source or than any header under ``csrc/``
+(``sm90_common.cuh``, the Hopper helpers of the tensor-core kernels);
+nothing is built at import time, only at first use on the card.
 
 ``--use_fast_math`` is deliberately absent: it would flush subnormals in
 the doorbell's float32 -> bfloat16 conversion and swap the exact
@@ -16,6 +17,7 @@ grouped matmul and the SSD scan for approximations.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import subprocess
 import time
@@ -34,7 +36,8 @@ SOURCES = {"doorbell": "doorbell.cu",
            "ssd_scan": "ssd_scan.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", CSRC)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -53,9 +56,11 @@ def library_path(name: str) -> str:
 
 def _stale(name: str) -> bool:
     lib = library_path(name)
-    src = os.path.join(CSRC, SOURCES[name])
-    return not os.path.exists(lib) or \
-        os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    inputs = [os.path.join(CSRC, SOURCES[name])] + \
+        glob.glob(os.path.join(CSRC, "*.cuh"))
+    return os.path.getmtime(lib) < max(map(os.path.getmtime, inputs))
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:

@@ -3,21 +3,30 @@
 :func:`flash_attention_bhsd` works in the kernel's (b, h, s, dh) layout,
 as the reference's ``flash_attention_tpu`` does; :func:`flash_attention`
 is the seq-major adapter of ``repro/kernels/flash_attention/ops.py:24``
-((s, b, h, dh) in and out).  For CUDA tensors the hand-written Hopper
-kernel (``csrc/flash_attention.cu``) runs on the current stream, without
-synchronising, or the call raises; CPU tensors take the plain version in
-:mod:`.ref`.  There is no fallback.  ``flash_attention_bhsd.launches``
-counts the kernel launches.
+((s, b, h, dh) in and out).  For CUDA tensors one of the two hand-written
+Hopper variants of ``csrc/flash_attention.cu`` runs on the current
+stream, without synchronising, or the call raises; CPU tensors take the
+plain version in :mod:`.ref`.  There is no fallback.  :func:`variant`
+picks the variant from dtype, head dim and layout: ``"tc"`` (wgmma + TMA
+on the tensor cores, P rounded to bf16 for the second product) for bf16
+whose padded head dim is 64, 128 or 256 and whose tensors a TMA map can
+address, ``"simt"`` (float32 CUDA-core products) for everything else.
+``flash_attention_bhsd.launches`` counts the kernel launches of both
+wrappers, ``flash_attention_bhsd.launches_by_variant`` the same by
+variant.
 
 The kernel is instantiated for head dims 16/32/64/128/256; any other dh up
 to 256 is zero-padded to the next of them (zeros add nothing to q.k, and
 the padded output columns are dropped) and the softmax scale stays
-``1/sqrt(dh)`` of the true head dim.
+``1/sqrt(dh)`` of the true head dim.  On ``"tc"`` the seq-major wrapper
+reads q, k and v and writes the output in place through their strides;
+on ``"simt"`` it copies them into the kernel layout and back.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,11 +37,15 @@ from .ref import flash_attention_ref
 _DTYPES = (torch.float32, torch.bfloat16)
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: the kernel reads 16-byte vectors of q, k and v
+#: padded head dims of the tensor-core variant
+TC_HEAD_DIMS = (64, 128, 256)
+#: variant names, in the order of the launch counts
+VARIANTS = ("simt", "tc")
+#: TMA and the simt kernel's vector loads need 16-byte addresses
 _ALIGN = 16
 
 
-def _kernel():
+def _simt_kernel():
     fn = _build.load("flash_attention").repro_flash_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -43,6 +56,68 @@ def _kernel():
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
                        ctypes.c_void_p]
     return fn
+
+
+def _tc_kernel():
+    fn = _build.load("flash_attention").repro_flash_attention_tc
+    if fn.argtypes is None:
+        geom = ctypes.POINTER(ctypes.c_int64)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, geom, ctypes.c_void_p, geom,
+                       ctypes.c_void_p, geom, ctypes.c_void_p, geom,
+                       ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_float, ctypes.c_void_p]
+    return fn
+
+
+def padded_head_dim(dh: int) -> int:
+    """The instantiated head dim a call with head dim ``dh`` runs at."""
+    return next(h for h in HEAD_DIMS if h >= dh)
+
+
+def tma_geometry(t: torch.Tensor) -> Tuple[int, ...]:
+    """The 4-D TMA tensor map over a (b, h, s, dh) view ``t``: its dims
+    innermost first, ``(dh, s, h, b)``, then the byte strides of s, h
+    and b.  s keeps a dimension of its own, so a tile that runs past s
+    reads zeros, never the next head's rows.  A dimension of size 1 is
+    never stepped along; it gets the stride of one row of dh.  Raises
+    ``ValueError`` when TMA cannot address the view: dh not contiguous,
+    or a stride or the base address off a 16-byte boundary."""
+    b, h, s, dh = t.shape
+    es = t.element_size()
+    if t.stride(3) != 1:
+        raise ValueError(f"flash_attention: the head dim must be "
+                         f"contiguous, got strides {tuple(t.stride())}")
+    strides = tuple(t.stride(i) * es if t.shape[i] > 1 else dh * es
+                    for i in (2, 1, 0))
+    if t.data_ptr() % _ALIGN or any(x <= 0 or x % _ALIGN for x in strides):
+        raise ValueError(f"flash_attention: a TMA map needs a 16-byte "
+                         f"aligned base and strides, got {t.data_ptr()} "
+                         f"and {strides} bytes")
+    return (dh, s, h, b) + strides
+
+
+def _tma_ok(t: torch.Tensor) -> bool:
+    try:
+        tma_geometry(t)
+    except ValueError:
+        return False
+    return True
+
+
+def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel variant a CUDA call on (b, h, s, dh) views takes:
+    ``"tc"`` for bf16 q, k and v whose head dim pads to 64, 128 or 256
+    and which a TMA map can address (a padded call reads fresh contiguous
+    copies, so only the unpadded views are checked), else ``"simt"``."""
+    dh = q.shape[-1]
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16) or \
+            not 0 < dh <= HEAD_DIMS[-1] or \
+            padded_head_dim(dh) not in TC_HEAD_DIMS:
+        return "simt"
+    if padded_head_dim(dh) != dh or all(_tma_ok(t) for t in (q, k, v)):
+        return "tc"
+    return "simt"
 
 
 def _check(q, k, v) -> None:
@@ -64,10 +139,51 @@ def _check(q, k, v) -> None:
     if not 0 < dh <= HEAD_DIMS[-1]:
         raise ValueError(f"flash_attention: head dim {dh} outside 1.."
                          f"{HEAD_DIMS[-1]}")
-    for t in (q, k, v):
-        if not t.is_contiguous() or t.data_ptr() % _ALIGN:
-            raise ValueError("flash_attention: q, k, v must be contiguous "
-                             "and 16-byte aligned")
+    if q.numel() and k.shape[2] == 0:
+        raise ValueError("flash_attention: no keys")
+
+
+def _pad(t: torch.Tensor, dk: int) -> torch.Tensor:
+    return t if t.shape[-1] == dk else F.pad(t, (0, dk - t.shape[-1]))
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if contiguous and 16-byte aligned, else a fresh copy."""
+    if t.is_contiguous() and t.data_ptr() % _ALIGN == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _geom(vals) -> ctypes.Array:
+    return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def _launch(kind: str, q, k, v, out, *, causal: bool, window: int,
+            q_offset: int, scale: float) -> None:
+    """One launch of variant ``kind`` on (b, h, s, dk) views; ``out`` (the
+    same shape as q) receives the result.  simt needs all four contiguous
+    and aligned."""
+    b, hq, sq, dk = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if kind == "tc":
+            rc = _tc_kernel()(q.data_ptr(), _geom(tma_geometry(q)),
+                              k.data_ptr(), _geom(tma_geometry(k)),
+                              v.data_ptr(), _geom(tma_geometry(v)),
+                              out.data_ptr(), _geom(out.stride()[:3]),
+                              int(causal), int(window), int(q_offset),
+                              scale, stream)
+        else:
+            rc = _simt_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                out.data_ptr(), b, hq, hkv, sq, skv, dk,
+                                int(q.dtype == torch.bfloat16), int(causal),
+                                int(window), int(q_offset), scale, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel ({kind}) launch failed: "
+                           f"CUDA error {rc}")
+    flash_attention_bhsd.launches += 1
+    flash_attention_bhsd.launches_by_variant[kind] += 1
 
 
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
@@ -79,39 +195,44 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
     _check(q, k, v)
-    b, hq, sq, dh = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
     if q.numel() == 0:
         return torch.empty_like(q)
-    if skv == 0:
-        raise ValueError("flash_attention: no keys")
-    dk = next(h for h in HEAD_DIMS if h >= dh)
-    if dk != dh:                       # zero-pad to an instantiated dh
-        q, k, v = (F.pad(t, (0, dk - dh)) for t in (q, k, v))
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), b, hq, hkv, sq, skv, dk,
-                       int(q.dtype == torch.bfloat16), int(causal),
-                       int(window), int(q_offset), 1.0 / math.sqrt(dh),
-                       torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
-    flash_attention_bhsd.launches += 1
+    kind = variant(q, k, v)
+    dh = q.shape[-1]
+    dk = padded_head_dim(dh)
+    q, k, v = (_pad(t, dk) for t in (q, k, v))
+    if kind == "simt":
+        q, k, v = (_dense(t) for t in (q, k, v))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(kind, q, k, v, out, causal=causal, window=window,
+            q_offset=q_offset, scale=1.0 / math.sqrt(dh))
     return out if dk == dh else out[..., :dh].contiguous()
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
     """Seq-major API: q (sq, b, hq, dh); k/v (skv, b, hkv, dh) ->
-    (sq, b, hq, dh)."""
-    qt = q.permute(1, 2, 0, 3).contiguous()
-    kt = k.permute(1, 2, 0, 3).contiguous()
-    vt = v.permute(1, 2, 0, 3).contiguous()
-    out = flash_attention_bhsd(qt, kt, vt, causal=causal, window=window,
-                               q_offset=q_offset)
-    return out.permute(2, 0, 1, 3)
+    (sq, b, hq, dh).  On ``"tc"`` nothing is copied (but a padded head
+    dim); on ``"simt"`` and the CPU the operands go through the kernel
+    layout."""
+    views = [t.permute(1, 2, 0, 3) for t in (q, k, v)]
+    if q.device.type == "cpu" or variant(*views) != "tc":
+        out = flash_attention_bhsd(*(t.contiguous() for t in views),
+                                   causal=causal, window=window,
+                                   q_offset=q_offset)
+        return out.permute(2, 0, 1, 3)
+    _check(*views)
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    dh = q.shape[-1]
+    dk = padded_head_dim(dh)
+    q, k, v = (_pad(t, dk) for t in (q, k, v))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch("tc", *(t.permute(1, 2, 0, 3) for t in (q, k, v, out)),
+            causal=causal, window=window, q_offset=q_offset,
+            scale=1.0 / math.sqrt(dh))
+    return out if dk == dh else out[..., :dh]
 
 
 flash_attention_bhsd.launches = 0
+flash_attention_bhsd.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -21,8 +21,10 @@ from repro_torch.core import FatalError, LocalCluster
 from repro_torch.core.packet_pool import init_buffers, init_pool
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import doorbell as db
-from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
-                                                 flash_attention_ref)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bhsd,
+                                                 flash_attention_ref,
+                                                 variant)
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
 from repro_torch.kernels.moe_gmm.ref import activation_f32
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
@@ -150,15 +152,135 @@ def test_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, dh,
                for shape in ((b, hq, sq, dh), (b, hkv, skv, dh),
                              (b, hkv, skv, dh)))
     before = flash_attention_bhsd.launches
-    out = flash_attention_bhsd(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset)
+    out, kind = _flash_variant_of(lambda: flash_attention_bhsd(
+        q, k, v, causal=causal, window=window, q_offset=q_offset))
     assert flash_attention_bhsd.launches == before + 1
+    assert kind == variant(q, k, v)
     torch.cuda.synchronize()
     ref = flash_attention_ref(q, k, v, causal=causal, window=window,
                               q_offset=q_offset)
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
                                rtol=_tol(dtype))
+
+
+def _flash_variant_of(call):
+    """(the result of one wrapper call, the variant it launched)"""
+    before = dict(flash_attention_bhsd.launches_by_variant)
+    out = call()
+    ran = [k for k, n in flash_attention_bhsd.launches_by_variant.items()
+           if n != before[k]]
+    assert len(ran) == 1, ran
+    return out, ran[0]
+
+
+def _check_tc(cuda, b, hq, hkv, sq, skv, dh, causal, window, q_offset,
+              seed=4):
+    """bf16 through the wrapper: the call takes the tensor-core variant
+    and lands within bf16's 2e-2 of both plain versions, with P rounded
+    to bf16 (what the variant computes) and with P in float32 (the
+    reference's arithmetic)."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16).to(cuda)
+               for shape in ((b, hq, sq, dh), (b, hkv, skv, dh),
+                             (b, hkv, skv, dh)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, kind = _flash_variant_of(lambda: flash_attention_bhsd(q, k, v, **kw))
+    torch.cuda.synchronize()
+    assert kind == "tc" and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    for p_dtype in (torch.bfloat16, None):
+        ref = flash_attention_ref(q, k, v, p_dtype=p_dtype, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+    return q, k, v, out
+
+
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 129, 1000])
+def test_flash_tc_matches_plain(cuda, dh, s):
+    """Causal self-attention at GQA 4 across the tiles' edges (128 q
+    rows a block, 128 keys a tile at dh 64/128 and 64 at dh 256)."""
+    _check_tc(cuda, 2, 8, 2, s, s, dh, True, 0, 0)
+
+
+#: (name, b, hq, hkv, sq, skv, causal, window, q_offset); BK is the key
+#: tile (128 at dh 64 and 128, 64 at dh 256)
+TC_MASKS = [
+    ("q_offset", 1, 4, 1, 65, 1000, True, 0, 935),
+    ("q_offset_short_kv", 1, 4, 4, 129, 63, True, 0, 40),
+    ("bidirectional", 1, 5, 1, 127, 129, False, 0, 0),
+    ("window_1", 1, 4, 1, 300, 300, True, 1, 0),
+    ("window_bk_minus_1", 1, 4, 1, 300, 300, True, "bk-1", 0),
+    ("window_bk", 1, 4, 1, 300, 300, True, "bk", 0),
+    ("window_bk_plus_1", 1, 4, 1, 300, 300, True, "bk+1", 0),
+    ("no_key_rows", 1, 4, 1, 256, 128, True, 64, 100),
+    ("no_key_rows_all", 1, 2, 1, 64, 32, True, 8, 200),
+    ("gqa_1", 2, 4, 4, 200, 200, True, 0, 0),
+    ("gqa_4", 2, 16, 4, 200, 200, True, 50, 0),
+    ("gqa_5", 2, 25, 5, 200, 200, True, 100, 0),
+]
+
+
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("case", TC_MASKS, ids=[c[0] for c in TC_MASKS])
+def test_flash_tc_masks(cuda, dh, case):
+    _, b, hq, hkv, sq, skv, causal, window, q_offset = case
+    bk = 64 if dh == 256 else 128
+    if isinstance(window, str):
+        window = bk + {"bk-1": -1, "bk": 0, "bk+1": 1}[window]
+    _check_tc(cuda, b, hq, hkv, sq, skv, dh, causal, window, q_offset)
+
+
+def test_flash_tc_no_key_rows_average_uniformly(cuda):
+    """Rows past the keys' window come out as the mean of all of v."""
+    q, k, v, out = _check_tc(cuda, 1, 4, 1, 256, 128, 256, True, 64, 100)
+    uniform = v.float()[0, 0].mean(dim=0)
+    # positions >= 191 (rows 91..) see no key
+    torch.testing.assert_close(out.float()[0, :, 91:],
+                               uniform.expand(4, 256 - 91, 256), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_flash_tc_reads_strided_views_bitwise(cuda, dh):
+    """The seq-major wrapper reads q, k, v and writes o in place through
+    their strides; a head slice of a wider tensor is read in place too.
+    Both give bitwise the output of contiguous (b, h, s, dh) input."""
+    g = torch.Generator().manual_seed(5)
+    s, b, hq, hkv = 300, 2, 8, 2
+    q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16).to(cuda)
+               for shape in ((s, b, hq, dh), (s, b, hkv, dh),
+                             (s, b, hkv, dh)))
+    kw = dict(causal=True, window=100, q_offset=0)
+    dense = [t.permute(1, 2, 0, 3).contiguous() for t in (q, k, v)]
+    want = flash_attention_bhsd(*dense, **kw)
+    got, kind = _flash_variant_of(lambda: flash_attention(q, k, v, **kw))
+    torch.cuda.synchronize()
+    assert kind == "tc" and got.is_contiguous()
+    assert torch.equal(got.permute(1, 2, 0, 3), want)
+    wide = torch.randn((b, 2 * hq, s, dh), generator=g).to(
+        torch.bfloat16).to(cuda)
+    wide[:, 1::2] = dense[0]
+    sliced, kind = _flash_variant_of(lambda: flash_attention_bhsd(
+        wide[:, 1::2], dense[1], dense[2], **kw))
+    assert kind == "tc"
+    assert torch.equal(sliced, want)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 64),
+                                      (torch.float32, 256),
+                                      (torch.bfloat16, 16),
+                                      (torch.bfloat16, 24)])
+def test_flash_simt_takes_float32_and_small_head_dims(cuda, dtype, dh):
+    g = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(cuda)
+               for shape in ((1, 4, 70, dh), (1, 2, 70, dh), (1, 2, 70, dh)))
+    out, kind = _flash_variant_of(lambda: flash_attention_bhsd(q, k, v))
+    torch.cuda.synchronize()
+    assert kind == "simt" == variant(q, k, v)
+    torch.testing.assert_close(out.float(), flash_attention_ref(
+        q, k, v).float(), atol=_tol(dtype), rtol=_tol(dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -172,3 +172,28 @@ def test_all_matches_imports(path):
     mod = importlib.import_module(
         os.path.relpath(os.path.dirname(path), SRC).replace(os.sep, "."))
     assert all(hasattr(mod, n) for n in exported)
+
+
+def test_kernel_library_is_stale_when_a_header_is_newer(tmp_path,
+                                                        monkeypatch):
+    """A library is rebuilt when its source or any header under csrc/ is
+    newer than it: the tensor-core kernels share sm90_common.cuh."""
+    from repro_torch.kernels import _build
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD", str(build))
+    src, header = csrc / "flash_attention.cu", csrc / "sm90_common.cuh"
+    lib = build / "libflash_attention.so"
+    assert _build._stale("flash_attention")            # no library yet
+    for path, mtime in ((src, 100), (header, 100), (lib, 200)):
+        path.write_text("")
+        os.utime(path, (mtime, mtime))
+    assert not _build._stale("flash_attention")
+    os.utime(header, (300, 300))
+    assert _build._stale("flash_attention")
+    os.utime(lib, (400, 400))
+    assert not _build._stale("flash_attention")
+    os.utime(src, (500, 500))
+    assert _build._stale("flash_attention")
