@@ -7,20 +7,22 @@ is the seq-major adapter of ``repro/kernels/flash_attention/ops.py:24``
 Hopper variants of ``csrc/flash_attention.cu`` runs on the current
 stream, without synchronising, or the call raises; CPU tensors take the
 plain version in :mod:`.ref`.  There is no fallback.  :func:`variant`
-picks the variant from dtype, head dim and layout: ``"tc"`` (wgmma + TMA
-on the tensor cores, P rounded to bf16 for the second product) for bf16
-whose padded head dim is 64, 128 or 256 and whose tensors a TMA map can
-address, ``"simt"`` (float32 CUDA-core products) for everything else.
-``flash_attention_bhsd.launches`` counts the kernel launches of both
-wrappers, ``flash_attention_bhsd.launches_by_variant`` the same by
-variant.
+picks the variant from dtype and head dim: ``"tc"`` (wgmma + TMA on the
+tensor cores, P rounded to bf16 for the second product) for bf16 whose
+padded head dim is 64, 128 or 256, ``"simt"`` (float32 CUDA-core
+products) for everything else.  Both wrappers launch through one
+function, :func:`_attend`.  ``flash_attention_bhsd.launches`` counts
+their kernel launches, ``flash_attention_bhsd.launches_by_variant`` the
+same by variant, and :func:`variant_of` tells which variant a call took.
 
 The kernel is instantiated for head dims 16/32/64/128/256; any other dh up
 to 256 is zero-padded to the next of them (zeros add nothing to q.k, and
 the padded output columns are dropped) and the softmax scale stays
-``1/sqrt(dh)`` of the true head dim.  On ``"tc"`` the seq-major wrapper
-reads q, k and v and writes the output in place through their strides;
-on ``"simt"`` it copies them into the kernel layout and back.
+``1/sqrt(dh)`` of the true head dim.  On ``"tc"`` the kernel reads q, k
+and v in place through their strides (the seq-major wrapper's views
+too), and writes the output in place; a view that a TMA map cannot
+address (off a 16-byte boundary) is copied first.  On ``"simt"`` the
+operands and the output go through dense copies in the kernel layout.
 """
 from __future__ import annotations
 
@@ -97,25 +99,13 @@ def tma_geometry(t: torch.Tensor) -> Tuple[int, ...]:
     return (dh, s, h, b) + strides
 
 
-def _tma_ok(t: torch.Tensor) -> bool:
-    try:
-        tma_geometry(t)
-    except ValueError:
-        return False
-    return True
-
-
 def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The kernel variant a CUDA call on (b, h, s, dh) views takes:
-    ``"tc"`` for bf16 q, k and v whose head dim pads to 64, 128 or 256
-    and which a TMA map can address (a padded call reads fresh contiguous
-    copies, so only the unpadded views are checked), else ``"simt"``."""
+    """The kernel variant a CUDA call takes: ``"tc"`` for bf16 q, k and v
+    whose head dim pads to 64, 128 or 256, else ``"simt"``.  Layout plays
+    no part: a view that a TMA map cannot address is copied first."""
     dh = q.shape[-1]
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16) or \
-            not 0 < dh <= HEAD_DIMS[-1] or \
-            padded_head_dim(dh) not in TC_HEAD_DIMS:
-        return "simt"
-    if padded_head_dim(dh) != dh or all(_tma_ok(t) for t in (q, k, v)):
+    if q.dtype == k.dtype == v.dtype == torch.bfloat16 and \
+            0 < dh <= HEAD_DIMS[-1] and padded_head_dim(dh) in TC_HEAD_DIMS:
         return "tc"
     return "simt"
 
@@ -154,6 +144,15 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+def _tma_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if a TMA map can address it, else a fresh dense copy."""
+    try:
+        tma_geometry(t)
+    except ValueError:
+        return _dense(t)
+    return t
+
+
 def _geom(vals) -> ctypes.Array:
     return (ctypes.c_int64 * len(vals))(*vals)
 
@@ -186,6 +185,31 @@ def _launch(kind: str, q, k, v, out, *, causal: bool, window: int,
     flash_attention_bhsd.launches_by_variant[kind] += 1
 
 
+def _attend(q, k, v, out, *, causal: bool, window: int,
+            q_offset: int) -> torch.Tensor:
+    """Attention of the (b, hq, sq, dh) view ``q`` over the (b, hkv, skv,
+    dh) views ``k`` and ``v``, written into ``out`` (a view of q's shape
+    whose head dim is contiguous); returns ``out``.  The one launch site
+    of both wrappers: check, pad, variant, launch."""
+    _check(q, k, v)
+    if q.numel() == 0:
+        return out
+    kind = variant(q, k, v)
+    dh = q.shape[-1]
+    dk = padded_head_dim(dh)
+    q, k, v = (_pad(t, dk) for t in (q, k, v))
+    q, k, v = (_tma_view(t) if kind == "tc" else _dense(t)
+               for t in (q, k, v))
+    direct = dk == dh and (kind == "tc" or out.is_contiguous())
+    o = out if direct else torch.empty(q.shape, dtype=q.dtype,
+                                       device=q.device)
+    _launch(kind, q, k, v, o, causal=causal, window=window,
+            q_offset=q_offset, scale=1.0 / math.sqrt(dh))
+    if not direct:
+        out.copy_(o[..., :dh])
+    return out
+
+
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
                          q_offset: int = 0) -> torch.Tensor:
     """q (b, hq, sq, dh); k/v (b, hkv, skv, dh) -> (b, hq, sq, dh) in
@@ -194,44 +218,42 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
-    _check(q, k, v)
-    if q.numel() == 0:
-        return torch.empty_like(q)
-    kind = variant(q, k, v)
-    dh = q.shape[-1]
-    dk = padded_head_dim(dh)
-    q, k, v = (_pad(t, dk) for t in (q, k, v))
-    if kind == "simt":
-        q, k, v = (_dense(t) for t in (q, k, v))
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(kind, q, k, v, out, causal=causal, window=window,
-            q_offset=q_offset, scale=1.0 / math.sqrt(dh))
-    return out if dk == dh else out[..., :dh].contiguous()
+    return _attend(q, k, v, out, causal=causal, window=window,
+                   q_offset=q_offset)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
     """Seq-major API: q (sq, b, hq, dh); k/v (skv, b, hkv, dh) ->
-    (sq, b, hq, dh).  On ``"tc"`` nothing is copied (but a padded head
-    dim); on ``"simt"`` and the CPU the operands go through the kernel
-    layout."""
-    views = [t.permute(1, 2, 0, 3) for t in (q, k, v)]
-    if q.device.type == "cpu" or variant(*views) != "tc":
-        out = flash_attention_bhsd(*(t.contiguous() for t in views),
-                                   causal=causal, window=window,
-                                   q_offset=q_offset)
+    (sq, b, hq, dh), contiguous.  On ``"tc"`` the kernel reads q, k, v
+    and writes the output in place through their strides (but a padded
+    head dim); on ``"simt"`` the operands and the output are copied
+    through the kernel layout."""
+    if q.device.type == "cpu":
+        out = flash_attention_ref(*(t.permute(1, 2, 0, 3).contiguous()
+                                    for t in (q, k, v)),
+                                  causal=causal, window=window,
+                                  q_offset=q_offset)
         return out.permute(2, 0, 1, 3)
-    _check(*views)
-    if q.numel() == 0:
-        return torch.empty_like(q)
-    dh = q.shape[-1]
-    dk = padded_head_dim(dh)
-    q, k, v = (_pad(t, dk) for t in (q, k, v))
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("tc", *(t.permute(1, 2, 0, 3) for t in (q, k, v, out)),
-            causal=causal, window=window, q_offset=q_offset,
-            scale=1.0 / math.sqrt(dh))
-    return out if dk == dh else out[..., :dh]
+    _attend(*(t.permute(1, 2, 0, 3) for t in (q, k, v, out)),
+            causal=causal, window=window, q_offset=q_offset)
+    return out
+
+
+def variant_of(call):
+    """Run ``call`` (one call of a wrapper above) and return (its result,
+    the variant it launched); raises unless exactly one variant
+    launched."""
+    before = dict(flash_attention_bhsd.launches_by_variant)
+    result = call()
+    ran = [k for k, n in flash_attention_bhsd.launches_by_variant.items()
+           if n != before[k]]
+    if len(ran) != 1:
+        raise AssertionError(f"flash_attention: variants {ran} launched in "
+                             "one call")
+    return result, ran[0]
 
 
 flash_attention_bhsd.launches = 0

@@ -24,7 +24,7 @@ from repro_torch.kernels import doorbell as db
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bhsd,
                                                  flash_attention_ref,
-                                                 variant)
+                                                 variant, variant_of)
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
 from repro_torch.kernels.moe_gmm.ref import activation_f32
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
@@ -152,7 +152,7 @@ def test_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, dh,
                for shape in ((b, hq, sq, dh), (b, hkv, skv, dh),
                              (b, hkv, skv, dh)))
     before = flash_attention_bhsd.launches
-    out, kind = _flash_variant_of(lambda: flash_attention_bhsd(
+    out, kind = variant_of(lambda: flash_attention_bhsd(
         q, k, v, causal=causal, window=window, q_offset=q_offset))
     assert flash_attention_bhsd.launches == before + 1
     assert kind == variant(q, k, v)
@@ -164,35 +164,32 @@ def test_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, dh,
                                rtol=_tol(dtype))
 
 
-def _flash_variant_of(call):
-    """(the result of one wrapper call, the variant it launched)"""
-    before = dict(flash_attention_bhsd.launches_by_variant)
-    out = call()
-    ran = [k for k, n in flash_attention_bhsd.launches_by_variant.items()
-           if n != before[k]]
-    assert len(ran) == 1, ran
-    return out, ran[0]
+#: the tensor-core variant against the plain version of its own arithmetic
+#: (P in bf16): what rounding the output to bf16 and a different order of
+#: the float32 sums leave
+TC_ATOL, TC_RTOL = 4e-3, 8e-3
 
 
 def _check_tc(cuda, b, hq, hkv, sq, skv, dh, causal, window, q_offset,
               seed=4):
     """bf16 through the wrapper: the call takes the tensor-core variant
-    and lands within bf16's 2e-2 of both plain versions, with P rounded
-    to bf16 (what the variant computes) and with P in float32 (the
-    reference's arithmetic)."""
+    and lands within TC_ATOL + TC_RTOL |ref| of the plain version with P
+    rounded to bf16 (what the variant computes), and within bf16's 2e-2
+    of the one with P in float32 (the reference's arithmetic)."""
     g = torch.Generator().manual_seed(seed)
     q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16).to(cuda)
                for shape in ((b, hq, sq, dh), (b, hkv, skv, dh),
                              (b, hkv, skv, dh)))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    out, kind = _flash_variant_of(lambda: flash_attention_bhsd(q, k, v, **kw))
+    out, kind = variant_of(lambda: flash_attention_bhsd(q, k, v, **kw))
     torch.cuda.synchronize()
     assert kind == "tc" and out.shape == q.shape
     assert torch.isfinite(out.float()).all()
-    for p_dtype in (torch.bfloat16, None):
+    for p_dtype, atol, rtol in ((torch.bfloat16, TC_ATOL, TC_RTOL),
+                                (None, 2e-2, 2e-2)):
         ref = flash_attention_ref(q, k, v, p_dtype=p_dtype, **kw)
-        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
-                                   rtol=2e-2)
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
     return q, k, v, out
 
 
@@ -245,8 +242,9 @@ def test_flash_tc_no_key_rows_average_uniformly(cuda):
 @pytest.mark.parametrize("dh", [64, 128, 256])
 def test_flash_tc_reads_strided_views_bitwise(cuda, dh):
     """The seq-major wrapper reads q, k, v and writes o in place through
-    their strides; a head slice of a wider tensor is read in place too.
-    Both give bitwise the output of contiguous (b, h, s, dh) input."""
+    their strides; a head slice of a wider tensor is read in place too,
+    and a view off a 16-byte boundary is copied and stays on "tc".  All
+    give bitwise the output of contiguous (b, h, s, dh) input."""
     g = torch.Generator().manual_seed(5)
     s, b, hq, hkv = 300, 2, 8, 2
     q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16).to(cuda)
@@ -255,17 +253,26 @@ def test_flash_tc_reads_strided_views_bitwise(cuda, dh):
     kw = dict(causal=True, window=100, q_offset=0)
     dense = [t.permute(1, 2, 0, 3).contiguous() for t in (q, k, v)]
     want = flash_attention_bhsd(*dense, **kw)
-    got, kind = _flash_variant_of(lambda: flash_attention(q, k, v, **kw))
+    got, kind = variant_of(lambda: flash_attention(q, k, v, **kw))
     torch.cuda.synchronize()
     assert kind == "tc" and got.is_contiguous()
     assert torch.equal(got.permute(1, 2, 0, 3), want)
     wide = torch.randn((b, 2 * hq, s, dh), generator=g).to(
         torch.bfloat16).to(cuda)
     wide[:, 1::2] = dense[0]
-    sliced, kind = _flash_variant_of(lambda: flash_attention_bhsd(
+    sliced, kind = variant_of(lambda: flash_attention_bhsd(
         wide[:, 1::2], dense[1], dense[2], **kw))
     assert kind == "tc"
     assert torch.equal(sliced, want)
+    flat = torch.empty(dense[0].numel() + 1, dtype=torch.bfloat16,
+                       device=cuda)
+    odd = flat[1:].view(dense[0].shape)              # 2 bytes off
+    odd.copy_(dense[0])
+    assert odd.data_ptr() % 16
+    moved, kind = variant_of(lambda: flash_attention_bhsd(
+        odd, dense[1], dense[2], **kw))
+    assert kind == "tc"
+    assert torch.equal(moved, want)
 
 
 @pytest.mark.parametrize("dtype,dh", [(torch.float32, 64),
@@ -276,7 +283,7 @@ def test_flash_simt_takes_float32_and_small_head_dims(cuda, dtype, dh):
     g = torch.Generator().manual_seed(6)
     q, k, v = (torch.randn(shape, generator=g).to(dtype).to(cuda)
                for shape in ((1, 4, 70, dh), (1, 2, 70, dh), (1, 2, 70, dh)))
-    out, kind = _flash_variant_of(lambda: flash_attention_bhsd(q, k, v))
+    out, kind = variant_of(lambda: flash_attention_bhsd(q, k, v))
     torch.cuda.synchronize()
     assert kind == "simt" == variant(q, k, v)
     torch.testing.assert_close(out.float(), flash_attention_ref(

@@ -1,9 +1,9 @@
 """B2's tensor-core variant, on the CPU: what decides it and what it
 computes.
 
-* ``variant()``'s choice over dtype x head dim and layout: bf16 whose head
-  dim pads to 64, 128 or 256 takes ``"tc"``, everything else ``"simt"``
-  (a dispatch, not a fallback: both raise on failure);
+* ``variant()``'s choice over dtype x head dim: bf16 whose head dim pads
+  to 64, 128 or 256 takes ``"tc"``, everything else ``"simt"``, whatever
+  the layout (a dispatch, not a fallback: both raise on failure);
 * the plain version of what ``"tc"`` computes,
   ``flash_attention_ref(..., p_dtype=torch.bfloat16)`` (P rounded to bf16
   for the product with v, the exp-sum from the float32 P), against the
@@ -48,15 +48,17 @@ def test_variant_choice(dtype, dh):
 
 
 def test_variant_choice_by_layout():
-    """A view off a 16-byte boundary, or whose head dim is not contiguous,
-    cannot be a TMA map: "simt".  The seq-major views of the model path
-    and a padded head dim (whose copies are fresh) stay on "tc"."""
+    """Layout plays no part in the choice: a view off a 16-byte boundary,
+    one whose head dim is not contiguous (both copied before the launch),
+    the seq-major views of the model path and a padded head dim all take
+    "tc" in bf16, and "simt" in float32."""
     bf16 = torch.bfloat16
-    assert variant(*_qkv(bf16, 64, offset=1)) == "simt"
+    assert variant(*_qkv(bf16, 64, offset=1)) == "tc"
     assert variant(*_qkv(bf16, 64, offset=8)) == "tc"
+    assert variant(*_qkv(torch.float32, 64, offset=1)) == "simt"
     _, k, v = _qkv(bf16, 128)
     q = torch.zeros(2, 4, 128, 8, dtype=bf16).transpose(2, 3)
-    assert variant(q, k, v) == "simt"
+    assert variant(q, k, v) == "tc"
     assert variant(*_qkv(bf16, 96, offset=1)) == "tc"
     s, b, h, dh = 16, 2, 4, 256
     seq = [torch.zeros(s, b, hh, dh, dtype=bf16).permute(1, 2, 0, 3)
