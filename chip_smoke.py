@@ -13,18 +13,32 @@ runs each main path end to end through the entry points a user calls.
 The phases:
 
 1. the card's name, power limit and software versions;
-2. the build, with ptxas' register and spill report;
-3. the doorbell stage copy (B1) against its plain version;
+2. the build, with ptxas' register and spill report (no B1 or B3
+   kernel and no tensor-core B2 kernel may spill);
+3. the doorbell stage copy (B1) against its plain version, byte for
+   byte: the dense ``stage_copy`` of a (K, E) tensor, the gather
+   ``stage_copy_rows`` of K row tensors (the main path's call; rows in
+   their own allocations, at odd byte offsets, 8-byte rows, 257 rows in
+   two launches, NaN under ``wire_bf16``) and ``stage_copy_push``; at the
+   main path's doorbells ((64, 16384) f32 with ``wire_bf16`` off and on,
+   (64, 2048) f32, (64, 8) u8) the gather is timed beside today's pair
+   (``torch.stack`` + the dense kernel), the dense kernel alone, the
+   library call (``clone``, or ``to(torch.bfloat16)``) and the bound;
 4. the message path (``LocalCluster`` -> ``Endpoint.post_am_many`` /
    ``post_send_many`` -> progress -> completion queues) with CUDA tensor
    payloads, at the library's default geometry: 64-row doorbells, eager
    messages up to ``eager_max_bytes`` (64 KiB), and a window of 16
-   doorbells in flight before each progress sweep;
+   doorbells in flight before each progress sweep; every fused doorbell
+   is one ``stage_copy_rows`` launch, with no dense stage copy and no
+   ``torch.stack``;
 5. flash attention (B2) and RMSNorm (B3) against their plain versions:
    the sweeps of ``tests/test_kernels.py``, gemma3-1b's prefill shapes
    (window 512 and global, bf16 and float32), a ragged s = 1000, a q
    offset whose later rows see no key, and the serving path's RMSNorm
-   shapes; each B2 case reports the variant it launched (bf16 at dh
+   shapes (gemma3's norms at 8192 x 1152, its q/k norms at 32768 and
+   8192 x 256, olmoe's at 4096 x 2048 and 65536 x 128, each timed beside
+   ``F.rms_norm``, a ``clone`` of x and the bound); each B2 case reports
+   the variant it launched (bf16 at dh
    64/128/256: "tc", the tensor cores; float32 and dh 16/32: "simt"), and
    a "tc" case is also held against the plain version with P rounded to
    bf16, as the variant computes it, at the tighter 4e-3 + 8e-3 |ref|;
@@ -78,7 +92,8 @@ The phases:
    chunked plain version (``models/ssm.py::ssd_chunked``; no single
    PyTorch call computes the scan); flash attention (B2) at hymba's
    prefill shape (GQA 25:5, dh 64, window 1024 and global) and RMSNorm
-   (B3) at the two models' shapes;
+   (B3) at the two models' shapes (mamba2 8192 x 1024 and its gated norm
+   8192 x 2048, hymba 8192 x 1600 and its gated norm 8192 x 3200);
 12. mamba2-370m's full config in float32 (seeded random weights): decode
    against forward as in phase 6;
 13. mamba2-370m's full config in bf16: ``make_prefill_step`` on 4 prompts
@@ -93,7 +108,9 @@ The phases:
    norm), then the same launcher loop (161 RMSNorm launches a step).
 
 The launch counts are set to 0 just before phases 4, 7, 10, 13 and 14 and
-read just after.  Every phase raises on failure; nothing is caught.  Each phase
+read just after; the serving phases also record B3's launches by (rows,
+d) a prefill call and a decode step.  Every phase raises on failure;
+nothing is caught.  Each phase
 prints one JSON record; the line before the last is the card's name and
 power limit, then the ``kernels`` record, and the last line is
 ``{"ok": true, "device": {...}}``.  With no CUDA device the script exits
@@ -261,7 +278,8 @@ def kernel_phase(torch):
     from repro_torch.core.packet_pool import init_buffers, init_pool
     from repro_torch.kernels.doorbell import (stage_copy, stage_copy_push,
                                               stage_copy_push_ref,
-                                              stage_copy_ref)
+                                              stage_copy_ref, stage_copy_rows,
+                                              stage_copy_rows_ref)
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     cases = []
 
@@ -312,6 +330,97 @@ def kernel_phase(torch):
               special_values(64, 2048, nan=False), bf16)
     dense("nan_64x2048_bf16", special_values(64, 2048, nan=True), True,
           nan_ok=True)
+
+    def gather(label, rows, bf16, nan_ok=False, launches=1, time_it=False):
+        """stage_copy_rows (the main path's call) on K row tensors, byte
+        for byte against its plain version; timed, also today's pair
+        (torch.stack, then the dense kernel), the dense kernel alone on
+        the stacked rows, the library call and the bytes bound."""
+        k, x0 = len(rows), rows[0]
+        cast = bf16 and x0.dtype == torch.float32
+        n0 = stage_copy_rows.launches
+        out = stage_copy_rows(rows, wire_bf16=bf16)
+        got = stage_copy_rows.launches - n0
+        ref = stage_copy_rows_ref(rows, wire_bf16=bf16)
+        torch.cuda.synchronize()
+        if got != launches:
+            raise AssertionError(f"{label}: {got} gather launches for {k} "
+                                 f"rows (want {launches})")
+        err = compare(label, out, ref, x0.dtype, cast, nan_ok)
+        case = {"case": label, "wrapper": "stage_copy_rows",
+                "shape": [k, *x0.shape],
+                "dtype": str(x0.dtype).split(".")[1], "wire_bf16": bf16,
+                "ok": True, "byte_exact": not nan_ok, "max_abs_err": err,
+                "launches": got}
+        if time_it:
+            n = max(1, min(256, math.ceil(COLD_BYTES / (k * x0.nbytes))))
+            sets = [[r.clone() for r in rows] for _ in range(n)]
+            stacked = [torch.stack(rs).reshape(k, -1) for rs in sets]
+            if cast:
+                lib = lambda t: t.to(torch.bfloat16).view(torch.uint8)  # noqa
+            else:
+                lib = lambda t: t.view(torch.uint8).clone()             # noqa
+
+            def rows_fn(rs):
+                return stage_copy_rows(rs, wire_bf16=bf16)
+
+            def pair_fn(rs):
+                return stage_copy(torch.stack(rs).reshape(k, -1),
+                                  wire_bf16=bf16)
+            case.update({
+                "kernel_ms": device_ms(rows_fn, sets),
+                "pair_ms": device_ms(pair_fn, sets),
+                "dense_ms": device_ms(
+                    lambda t: stage_copy(t, wire_bf16=bf16), stacked),
+                "plain_ms": device_ms(
+                    lambda rs: stage_copy_rows_ref(rs, wire_bf16=bf16),
+                    sets),
+                "library_ms": device_ms(lib, stacked),
+                "kernel_call_ms": call_ms(rows_fn, sets),
+                "pair_call_ms": call_ms(pair_fn, sets),
+                "bound_ms": bound_ms(k * x0.nbytes, out.nbytes)})
+            case["gather_over_pair"] = case["kernel_ms"] / case["pair_ms"]
+            case["dense_over_library"] = (case["dense_ms"] /
+                                          case["library_ms"])
+            case["bound_share"] = case["bound_ms"] / case["kernel_ms"]
+            del sets, stacked
+        cases.append(case)
+        return case
+
+    def separate(k, e, dtype):
+        """k rows in k allocations of their own"""
+        if dtype == torch.uint8:
+            return [torch.randint(0, 256, (e,), generator=g, device=DEVICE,
+                                  dtype=dtype) for _ in range(k)]
+        return [torch.randn(e, generator=g, device=DEVICE).to(dtype)
+                for _ in range(k)]
+
+    def offset(k, e, dtype):
+        """k rows as views into one buffer, one element past every
+        16-byte boundary (odd byte offsets for uint8)"""
+        buf = separate(1, k * (e + 1) + 1, dtype)[0]
+        return [buf[1 + i * (e + 1):1 + i * (e + 1) + e] for i in range(k)]
+
+    # the yardstick shapes: the main path's 64 KiB and 8 KiB f32 rows
+    # (wire_bf16 off and on) and its 8-byte u8 rows
+    for e in (16384, 2048):
+        rows = separate(64, e, torch.float32)
+        for bf16 in (False, True):
+            gather(f"rows_f32_64x{e}_bf16{int(bf16)}", rows, bf16,
+                   time_it=True)
+    gather("rows_u8_64x8", separate(64, 8, torch.uint8), False, time_it=True)
+    # rows at odd byte offsets, tails, more rows than one launch takes
+    gather("rows_u8_64x8_odd_offsets", offset(64, 8, torch.uint8), False)
+    gather("rows_u8_7x4099_odd_offsets", offset(7, 4099, torch.uint8), False)
+    for bf16 in (False, True):
+        gather(f"rows_f32_9x1027_offsets_bf16{int(bf16)}",
+               offset(9, 1027, torch.float32), bf16)
+        gather(f"rows_f32_257x300_bf16{int(bf16)}",
+               separate(257, 300, torch.float32), bf16, launches=2)
+        gather(f"rows_special_64x2048_bf16{int(bf16)}",
+               list(special_values(64, 2048, nan=False)), bf16)
+    gather("rows_nan_64x2048_bf16", list(special_values(64, 2048, nan=True)),
+           True, nan_ok=True)
 
     # stage_copy_push on a device SlotPool and packet table: a full grab,
     # then a short grab (lane 0 empty, one steal of half of lane 1)
@@ -387,9 +496,29 @@ def _post_all(post, progress, bufs, tags):
     return rung
 
 
+class _StackCount:
+    """Counts ``torch.stack`` calls while installed: the uniform-row path
+    of a fused doorbell must make none (the gather reads each row where
+    it lies)."""
+
+    def __init__(self, torch):
+        self.torch, self.real, self.calls = torch, torch.stack, 0
+
+    def __enter__(self):
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.real(*a, **kw)
+        self.torch.stack = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.stack = self.real
+
+
 def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16):
     from repro_torch.core import LocalCluster
-    from repro_torch.kernels.doorbell import stage_copy, stage_copy_ref
+    from repro_torch.kernels.doorbell import (stage_copy, stage_copy_ref,
+                                              stage_copy_rows)
     cl = LocalCluster(2, device=DEVICE,
                       attrs={"wire_bf16": True} if wire_bf16 else None)
     ep0, ep1 = cl.alloc_endpoint(n_devices=4, stripe="round_robin",
@@ -412,7 +541,8 @@ def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16):
         def post(bufs, tags):
             return ep0.post_send_many(1, bufs, tags=tags)
 
-    launches0 = stage_copy.launches
+    launches0, dense0 = stage_copy_rows.launches, stage_copy.launches
+    stacks = 0
     doorbells = delivered = 0
     elapsed = 0.0
     split = {"post_s": 0.0, "progress_s": 0.0, "pop_s": 0.0}
@@ -432,21 +562,23 @@ def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16):
                 if st.is_retry():
                     raise AssertionError(f"{label}: recv post retried")
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for d in range(WINDOW):
-            sl = slice(d * K, (d + 1) * K)
-            doorbells += _post_all(post, progress, rows[sl], tags[sl])
-        t1 = time.perf_counter()
-        progress()
-        t2 = time.perf_counter()
-        got = []
-        while True:
-            st = cq.pop()
-            if st.is_retry():
-                break
-            got.append(st)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
+        with _StackCount(torch) as stack:
+            t0 = time.perf_counter()
+            for d in range(WINDOW):
+                sl = slice(d * K, (d + 1) * K)
+                doorbells += _post_all(post, progress, rows[sl], tags[sl])
+            t1 = time.perf_counter()
+            progress()
+            t2 = time.perf_counter()
+            got = []
+            while True:
+                st = cq.pop()
+                if st.is_retry():
+                    break
+                got.append(st)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+        stacks += stack.calls
         elapsed += t3 - t0
         split["post_s"] += t1 - t0
         split["progress_s"] += t2 - t1
@@ -476,10 +608,14 @@ def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16):
     free1 = [rt.get_attr("free_packets") for rt in cl.runtimes]
     if free1 != free0:
         raise AssertionError(f"{label}: packets leaked {free0} -> {free1}")
-    launches = stage_copy.launches - launches0
-    if launches != doorbells:
-        raise AssertionError(f"{label}: {launches} kernel launches for "
-                             f"{doorbells} fused doorbells")
+    launches = stage_copy_rows.launches - launches0
+    dense = stage_copy.launches - dense0
+    if launches != doorbells or dense or stacks:
+        raise AssertionError(f"{label}: {launches} gather launches for "
+                             f"{doorbells} fused doorbells, {dense} dense "
+                             f"stage copies and {stacks} torch.stack calls "
+                             "(want one gather a doorbell, no dense copy, "
+                             "no stack)")
     n = WINDOWS * per_window
     return {"case": label, "posted_with": f"post_{kind}_many",
             "payload": f"{str(dtype).split('.')[1]} {nbytes} B",
@@ -487,6 +623,7 @@ def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16):
             "lost": 0, "duplicated": 0, "leaked_packets": 0,
             "doorbells": doorbells, "kernel_launches": launches,
             "launches_per_doorbell": launches / doorbells,
+            "dense_stage_copy_launches": dense, "torch_stack_calls": stacks,
             "byte_exact": True,
             "us_per_msg": elapsed / n * 1e6,
             "GB_per_s": n * nbytes / elapsed / 1e9,
@@ -690,7 +827,12 @@ def rmsnorm_case(torch, label, rows, d, dtype, g, with_w=True,
             "plain_ms": device_ms(lambda t: rmsnorm_ref(t, w), xs),
             "library_ms": device_ms(
                 lambda t: F.rms_norm(t, (d,), w, eps=1e-6), xs),
+            # the same bytes moved with no arithmetic: what the card's
+            # memory gives a plain copy at this size
+            "copy_ms": device_ms(lambda t: t.clone(), xs),
         })
+        case["bound_share"] = case["bound_ms"] / case["kernel_ms"]
+        del xs
     return case
 
 
@@ -733,9 +875,16 @@ def model_kernel_phase(torch):
         for rows, d in ((8, 64), (64, 128), (100, 96), (1, 256)):
             rms.append(rmsnorm_case(torch, f"sweep_{dn}_{rows}x{d}", rows, d,
                                     dtype, g, time_it=False))
-        for rows, d in ((8192, 1152), (100, 1152), (32768, 256)):
+        # gemma3's norm1/norm2/final norm, q_norm and k_norm at prefill
+        # (4 x 2048 tokens), and a decode-sized batch
+        for rows, d in ((8192, 1152), (100, 1152), (32768, 256),
+                        (8192, 256)):
             rms.append(rmsnorm_case(torch, f"serve_{dn}_{rows}x{d}", rows, d,
                                     dtype, g))
+    # olmoe's prefill (4 x 1024 tokens): norm1/norm2 and its q/k norms
+    for rows, d in ((4096, 2048), (65536, 128)):
+        rms.append(rmsnorm_case(torch, f"olmoe_prefill_bfloat16_{rows}x{d}",
+                                rows, d, torch.bfloat16, g))
         rms.append(rmsnorm_case(torch, f"no_weight_{dn}_100x1152", 100, 1152,
                                 dtype, g, with_w=False, time_it=False))
     return flash, rms
@@ -862,6 +1011,15 @@ SERVING = {
 }
 
 
+def _rms_by_shape(before: dict) -> dict:
+    """B3's launches by (rows, d) since the snapshot ``before`` of
+    ``rmsnorm.launches_by_shape``, keyed "ROWSxD"."""
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    return {f"{r}x{d}": n - before.get((r, d), 0)
+            for (r, d), n in sorted(rmsnorm.launches_by_shape.items())
+            if n > before.get((r, d), 0)}
+
+
 def _counts():
     """Launches of B2, B3, B4, B4's tensor-core variant, B5 and B2's
     tensor-core variant."""
@@ -918,6 +1076,7 @@ def serving_phase(torch, arch: str, profile: bool):
     ``arch``'s full config in bf16.  Launch counts are checked per
     prefill call and per decode step."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.launch.serve import PROMPT_LEN, serve
     from repro_torch.models.registry import build_model
     from repro_torch.serving import make_prefill_step
@@ -948,8 +1107,10 @@ def serving_phase(torch, arch: str, profile: bool):
         if i:
             tok, last = prefill(params, {"tokens": tokens})
         else:
+            by0 = dict(rmsnorm.launches_by_shape)
             with _FillLog() as prefill_fill:
                 tok, last = prefill(params, {"tokens": tokens})
+            prefill_by_shape = _rms_by_shape(by0)
         torch.cuda.synchronize()
         if i:
             times.append(time.perf_counter() - t)
@@ -968,10 +1129,17 @@ def serving_phase(torch, arch: str, profile: bool):
 
     # decode: the launcher's loop
     c0 = _counts()
+    by0 = dict(rmsnorm.launches_by_shape)
     with _FillLog() as decode_fill:
         out = serve(cfg, params, device=DEVICE, **SERVE_ARGS)
     nf, nr, nm, ntc, ns, _ = (b - a for a, b in zip(c0, _counts()))
+    decode_by_shape = _rms_by_shape(by0)
     steps = out["decode_calls"]
+    if sum(prefill_by_shape.values()) != want["rms"] or \
+            sum(decode_by_shape.values()) != nr:
+        raise AssertionError(f"{arch}: RMSNorm launches by shape "
+                             f"{prefill_by_shape} a prefill and "
+                             f"{decode_by_shape} in decode do not add up")
     if steps == 0 or nr != want["rms"] * steps or \
             nm != want["moe"] * steps or ntc != nm:
         raise AssertionError(f"{arch} decode: {nr} RMSNorm and {nm} MoE GMM "
@@ -996,6 +1164,7 @@ def serving_phase(torch, arch: str, profile: bool):
                        "flash_launches_per_call": want["flash"],
                        "flash_tc_launches_per_call": want["flash"],
                        "rmsnorm_launches_per_call": want["rms"],
+                       "rmsnorm_launches_by_shape": prefill_by_shape,
                        "moe_gmm_launches_per_call": want["moe"],
                        "moe_gmm_tc_launches_per_call": want["moe"],
                        "moe_fill": prefill_fill.summary(),
@@ -1009,6 +1178,8 @@ def serving_phase(torch, arch: str, profile: bool):
                       "tokens_per_s": out["tokens"] / out["seconds"],
                       "ms_per_step": out["seconds"] / steps * 1e3,
                       "rmsnorm_launches_per_step": nr / steps,
+                      "rmsnorm_launches_by_shape_per_step": {
+                          k: n / steps for k, n in decode_by_shape.items()},
                       "moe_gmm_launches_per_step": nm / steps,
                       "moe_gmm_tc_launches_per_step": ntc / steps,
                       "moe_fill": decode_fill.summary()}}
@@ -1038,7 +1209,7 @@ def profile_phase(torch, cfg, params, tokens):
         total = sum(r[1] for r in rows)
         mine = {n: sum(r[1] for r in rows if key in r[0])
                 for n, key in (("flash_attention", "flash_fwd"),
-                               ("rmsnorm", "rmsnorm_kernel"),
+                               ("rmsnorm", "rmsnorm_"),
                                ("moe_gmm", "gmm_"),
                                ("ssd_scan", "ssd_scan_kernel"))}
         return {"wall_ms": wall_s * 1e3, "device_ms": total,
@@ -1465,6 +1636,7 @@ def ssd_kernel_phase(torch):
            for name, rows, d in (("mamba2_prefill", 8192, 1024),
                                  ("mamba2_gated", 8192, 2048),
                                  ("hymba_prefill", 8192, 1600),
+                                 ("hymba_gated", 8192, 3200),
                                  ("mamba2_decode_gated", 8, 2048))]
     return ssd, flash, rms
 
@@ -1473,12 +1645,22 @@ def _summary(cases, keys):
     return [{k: c.get(k) for k in keys} for c in cases]
 
 
+def _rms_shapes(served) -> dict:
+    """B3's launches by (rows, d) a prefill call and a decode step."""
+    return {"prefill": served["prefill"]["rmsnorm_launches_by_shape"],
+            "decode_per_step":
+                served["decode"]["rmsnorm_launches_by_shape_per_step"]}
+
+
 def _zero_counts(counters):
-    """Every launch count to 0, B2's and B4's counts by variant too."""
+    """Every launch count to 0, B2's and B4's counts by variant and B3's
+    by shape too."""
     for c in counters:
         c.launches = 0
         if hasattr(c, "launches_by_variant"):
             c.launches_by_variant = dict.fromkeys(c.launches_by_variant, 0)
+        if hasattr(c, "launches_by_shape"):
+            c.launches_by_shape = {}
 
 
 def _all_tc(path, fn) -> dict:
@@ -1505,13 +1687,14 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
-    from repro_torch.kernels.doorbell import stage_copy, stage_copy_push
+    from repro_torch.kernels.doorbell import (stage_copy, stage_copy_push,
+                                              stage_copy_rows)
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
-    counters = (stage_copy, stage_copy_push, flash_attention_bhsd, rmsnorm,
-                moe_gmm, ssd_scan_bhsp)
+    counters = (stage_copy, stage_copy_rows, stage_copy_push,
+                flash_attention_bhsd, rmsnorm, moe_gmm, ssd_scan_bhsp)
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1531,12 +1714,13 @@ def main(argv=None) -> int:
            built=sorted(built), libraries=[
                os.path.relpath(_build.library_path(n), ROOT)
                for n in _build.SOURCES], ptxas=ptxas)
-    spilled = [k for k in ptxas.get("flash_attention", [])
-               if "tc_kernel" in k["kernel"] and
-               k["spill_stores"] + k["spill_loads"]]
+    # the tensor-core B2 kernels and every B1 and B3 instantiation
+    spilled = [k for lib in ("flash_attention", "doorbell", "rmsnorm")
+               for k in ptxas.get(lib, [])
+               if (lib != "flash_attention" or "tc_kernel" in k["kernel"])
+               and k["spill_stores"] + k["spill_loads"]]
     if spilled:
-        raise AssertionError(f"the flash-attention tensor-core kernels "
-                             f"spill registers: {spilled}")
+        raise AssertionError(f"kernels spill registers: {spilled}")
 
     # 3. the doorbell kernel against its plain version
     cases = kernel_phase(torch)
@@ -1548,11 +1732,15 @@ def main(argv=None) -> int:
             main_path_case(torch, "b", "am", torch.float32, 65536, True),
             main_path_case(torch, "c", "send", torch.float32, 8192, False),
             main_path_case(torch, "d", "am", torch.uint8, 8, False)]
-    launches = stage_copy.launches + stage_copy_push.launches
+    launches = stage_copy_rows.launches
     for r in runs:
         record("main_path", **r)
-    if launches == 0:
-        raise AssertionError("the main path launched no doorbell kernel")
+    if launches == 0 or stage_copy.launches or stage_copy_push.launches:
+        raise AssertionError(f"the main path launched the gather "
+                             f"{launches} times, the dense stage copy "
+                             f"{stage_copy.launches} times and the push "
+                             f"{stage_copy_push.launches} times (want only "
+                             f"the gather)")
 
     # 5. flash attention (B2) and RMSNorm (B3) against their plain versions
     t0 = time.perf_counter()
@@ -1566,9 +1754,11 @@ def main(argv=None) -> int:
     record("model_parity", seconds=time.perf_counter() - t0, **parity)
 
     # 7. the dense serving path: counts set to 0 just before, read after
+    rms_by_shape = {}
     _zero_counts(counters)
     t0 = time.perf_counter()
     served = serving_phase(torch, "gemma3-1b", args.profile)
+    rms_by_shape["gemma3-1b"] = _rms_shapes(served)
     n_flash, n_rms = flash_attention_bhsd.launches, rmsnorm.launches
     flash_by = {"gemma3-1b": _all_tc("serving", flash_attention_bhsd)}
     record("serving_main_path", seconds=time.perf_counter() - t0,
@@ -1595,6 +1785,7 @@ def main(argv=None) -> int:
     _zero_counts(counters)
     t0 = time.perf_counter()
     served = serving_phase(torch, "olmoe-1b-7b", args.profile)
+    rms_by_shape["olmoe-1b-7b"] = _rms_shapes(served)
     m_flash, m_rms, n_moe = (flash_attention_bhsd.launches, rmsnorm.launches,
                              moe_gmm.launches)
     moe_by_variant = dict(moe_gmm.launches_by_variant)
@@ -1626,6 +1817,7 @@ def main(argv=None) -> int:
     _zero_counts(counters)
     t0 = time.perf_counter()
     served = serving_phase(torch, "mamba2-370m", args.profile)
+    rms_by_shape["mamba2-370m"] = _rms_shapes(served)
     s_rms, s_ssd = rmsnorm.launches, ssd_scan_bhsp.launches
     record("ssm_serving_main_path", seconds=time.perf_counter() - t0,
            flash_attention_launches=flash_attention_bhsd.launches,
@@ -1639,6 +1831,7 @@ def main(argv=None) -> int:
     _zero_counts(counters)
     t0 = time.perf_counter()
     served = serving_phase(torch, "hymba-1.5b", args.profile)
+    rms_by_shape["hymba-1.5b"] = _rms_shapes(served)
     y_flash, y_rms, y_ssd = (flash_attention_bhsd.launches, rmsnorm.launches,
                              ssd_scan_bhsp.launches)
     flash_by["hymba-1.5b"] = _all_tc("hybrid serving", flash_attention_bhsd)
@@ -1652,7 +1845,7 @@ def main(argv=None) -> int:
                              "flash-attention, RMSNorm or SSD-scan kernel")
 
     # the kernels line: headline numbers at each main path's shape
-    head = next(c for c in cases if c["case"] == "f32_64x16384_bf160")
+    head = next(c for c in cases if c["case"] == "rows_f32_64x16384_bf160")
     fhead = next(c for c in flash
                  if c["case"] == "gemma3_prefill_local512_bfloat16")
     rhead = next(c for c in rms if c["case"] == "serve_bfloat16_8192x1152")
@@ -1665,16 +1858,19 @@ def main(argv=None) -> int:
     rms += rms_ssm
     print(card, flush=True)
     print(json.dumps({"kernels": [{
-        "name": "doorbell.stage_copy", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
+        "name": "doorbell.stage_copy_rows", "route": "cuda",
+        "source": SOURCE, "replaces": REPLACES, "launches": launches,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": "bytes",
         "library_ms": head["library_ms"], "shape": head["shape"],
-        "call_ms": head["kernel_call_ms"],
+        "call_ms": head["kernel_call_ms"], "pair_ms": head["pair_ms"],
+        "dense_ms": head["dense_ms"],
         "cases": [{k: c.get(k) for k in (
-            "case", "wrapper", "ok", "byte_exact", "kernel_ms", "plain_ms",
-            "library_ms", "kernel_call_ms", "plain_call_ms", "bound_ms")}
+            "case", "wrapper", "ok", "byte_exact", "launches", "kernel_ms",
+            "pair_ms", "dense_ms", "plain_ms", "library_ms",
+            "kernel_call_ms", "pair_call_ms", "plain_call_ms", "bound_ms",
+            "bound_share") if k in c}
             for c in cases]}, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": n_flash + m_flash + y_flash,
@@ -1702,7 +1898,9 @@ def main(argv=None) -> int:
         "ms": rhead["kernel_ms"], "plain_ms": rhead["plain_ms"],
         "bound_ms": rhead["bound_ms"], "bound_by": "bytes",
         "library_ms": rhead["library_ms"], "shape": rhead["shape"],
-        "cases": _summary([c for c in rms if "kernel_ms" in c], timed)}, {
+        "launches_by_shape_by_path": rms_by_shape,
+        "cases": _summary([c for c in rms if "kernel_ms" in c],
+                          timed + ("copy_ms", "bound_share"))}, {
         "name": "moe_gmm", "route": "cuda", "source": MOE_SOURCE,
         "replaces": MOE_REPLACES, "launches": n_moe,
         "max_abs_err": max(c["max_abs_err"] for c in moe),

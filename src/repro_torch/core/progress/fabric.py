@@ -14,7 +14,7 @@ Payloads are numpy arrays, bytes, or tensors.  Where a buffer lives
 decides the path: numpy and bytes take the reference's host path byte
 for byte, and tensors stay tensors on their own device — a fused
 doorbell of CUDA tensors is staged on the card by the doorbell kernel
-(:func:`repro_torch.kernels.doorbell.stage_copy`).  Sizes and split
+(:func:`repro_torch.kernels.doorbell.stage_copy_rows`).  Sizes and split
 points stay host ``int64`` numpy, computed from shapes, so no per-burst
 step reads the card back.
 """
@@ -219,9 +219,9 @@ def pack_payloads(bufs: Sequence[Any], wire_bf16: bool = False,
     * every element is the SAME array object (a repeated payload — the
       message-rate hot loop): one row snapshot, broadcast K ways with no
       further copying;
-    * uniform dtype+shape: one ``np.stack`` for ndarrays; for tensors one
-      ``torch.stack`` and then the doorbell stage-copy (the kernel on the
-      card, its plain version on the CPU);
+    * uniform dtype+shape: one ``np.stack`` for ndarrays; for tensors
+      the doorbell stage-copy gathers the K rows from their own addresses
+      in one pass (the kernel on the card, its plain version on the CPU);
     * anything else: per-row byte staging into a zero-padded matrix.
 
     ``wire_bf16`` compresses float32 bursts to bf16 on the wire at zero
@@ -239,8 +239,7 @@ def pack_payloads(bufs: Sequence[Any], wire_bf16: bool = False,
             row = _stage(_contiguous(first).reshape(1, -1), bf16)
             return row.expand(k, -1), sizes, "bf16" if bf16 else None
         if _uniform_tensors(bufs):
-            flat = torch.stack(bufs).reshape(k, -1)
-            return _stage(flat, bf16), sizes, "bf16" if bf16 else None
+            return _stage_rows(bufs, bf16), sizes, "bf16" if bf16 else None
     elif isinstance(first, np.ndarray):
         # identity probe runs at C speed: 64-element bursts are common
         # and a Python-level ``all(b is first ...)`` genexpr shows up in
@@ -288,3 +287,10 @@ def _stage(x: torch.Tensor, bf16: bool) -> torch.Tensor:
     this module's package)."""
     from ...kernels.doorbell import stage_copy
     return stage_copy(x, wire_bf16=bf16)
+
+
+def _stage_rows(bufs: Sequence[torch.Tensor], bf16: bool) -> torch.Tensor:
+    """One doorbell stage-copy of K tensors of one dtype and shape into
+    ``(K, row_bytes)`` uint8 wire rows, each row read where it lies."""
+    from ...kernels.doorbell import stage_copy_rows
+    return stage_copy_rows(bufs, wire_bf16=bf16)

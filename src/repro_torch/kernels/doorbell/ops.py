@@ -6,32 +6,46 @@ raises; for a CPU tensor it takes the plain version in :mod:`.ref`.
 There is no fallback: a build or launch failure is an exception.
 
 Each wrapper counts its launches in a plain integer attribute
-(``stage_copy.launches``, ``stage_copy_push.launches``) so that a run can
-show its main path went through the kernel.
+(``stage_copy.launches``, ``stage_copy_rows.launches``,
+``stage_copy_push.launches``) so that a run can show its main path went
+through the kernel.  The main path (a fused doorbell of CUDA tensors,
+``core/progress/fabric.py::pack_payloads``) calls
+:func:`stage_copy_rows`.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 
 import torch
 
 from ...core.packet_pool import SlotPool, pool_get_n
 from .. import _build
-from .ref import stage_copy_push_ref, stage_copy_ref, wire_rows
+from .ref import (stage_copy_push_ref, stage_copy_ref, stage_copy_rows_ref,
+                  wire_rows)
 
-#: scatter rows ride gridDim.y
-_MAX_ROWS = 65535
+#: rows one gather launch takes: the pointers ride in the kernel's
+#: parameters (``kMaxRows`` in csrc/doorbell.cu)
+ROWS_PER_LAUNCH = 256
 
 
-def _kernel():
-    lib = _build.load("doorbell")
-    fn = lib.repro_stage_copy
+#: the C entry points of csrc/doorbell.cu and their argument types
+_ARGTYPES = {
+    "repro_stage_copy": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                         ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                         ctypes.c_void_p],
+    "repro_stage_copy_rows": [ctypes.c_void_p, ctypes.c_int64,
+                              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                              ctypes.c_void_p],
+}
+
+
+def _kernel(name: str = "repro_stage_copy"):
+    fn = getattr(_build.load("doorbell"), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
     return fn
 
 
@@ -82,6 +96,61 @@ def stage_copy(payloads: torch.Tensor, *, wire_bf16: bool = False
     return out
 
 
+def _check_rows(rows) -> torch.Tensor:
+    """The first of ``rows``, after checking that every row is a tensor of
+    its dtype, shape and device."""
+    if not len(rows):
+        raise ValueError("stage_copy_rows: a doorbell needs at least one row")
+    first = rows[0]
+    if not isinstance(first, torch.Tensor):
+        raise ValueError("stage_copy_rows: rows must be tensors")
+    dt, shape, dev = first.dtype, first.shape, first.device
+    for r in rows:
+        if not (isinstance(r, torch.Tensor) and r.dtype == dt
+                and r.shape == shape and r.device == dev):
+            raise ValueError(
+                f"stage_copy_rows: every row must be a {dt} tensor of shape "
+                f"{tuple(shape)} on {dev}, got {getattr(r, 'dtype', type(r))} "
+                f"{tuple(getattr(r, 'shape', ()))} on "
+                f"{getattr(r, 'device', None)}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"stage_copy_rows: unsupported device {dev}")
+    return first
+
+
+def stage_copy_rows(rows, *, wire_bf16: bool = False) -> torch.Tensor:
+    """K tensors of one dtype, shape and device -> the ``(K, row_bytes)``
+    uint8 wire image of :func:`stage_copy` of them stacked, in one pass:
+    the kernel reads each row at its own address (no ``torch.stack``
+    first), one launch for each :data:`ROWS_PER_LAUNCH` rows.  A row that
+    is not contiguous is made contiguous first.  The result is a fresh
+    tensor."""
+    first = _check_rows(rows)
+    if first.device.type == "cpu":
+        return stage_copy_rows_ref(rows, wire_bf16=wire_bf16)
+    k = len(rows)
+    cast, row_bytes = wire_rows(first.reshape(1, -1), wire_bf16)
+    out = torch.empty((k, row_bytes), dtype=torch.uint8, device=first.device)
+    if not out.numel():
+        return out
+    if not all(map(torch.Tensor.is_contiguous, rows)):
+        rows = [r.contiguous() for r in rows]
+    # the row addresses as one int64 buffer (the C side reads k pointers)
+    table = array.array("q", [r.data_ptr() for r in rows])
+    if any(p % first.element_size() for p in table):
+        raise ValueError("stage_copy_rows: a row is not aligned to its "
+                         "element size")
+    with torch.cuda.device(first.device):
+        rc = _kernel("repro_stage_copy_rows")(
+            table.buffer_info()[0], k, out.data_ptr(), row_bytes, int(cast),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"stage_copy_rows kernel launch failed: CUDA "
+                           f"error {rc}")
+    stage_copy_rows.launches += -(-k // ROWS_PER_LAUNCH)
+    return out
+
+
 def stage_copy_push(pool: SlotPool, buf: torch.Tensor, lane,
                     payloads: torch.Tensor, steal_seed, *,
                     wire_bf16: bool = False):
@@ -111,9 +180,6 @@ def stage_copy_push(pool: SlotPool, buf: torch.Tensor, lane,
     if row_bytes > packet_bytes:
         raise ValueError(f"pool_get_copy_n: payload rows of {row_bytes} "
                          f"bytes exceed packet_bytes={packet_bytes}")
-    if k > _MAX_ROWS:
-        raise ValueError(f"stage_copy_push: at most {_MAX_ROWS} rows a "
-                         f"doorbell, got {k}")
     if cast and (packet_bytes % 2 or buf.data_ptr() % 2):
         raise ValueError("stage_copy_push: bf16 rows need 2-byte aligned "
                          "packets")
@@ -126,4 +192,5 @@ def stage_copy_push(pool: SlotPool, buf: torch.Tensor, lane,
 
 
 stage_copy.launches = 0
+stage_copy_rows.launches = 0
 stage_copy_push.launches = 0

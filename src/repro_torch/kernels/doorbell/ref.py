@@ -40,6 +40,13 @@ def stage_copy_ref(payloads: torch.Tensor, *, wire_bf16: bool = False
     return rows_to_bytes(payloads).clone()
 
 
+def stage_copy_rows_ref(rows, *, wire_bf16: bool = False) -> torch.Tensor:
+    """K tensors of one dtype and shape -> the ``(K, row_bytes)`` uint8
+    wire image that :func:`stage_copy_ref` makes of them stacked."""
+    return stage_copy_ref(torch.stack(list(rows)).reshape(len(rows), -1),
+                          wire_bf16=wire_bf16)
+
+
 def stage_copy_push_ref(pool: SlotPool, buf: torch.Tensor, lane,
                         payloads: torch.Tensor, steal_seed, *,
                         wire_bf16: bool = False):

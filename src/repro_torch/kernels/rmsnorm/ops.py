@@ -4,7 +4,8 @@ For a CUDA tensor :func:`rmsnorm` launches the hand-written Hopper
 kernel (``csrc/rmsnorm.cu``) on the current stream, without
 synchronising, or raises; for a CPU tensor it takes the plain version in
 :mod:`.ref`.  There is no fallback.  ``rmsnorm.launches`` counts the
-kernel launches.
+kernel launches, ``rmsnorm.launches_by_shape`` the same launches by
+``(rows, d)``.
 """
 from __future__ import annotations
 
@@ -65,7 +66,10 @@ def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor] = None, *,
             raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error "
                                f"{rc}")
         rmsnorm.launches += 1
+        by = rmsnorm.launches_by_shape
+        by[rows, d] = by.get((rows, d), 0) + 1
     return out
 
 
 rmsnorm.launches = 0
+rmsnorm.launches_by_shape = {}

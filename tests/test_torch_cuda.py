@@ -81,16 +81,101 @@ def test_stage_copy_push_matches_plain(cuda, bf16):
         assert torch.equal(kp.slots, pp.slots)
 
 
+def _rows_case(cuda, kind, k, e, dtype, g):
+    """K row tensors: in separate allocations, or views into one buffer
+    at offsets that are not 16-byte aligned (odd byte offsets for
+    uint8)."""
+    def draw(n):
+        if dtype == torch.uint8:
+            return torch.randint(0, 256, (n,), generator=g, dtype=dtype)
+        return (torch.randn(n, generator=g) * 100).to(dtype)
+    if kind == "separate":
+        return [draw(e).to(cuda) for _ in range(k)]
+    buf = draw(k * (e + 1) + 1).to(cuda)
+    return [buf[1 + i * (e + 1):1 + i * (e + 1) + e] for i in range(k)]
+
+
+def _equal_wire(out, ref, nan_ok=False):
+    """Equal bytes; with ``nan_ok`` bf16 NaNs compared by isnan (the
+    kernel's cvt.rn and torch's cast give different NaN patterns)."""
+    if not nan_ok:
+        return torch.equal(out, ref)
+    a, b = out.view(torch.int16), ref.view(torch.int16)
+    an = torch.isnan(out.view(torch.bfloat16))
+    bn = torch.isnan(ref.view(torch.bfloat16))
+    return torch.equal(an, bn) and torch.equal(a[~an], b[~bn])
+
+
+@pytest.mark.parametrize("kind,k,e,dtype", [
+    ("separate", 64, 16384, torch.float32),
+    ("separate", 64, 2048, torch.float32),
+    ("separate", 5, 1027, torch.float32),       # rows with a tail
+    ("separate", 64, 8, torch.uint8),           # 8-byte rows
+    ("separate", 63, 2, torch.int32),
+    ("offset", 64, 8, torch.uint8),             # odd byte offsets
+    ("offset", 7, 4099, torch.uint8),
+    ("offset", 9, 1027, torch.float32),         # 4-byte, not 16-byte, aligned
+    ("offset", 16, 2048, torch.float32),
+])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_stage_copy_rows_matches_plain(cuda, kind, k, e, dtype, bf16):
+    g = torch.Generator().manual_seed(5)
+    rows = _rows_case(cuda, kind, k, e, dtype, g)
+    before = db.stage_copy_rows.launches
+    out = db.stage_copy_rows(rows, wire_bf16=bf16)
+    assert db.stage_copy_rows.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, db.stage_copy_rows_ref(rows, wire_bf16=bf16))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_stage_copy_rows_takes_two_launches_past_256_rows(cuda, bf16):
+    g = torch.Generator().manual_seed(6)
+    rows = _rows_case(cuda, "separate", 257, 300, torch.float32, g)
+    before = db.stage_copy_rows.launches
+    out = db.stage_copy_rows(rows, wire_bf16=bf16)
+    assert db.stage_copy_rows.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(out, db.stage_copy_rows_ref(rows, wire_bf16=bf16))
+
+
+def test_stage_copy_rows_nan_and_special_values(cuda):
+    g = np.random.default_rng(7)
+    vals = np.array([np.nan, -np.nan, np.inf, -np.inf, -0.0, 1e-40, 1e-45,
+                     3.4028235e38, 1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8],
+                    np.float32)
+    rows = [torch.from_numpy(g.choice(vals, 2048).astype(np.float32)).to(cuda)
+            for _ in range(64)]
+    for bf16 in (False, True):
+        out = db.stage_copy_rows(rows, wire_bf16=bf16)
+        torch.cuda.synchronize()
+        assert _equal_wire(out, db.stage_copy_rows_ref(rows, wire_bf16=bf16),
+                           nan_ok=bf16)
+
+
+def test_stage_copy_rows_takes_strided_rows(cuda):
+    """A non-contiguous row is made contiguous first, as torch.stack
+    takes it."""
+    src = torch.randn(16, 64, device=cuda)
+    rows = list(src.t())
+    out = db.stage_copy_rows(rows)
+    torch.cuda.synchronize()
+    assert torch.equal(out, db.stage_copy_rows_ref(rows))
+
+
 def test_main_path_launches_once_per_doorbell(cuda):
+    """A fused doorbell of CUDA rows is one gather launch, and no dense
+    stage copy (the rows are not stacked first)."""
     cl = LocalCluster(2, device=cuda, attrs={"wire_bf16": True})
     ep0, ep1 = cl.alloc_endpoint(n_devices=2)
     cq = cl[1].alloc_cq()
     rc = cl[1].register_rcomp(cq)
     src = torch.randn(8, 64, device=cuda)
-    before = db.stage_copy.launches
+    before, dense = db.stage_copy_rows.launches, db.stage_copy.launches
     sts = ep0.post_am_many(1, list(src), rc, tags=list(range(8)))
     assert all(s.is_done() for s in sts)
-    assert db.stage_copy.launches == before + 1
+    assert db.stage_copy_rows.launches == before + 1
+    assert db.stage_copy.launches == dense
     cl.quiesce()
     got = {}
     while True:
@@ -295,7 +380,11 @@ def test_flash_simt_takes_float32_and_small_head_dims(cuda, dtype, dh):
                                     (100, 1152), (7, 100)])
 @pytest.mark.parametrize("w_dtype", [None, torch.float32, torch.bfloat16])
 def test_rmsnorm_matches_plain(cuda, rows, d, dtype, w_dtype):
-    g = torch.Generator().manual_seed(3)
+    _check_rmsnorm(cuda, rows, d, dtype, w_dtype, seed=3)
+
+
+def _check_rmsnorm(cuda, rows, d, dtype, w_dtype, seed):
+    g = torch.Generator().manual_seed(seed)
     x = (torch.randn(rows, d, generator=g) * 3).to(dtype).to(cuda)
     w = None if w_dtype is None else \
         torch.randn(d, generator=g).to(w_dtype).to(cuda)
@@ -305,6 +394,28 @@ def test_rmsnorm_matches_plain(cuda, rows, d, dtype, w_dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), rmsnorm_ref(x, w).float(),
                                atol=_tol(dtype), rtol=_tol(dtype))
+
+
+#: the widths the row kernel is instantiated for (csrc/rmsnorm.cu: the
+#: served paths' norms), each range's edges, and a width the generic
+#: kernel takes (1027: rows not 16-byte aligned)
+RMS_WIDTHS = [128, 256, 1024, 1152, 1600, 2048, 3200, 1027, 264, 3328, 3336]
+
+
+@pytest.mark.parametrize("d", RMS_WIDTHS)
+@pytest.mark.parametrize("rows", [1, 7, 8192])
+@pytest.mark.parametrize("w_dtype", [None, torch.float32, torch.bfloat16])
+def test_rmsnorm_row_kernel_widths(cuda, d, rows, w_dtype):
+    for dtype in (torch.bfloat16, torch.float32):
+        _check_rmsnorm(cuda, rows, d, dtype, w_dtype, seed=d + rows)
+
+
+def test_rmsnorm_counts_launches_by_shape(cuda):
+    x = torch.randn(24, 256, device=cuda, dtype=torch.bfloat16)
+    before = dict(rmsnorm.launches_by_shape)
+    rmsnorm(x, None)
+    rmsnorm(x.reshape(2, 12, 256), None)
+    assert rmsnorm.launches_by_shape[24, 256] == before.get((24, 256), 0) + 2
 
 
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):

@@ -194,6 +194,59 @@ def test_stage_copy_push_ref_matches_reference(bf16, grab):
     assert np.array_equal(np.asarray(rp.slots), tp.slots.numpy())
 
 
+# ---------------------------------------------------------------------------
+# the gather: K separate rows, as the main path's fused doorbell stages them
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8, np.int32],
+                         ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("k", [1, 64, 257])
+def test_stage_copy_rows_matches_reference(dtype, bf16, k):
+    """The gather of K row tensors (the plain version on the CPU) equals
+    the reference's ``stage_copy`` of the stacked (K, E) array."""
+    x = (RNG.standard_normal((k, 6)) * 50).astype(dtype)
+    want = np.asarray(ref_db.stage_copy(jnp.asarray(x), wire_bf16=bf16))
+    rows = [torch.from_numpy(r.copy()) for r in x]   # separate tensors
+    got = port_db.stage_copy_rows(rows, wire_bf16=bf16)
+    assert got.dtype == torch.uint8 and np.array_equal(got.numpy(), want)
+    assert np.array_equal(
+        port_db.stage_copy_rows_ref(rows, wire_bf16=bf16).numpy(), want)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_pack_payloads_of_strided_rows_matches_reference(bf16):
+    """Distinct non-contiguous rows (columns of a matrix) take the uniform
+    branch and pack to the reference's bytes."""
+    m = (RNG.standard_normal((6, 5)) * 50).astype(np.float32)
+    bufs = [np.ascontiguousarray(c) for c in m.T]
+    want, wsizes, wdt = ref.pack_payloads(bufs, wire_bf16=bf16)
+    tbufs = list(torch.from_numpy(m).t())
+    assert not any(t.is_contiguous() for t in tbufs)
+    got, sizes, dt = port.pack_payloads(tbufs, wire_bf16=bf16,
+                                        device=torch.device("cpu"))
+    assert dt == wdt and np.array_equal(sizes, wsizes)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("odd", ["dtype", "shape", "device", "not_a_tensor",
+                                 "empty"])
+def test_stage_copy_rows_refuses_mixed_rows(odd):
+    rows = [torch.zeros(4) for _ in range(3)]
+    if odd == "dtype":
+        rows[1] = torch.zeros(4, dtype=torch.float64)
+    elif odd == "shape":
+        rows[2] = torch.zeros(2, 2)
+    elif odd == "device":
+        rows[1] = torch.zeros(4, device="meta")
+    elif odd == "not_a_tensor":
+        rows[1] = np.zeros(4, np.float32)
+    else:
+        rows = []
+    with pytest.raises(ValueError):
+        port_db.stage_copy_rows(rows)
+
+
 def test_oversize_row_raises():
     tp = port.init_pool(1, 2, device="cpu")
     buf = port.init_buffers(2, 8, device="cpu")

@@ -128,7 +128,11 @@ def test_flash_attention_plain_matches_pallas(b, hq, hkv, sq, skv, dh,
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows,d,block", [(8, 64, 4), (64, 128, 16),
-                                          (100, 96, 32), (1, 256, 8)])
+                                          (100, 96, 32), (1, 256, 8),
+                                          # the served paths' widths
+                                          (8, 256, 4), (6, 1152, 2),
+                                          (5, 1600, 5), (4, 2048, 2),
+                                          (3, 3200, 3)])
 def test_rmsnorm_plain_matches_pallas(rows, d, block, dtype):
     rng = np.random.default_rng(1)
     jx, tx = _pair(rng.standard_normal((rows, d), np.float32), dtype)
