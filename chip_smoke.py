@@ -279,7 +279,9 @@ def kernel_phase(torch):
     from repro_torch.kernels.doorbell import (stage_copy, stage_copy_push,
                                               stage_copy_push_ref,
                                               stage_copy_ref, stage_copy_rows,
-                                              stage_copy_rows_ref)
+                                              stage_copy_rows_ref,
+                                              uniform_rows)
+    from repro_torch.core.progress.fabric import pack_payloads
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     cases = []
 
@@ -365,6 +367,9 @@ def kernel_phase(torch):
                 return stage_copy_rows(rs, wire_bf16=bf16)
 
             def pair_fn(rs):
+                # the PR 16 path, with the same row check as rows_fn
+                if not uniform_rows(rs):
+                    raise ValueError(label)
                 return stage_copy(torch.stack(rs).reshape(k, -1),
                                   wire_bf16=bf16)
             case.update({
@@ -378,6 +383,9 @@ def kernel_phase(torch):
                 "library_ms": device_ms(lib, stacked),
                 "kernel_call_ms": call_ms(rows_fn, sets),
                 "pair_call_ms": call_ms(pair_fn, sets),
+                # the main path's staging call around the gather
+                "pack_call_ms": call_ms(
+                    lambda rs: pack_payloads(rs, bf16), sets),
                 "bound_ms": bound_ms(k * x0.nbytes, out.nbytes)})
             case["gather_over_pair"] = case["kernel_ms"] / case["pair_ms"]
             case["dense_over_library"] = (case["dense_ms"] /
@@ -881,12 +889,12 @@ def model_kernel_phase(torch):
                         (8192, 256)):
             rms.append(rmsnorm_case(torch, f"serve_{dn}_{rows}x{d}", rows, d,
                                     dtype, g))
+        rms.append(rmsnorm_case(torch, f"no_weight_{dn}_100x1152", 100, 1152,
+                                dtype, g, with_w=False, time_it=False))
     # olmoe's prefill (4 x 1024 tokens): norm1/norm2 and its q/k norms
     for rows, d in ((4096, 2048), (65536, 128)):
         rms.append(rmsnorm_case(torch, f"olmoe_prefill_bfloat16_{rows}x{d}",
                                 rows, d, torch.bfloat16, g))
-        rms.append(rmsnorm_case(torch, f"no_weight_{dn}_100x1152", 100, 1152,
-                                dtype, g, with_w=False, time_it=False))
     return flash, rms
 
 
@@ -1869,8 +1877,8 @@ def main(argv=None) -> int:
         "cases": [{k: c.get(k) for k in (
             "case", "wrapper", "ok", "byte_exact", "launches", "kernel_ms",
             "pair_ms", "dense_ms", "plain_ms", "library_ms",
-            "kernel_call_ms", "pair_call_ms", "plain_call_ms", "bound_ms",
-            "bound_share") if k in c}
+            "kernel_call_ms", "pair_call_ms", "pack_call_ms",
+            "plain_call_ms", "bound_ms", "bound_share") if k in c}
             for c in cases]}, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": n_flash + m_flash + y_flash,

@@ -191,17 +191,17 @@ def payloads_to_bytes(bufs: Sequence[Any],
             return list(stacked)                      # row views, no copy
     elif isinstance(first, torch.Tensor):
         check_device(first, device)
-        if _uniform_tensors(bufs):
+        if _uniform_rows(bufs):
             stacked = torch.stack(bufs)               # the ONE copy
             return list(stacked.reshape(len(bufs), -1).view(torch.uint8))
     return [payload_to_bytes(b, device) for b in bufs]
 
 
-def _uniform_tensors(bufs: Sequence[Any]) -> bool:
-    first = bufs[0]
-    dt, shape, dev = first.dtype, first.shape, first.device
-    return all(isinstance(b, torch.Tensor) and b.dtype == dt
-               and b.shape == shape and b.device == dev for b in bufs)
+def _uniform_rows(bufs: Sequence[Any]) -> bool:
+    """Whether ``bufs`` are tensors of one dtype, shape and device
+    (imported here: the kernels package imports this module's package)."""
+    from ...kernels.doorbell import uniform_rows
+    return uniform_rows(bufs)
 
 
 def pack_payloads(bufs: Sequence[Any], wire_bf16: bool = False,
@@ -236,10 +236,11 @@ def pack_payloads(bufs: Sequence[Any], wire_bf16: bool = False,
         sizes = np.full(k, first.nbytes, np.int64)
         bf16 = wire_bf16 and first.dtype == torch.float32
         if len(set(map(id, bufs))) == 1:
-            row = _stage(_contiguous(first).reshape(1, -1), bf16)
+            row = _stage_rows([_contiguous(first)], bf16, uniform=True)
             return row.expand(k, -1), sizes, "bf16" if bf16 else None
-        if _uniform_tensors(bufs):
-            return _stage_rows(bufs, bf16), sizes, "bf16" if bf16 else None
+        if _uniform_rows(bufs):
+            return (_stage_rows(bufs, bf16, uniform=True), sizes,
+                    "bf16" if bf16 else None)
     elif isinstance(first, np.ndarray):
         # identity probe runs at C speed: 64-element bursts are common
         # and a Python-level ``all(b is first ...)`` genexpr shows up in
@@ -280,17 +281,10 @@ def pack_payloads(bufs: Sequence[Any], wire_bf16: bool = False,
     return data, sizes, None
 
 
-def _stage(x: torch.Tensor, bf16: bool) -> torch.Tensor:
-    """One doorbell stage-copy of a ``(K, E)`` tensor into ``(K,
-    row_bytes)`` uint8 wire rows: the kernel for a CUDA tensor, its plain
-    version for a CPU one (imported here: the kernels package imports
-    this module's package)."""
-    from ...kernels.doorbell import stage_copy
-    return stage_copy(x, wire_bf16=bf16)
-
-
-def _stage_rows(bufs: Sequence[torch.Tensor], bf16: bool) -> torch.Tensor:
+def _stage_rows(bufs: Sequence[torch.Tensor], bf16: bool,
+                uniform: bool = False) -> torch.Tensor:
     """One doorbell stage-copy of K tensors of one dtype and shape into
-    ``(K, row_bytes)`` uint8 wire rows, each row read where it lies."""
+    ``(K, row_bytes)`` uint8 wire rows, each row read where it lies: the
+    kernel for CUDA tensors, its plain version for CPU ones."""
     from ...kernels.doorbell import stage_copy_rows
-    return stage_copy_rows(bufs, wire_bf16=bf16)
+    return stage_copy_rows(bufs, wire_bf16=bf16, uniform=uniform)

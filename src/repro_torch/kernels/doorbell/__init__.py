@@ -10,8 +10,9 @@ packet pool — as one hand-written CUDA kernel for Hopper
 separate row tensors (the main path's fused doorbell) and
 ``stage_copy_push`` into packet slots.
 """
-from .ops import stage_copy, stage_copy_push, stage_copy_rows
+from .ops import stage_copy, stage_copy_push, stage_copy_rows, uniform_rows
 from .ref import stage_copy_push_ref, stage_copy_ref, stage_copy_rows_ref
 
 __all__ = ["stage_copy", "stage_copy_push", "stage_copy_push_ref",
-           "stage_copy_ref", "stage_copy_rows", "stage_copy_rows_ref"]
+           "stage_copy_ref", "stage_copy_rows", "stage_copy_rows_ref",
+           "uniform_rows"]

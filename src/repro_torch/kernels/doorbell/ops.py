@@ -16,6 +16,9 @@ from __future__ import annotations
 
 import array
 import ctypes
+from functools import reduce
+from itertools import repeat
+from operator import attrgetter, or_
 
 import torch
 
@@ -41,12 +44,18 @@ _ARGTYPES = {
 }
 
 
-def _kernel(name: str = "repro_stage_copy"):
-    fn = getattr(_build.load("doorbell"), name)
+def _bind(lib: ctypes.CDLL, name: str):
+    """``lib``'s C entry ``name`` (a build of csrc/doorbell.cu) with its
+    argument types set."""
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = _ARGTYPES[name]
     return fn
+
+
+def _kernel(name: str = "repro_stage_copy"):
+    return _bind(_build.load("doorbell"), name)
 
 
 def _check_payloads(x: torch.Tensor, name: str) -> None:
@@ -96,38 +105,41 @@ def stage_copy(payloads: torch.Tensor, *, wire_bf16: bool = False
     return out
 
 
-def _check_rows(rows) -> torch.Tensor:
-    """The first of ``rows``, after checking that every row is a tensor of
-    its dtype, shape and device."""
-    if not len(rows):
-        raise ValueError("stage_copy_rows: a doorbell needs at least one row")
-    first = rows[0]
-    if not isinstance(first, torch.Tensor):
-        raise ValueError("stage_copy_rows: rows must be tensors")
-    dt, shape, dev = first.dtype, first.shape, first.device
-    for r in rows:
-        if not (isinstance(r, torch.Tensor) and r.dtype == dt
-                and r.shape == shape and r.device == dev):
-            raise ValueError(
-                f"stage_copy_rows: every row must be a {dt} tensor of shape "
-                f"{tuple(shape)} on {dev}, got {getattr(r, 'dtype', type(r))} "
-                f"{tuple(getattr(r, 'shape', ()))} on "
-                f"{getattr(r, 'device', None)}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"stage_copy_rows: unsupported device {dev}")
-    return first
+#: what every row of a gather shares
+_ROW_META = attrgetter("dtype", "shape", "device")
 
 
-def stage_copy_rows(rows, *, wire_bf16: bool = False) -> torch.Tensor:
+def uniform_rows(rows) -> bool:
+    """Whether ``rows`` is one or more tensors of one dtype, shape and
+    device: the rows :func:`stage_copy_rows` takes.  The maps run at C
+    speed (a fused doorbell calls this once for each of its K rows)."""
+    return (len(rows) > 0
+            and all(map(isinstance, rows, repeat(torch.Tensor)))
+            and len(set(map(_ROW_META, rows))) == 1)
+
+
+def stage_copy_rows(rows, *, wire_bf16: bool = False,
+                    uniform: bool = False) -> torch.Tensor:
     """K tensors of one dtype, shape and device -> the ``(K, row_bytes)``
     uint8 wire image of :func:`stage_copy` of them stacked, in one pass:
     the kernel reads each row at its own address (no ``torch.stack``
     first), one launch for each :data:`ROWS_PER_LAUNCH` rows.  A row that
     is not contiguous is made contiguous first.  The result is a fresh
-    tensor."""
-    first = _check_rows(rows)
+    tensor.  ``uniform=True`` says the caller has already checked the
+    rows with :func:`uniform_rows`, and skips that check."""
+    if not (uniform or uniform_rows(rows)):
+        raise ValueError(
+            "stage_copy_rows: a doorbell needs one or more tensors of one "
+            "dtype, shape and device, got " + ", ".join(sorted({
+                f"{getattr(r, 'dtype', type(r).__name__)} "
+                f"{tuple(getattr(r, 'shape', ()))} on "
+                f"{getattr(r, 'device', None)}" for r in rows})))
+    first = rows[0]
     if first.device.type == "cpu":
         return stage_copy_rows_ref(rows, wire_bf16=wire_bf16)
+    if first.device.type != "cuda":
+        raise ValueError(f"stage_copy_rows: unsupported device "
+                         f"{first.device}")
     k = len(rows)
     cast, row_bytes = wire_rows(first.reshape(1, -1), wire_bf16)
     out = torch.empty((k, row_bytes), dtype=torch.uint8, device=first.device)
@@ -135,11 +147,12 @@ def stage_copy_rows(rows, *, wire_bf16: bool = False) -> torch.Tensor:
         return out
     if not all(map(torch.Tensor.is_contiguous, rows)):
         rows = [r.contiguous() for r in rows]
-    # the row addresses as one int64 buffer (the C side reads k pointers)
-    table = array.array("q", [r.data_ptr() for r in rows])
-    if any(p % first.element_size() for p in table):
+    ptrs = list(map(torch.Tensor.data_ptr, rows))
+    # the element size is a power of two: one OR finds any misaligned row
+    if reduce(or_, ptrs) % first.element_size():
         raise ValueError("stage_copy_rows: a row is not aligned to its "
                          "element size")
+    table = array.array("q", ptrs)      # the C side reads k pointers
     with torch.cuda.device(first.device):
         rc = _kernel("repro_stage_copy_rows")(
             table.buffer_info()[0], k, out.data_ptr(), row_bytes, int(cast),

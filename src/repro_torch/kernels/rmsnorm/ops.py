@@ -22,14 +22,26 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _W_KIND = {None: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
-def _kernel():
-    fn = _build.load("rmsnorm").repro_rmsnorm
+#: the C entry point of csrc/rmsnorm.cu and its argument types
+_ARGTYPES = {
+    "repro_rmsnorm": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+}
+
+
+def _bind(lib: ctypes.CDLL, name: str = "repro_rmsnorm"):
+    """``lib``'s C entry ``name`` (a build of csrc/rmsnorm.cu) with its
+    argument types set."""
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
     return fn
+
+
+def _kernel():
+    return _bind(_build.load("rmsnorm"))
 
 
 def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor] = None, *,

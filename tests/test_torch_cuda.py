@@ -188,6 +188,22 @@ def test_main_path_launches_once_per_doorbell(cuda):
     assert torch.equal(torch.stack([got[t] for t in range(8)]), want)
 
 
+def test_repeated_payload_stages_one_gathered_row(cuda):
+    """One CUDA tensor posted K times: one gather launch of one row,
+    broadcast K ways, and no dense stage copy."""
+    from repro_torch.core.progress.fabric import pack_payloads
+    x = torch.randn(33, device=cuda)
+    before, dense = db.stage_copy_rows.launches, db.stage_copy.launches
+    got, sizes, dt = pack_payloads([x] * 5, wire_bf16=True,
+                                   device=x.device)
+    assert db.stage_copy_rows.launches == before + 1
+    assert db.stage_copy.launches == dense
+    torch.cuda.synchronize()
+    assert dt == "bf16" and list(sizes) == [x.nbytes] * 5
+    want = db.stage_copy_ref(x.reshape(1, -1), wire_bf16=True)
+    assert torch.equal(got, want.expand(5, -1))
+
+
 def test_cuda_payload_on_cpu_runtime_raises(cuda):
     cl = LocalCluster(2, device="cpu")
     ep0, _ = cl.alloc_endpoint()

@@ -245,6 +245,14 @@ def test_stage_copy_rows_refuses_mixed_rows(odd):
         rows = []
     with pytest.raises(ValueError):
         port_db.stage_copy_rows(rows)
+    assert not port_db.uniform_rows(rows)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_uniform_rows_accepts_one_dtype_shape_device(k):
+    rows = [torch.zeros(2, 3, dtype=torch.int32) for _ in range(k)]
+    assert port_db.uniform_rows(rows)
+    assert port_db.uniform_rows(tuple(rows))
 
 
 def test_oversize_row_raises():
