@@ -5,6 +5,8 @@ message path, gemma3-1b serving, olmoe-1b-7b (MoE) serving, mamba2-370m
 
     python3 chip_smoke.py            # from the repository root; one card
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown
+                                     # and the float32 -> bf16 casts of
+                                     # a prefill by call site
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 ``build/`` at first use, one ``nvcc`` per source, all started together),
@@ -14,7 +16,7 @@ The phases:
 
 1. the card's name, power limit and software versions;
 2. the build, with ptxas' register and spill report (no B1 or B3
-   kernel and no tensor-core B2 kernel may spill);
+   kernel and no tensor-core B2 or B5 kernel may spill);
 3. the doorbell stage copy (B1) against its plain version, byte for
    byte: the dense ``stage_copy`` of a (K, E) tensor, the gather
    ``stage_copy_rows`` of K row tensors (the main path's call; rows in
@@ -88,7 +90,15 @@ The phases:
    mamba2-370m's prefill shape (x (4, 32, 2048, 64), N 128) and
    hymba-1.5b's (x (4, 50, 2048, 64), N 16) in bf16 and float32, a ragged
    s = 1000 with an initial state in and the final state out, s = 1, and
-   a large dt (exp(cum) underflows); each timed case also times the
+   a large dt (exp(cum) underflows) in float32 and bf16; each case
+   reports the variant it launched (bf16 with P and N multiples of 16:
+   "tc", the chunk-parallel stages on the tensor cores; otherwise
+   "simt"), and a "tc" case is also held against the plain version of
+   its own rounding (``ssd_scan_tc_ref``) at the tighter 4e-2 + 1e-2
+   |ref| (y) and 1e-4 (the final state); at the two prefill shapes in
+   bf16 it records the chunk length, the scratch bytes and each stage's
+   launches and device time (torch.profiler), one launch of each of the
+   three stages a call or it fails; each timed case also times the
    chunked plain version (``models/ssm.py::ssd_chunked``; no single
    PyTorch call computes the scan); flash attention (B2) at hymba's
    prefill shape (GQA 25:5, dh 64, window 1024 and global) and RMSNorm
@@ -97,13 +107,14 @@ The phases:
 12. mamba2-370m's full config in float32 (seeded random weights): decode
    against forward as in phase 6;
 13. mamba2-370m's full config in bf16: ``make_prefill_step`` on 4 prompts
-   of 2048 tokens (exactly 48 SSD-scan and 97 RMSNorm launches a call:
+   of 2048 tokens (exactly 48 SSD-scan launches a call, every one on the
+   "tc" variant, and 97 RMSNorm launches:
    norm1 and the gated norm a layer, plus the final norm), then the serve
    launcher's loop as in phase 7 (97 RMSNorm and no SSD-scan launch a
    step);
 14. hymba-1.5b's full config in bf16: prefill of 4 x 2048 tokens (exactly
-   32 flash-attention launches, all "tc", 32 SSD-scan and 161 RMSNorm
-   launches a call: norm1,
+   32 flash-attention and 32 SSD-scan launches, all "tc", and 161
+   RMSNorm launches a call: norm1,
    the gated norm, the two mix norms and norm2 a layer, plus the final
    norm), then the same launcher loop (161 RMSNorm launches a step).
 
@@ -1029,8 +1040,8 @@ def _rms_by_shape(before: dict) -> dict:
 
 
 def _counts():
-    """Launches of B2, B3, B4, B4's tensor-core variant, B5 and B2's
-    tensor-core variant."""
+    """Launches of B2, B3, B4, B4's tensor-core variant, B5, B2's
+    tensor-core variant and B5's tensor-core variant."""
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.rmsnorm import rmsnorm
@@ -1038,7 +1049,8 @@ def _counts():
     return (flash_attention_bhsd.launches, rmsnorm.launches,
             moe_gmm.launches, moe_gmm.launches_by_variant["tc"],
             ssd_scan_bhsp.launches,
-            flash_attention_bhsd.launches_by_variant["tc"])
+            flash_attention_bhsd.launches_by_variant["tc"],
+            ssd_scan_bhsp.launches_by_variant["tc"])
 
 
 class _FillLog:
@@ -1090,9 +1102,10 @@ def serving_phase(torch, arch: str, profile: bool):
     from repro_torch.serving import make_prefill_step
     want = SERVING[arch]
     pb, ps = want["batch"], want["seq"]
-    # every B2 and B4 launch of a bf16 path takes the tensor-core variant
+    # every B2, B4 and B5 launch of a bf16 path takes the tensor-core
+    # variant
     per_call = (want["flash"], want["rms"], want["moe"], want["moe"],
-                want["ssd"], want["flash"])
+                want["ssd"], want["flash"], want["ssd"])
     cfg = get_config(arch)
     model = build_model(cfg, device=DEVICE)
     t0 = time.perf_counter()
@@ -1126,8 +1139,8 @@ def serving_phase(torch, arch: str, profile: bool):
         if got != per_call:
             raise AssertionError(f"{arch} prefill launched (flash, RMSNorm, "
                                  f"MoE GMM, MoE GMM tensor-core, SSD scan, "
-                                 f"flash tensor-core) {got} times (want "
-                                 f"{per_call})")
+                                 f"flash tensor-core, SSD scan tensor-core) "
+                                 f"{got} times (want {per_call})")
     if not torch.isfinite(last.float()).all() or tok.shape != (pb,) \
             or not ((tok >= 0) & (tok < cfg.vocab)).all():
         raise AssertionError(f"{arch} prefill: bad tokens or non-finite "
@@ -1140,7 +1153,7 @@ def serving_phase(torch, arch: str, profile: bool):
     by0 = dict(rmsnorm.launches_by_shape)
     with _FillLog() as decode_fill:
         out = serve(cfg, params, device=DEVICE, **SERVE_ARGS)
-    nf, nr, nm, ntc, ns, _ = (b - a for a, b in zip(c0, _counts()))
+    nf, nr, nm, ntc, ns, _, _ = (b - a for a, b in zip(c0, _counts()))
     decode_by_shape = _rms_by_shape(by0)
     steps = out["decode_calls"]
     if sum(prefill_by_shape.values()) != want["rms"] or \
@@ -1177,6 +1190,7 @@ def serving_phase(torch, arch: str, profile: bool):
                        "moe_gmm_tc_launches_per_call": want["moe"],
                        "moe_fill": prefill_fill.summary(),
                        "ssd_scan_launches_per_call": want["ssd"],
+                       "ssd_scan_tc_launches_per_call": want["ssd"],
                        "peak_memory_bytes": prefill_peak},
            "decode": {**SERVE_ARGS, "prompt_len": PROMPT_LEN,
                       "completed": out["completed"],
@@ -1198,9 +1212,43 @@ def serving_phase(torch, arch: str, profile: bool):
     return rec
 
 
+#: the device kernel of a float32 -> bf16 cast
+CAST_KERNEL = "bfloat16_copy_kernel"
+
+
+class _CastLog:
+    """While installed, counts the ``Tensor.to`` calls that cast a
+    float32 CUDA tensor to bf16, by the innermost call site in the port's
+    code (``repro_torch/<file>:<line>``)."""
+
+    def __enter__(self):
+        import traceback
+        import torch
+        self.real, self.sites = torch.Tensor.to, {}
+
+        def to(t, *a, **kw):
+            out = self.real(t, *a, **kw)
+            if t.dtype == torch.float32 and out.dtype == torch.bfloat16 \
+                    and out.is_cuda:
+                site = next((f"{f.filename[f.filename.index('repro_torch/'):]}"
+                             f":{f.lineno}"
+                             for f in reversed(traceback.extract_stack()[:-1])
+                             if "repro_torch/" in f.filename), "other")
+                self.sites[site] = self.sites.get(site, 0) + 1
+            return out
+        torch.Tensor.to = to
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.Tensor.to = self.real
+
+
 def profile_phase(torch, cfg, params, tokens):
     """``--profile`` only: torch.profiler over one prefill call and over
-    8 decode steps: device time by kernel, summed, against wall time."""
+    8 decode steps: device time by kernel, summed, against wall time, and
+    the float32 -> bf16 cast kernels' launches; then a second prefill
+    with ``Tensor.to`` watched, for where those casts come from."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     from repro_torch.serving import (init_cache, make_prefill_step,
@@ -1219,10 +1267,12 @@ def profile_phase(torch, cfg, params, tokens):
                 for n, key in (("flash_attention", "flash_fwd"),
                                ("rmsnorm", "rmsnorm_"),
                                ("moe_gmm", "gmm_"),
-                               ("ssd_scan", "ssd_scan_kernel"))}
+                               ("ssd_scan", "ssd_scan_"))}
         return {"wall_ms": wall_s * 1e3, "device_ms": total,
                 "device_busy_share": total / (wall_s * 1e3),
                 "hand_written_ms": mine,
+                "cast_launches": sum(c for k, _, c in rows
+                                     if CAST_KERNEL in k),
                 "top": [{"kernel": k[:90], "ms": ms, "count": c}
                         for k, ms, c in rows[:12]]}
 
@@ -1236,6 +1286,10 @@ def profile_phase(torch, cfg, params, tokens):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     out = {"prefill_call": split(prof, wall)}
+    with _CastLog() as casts:
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    out["prefill_cast_sites"] = casts.sites
     step = make_serve_step(cfg)
     b = SERVE_ARGS["max_batch"]
     cache = init_cache(cfg, SERVE_ARGS["cache_len"], b, device=DEVICE)
@@ -1513,33 +1567,86 @@ def moe_kernel_phase(torch):
 
 SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:68"
-#: the kernel's own chunk length (csrc/ssd_scan.cu), for the operation count
-SSD_KERNEL_CHUNK = 64
+#: the chunk length the operation count is taken at: fixed, so that B5's
+#: bound does not move with a variant's own chunk (simt 64, tc 128)
+SSD_FLOPS_CHUNK = 64
+#: the variants of csrc/ssd_scan.cu, for the kernels line
+SSD_DESIGN = {"tc": "bf16, P and N multiples of 16: chunk-parallel, L = "
+                    "128, three launches: chunk states (B^T (w x) as a "
+                    "bf16 hi + lo pair) with C.B^T once a group, the "
+                    "float32 carry over the chunks, chunk outputs (C H_in "
+                    "with H_in in bf16, M x with M in bf16); mma.sync "
+                    "m16n8k16 on cp.async tiles",
+              "simt": "float32 CUDA cores, L = 64, one block a (batch, "
+                      "head, 32 columns of P) walking the chunks (float32 "
+                      "and other bf16 shapes)"}
+#: the tensor-core variant's three stages, one launch each a call
+SSD_TC_STAGES = ("ssd_scan_chunk_kernel", "ssd_scan_carry_kernel",
+                 "ssd_scan_out_kernel")
+#: "tc" against the plain version of its own rounding (ssd_scan_tc_ref):
+#: y within 4e-2 + 1e-2 |ref| (y's own bf16 rounding tipped the other
+#: way, and one bf16 ulp of an M element tipped by the float32 sums' order
+#: times x, which does not scale with y), the final state within 1e-4 +
+#: 1e-4 |ref| (not rounded); tests/test_torch_cuda.py holds the same
+SSD_TC_Y_ATOL, SSD_TC_Y_RTOL, SSD_TC_H_TOL = 4e-2, 1e-2, 1e-4
 
 
 def ssd_flops(bs, h, s, p, g, n) -> int:
-    """The chunked algorithm's useful work at the kernel's chunk length:
+    """The chunked algorithm's useful work at :data:`SSD_FLOPS_CHUNK`:
     C.B^T once a (batch, group) over each chunk's causal pairs, the
     intra-chunk product with x, the incoming-state product and the state
     update (each 2 flops a multiply-add)."""
-    L = SSD_KERNEL_CHUNK
+    L = SSD_FLOPS_CHUNK
     pairs = sum(lc * (lc + 1) // 2 for lc in
                 (min(L, s - t0) for t0 in range(0, s, L)))
     return 2 * bs * (g * pairs * n + h * pairs * p + 2 * h * s * n * p)
 
 
+def ssd_stages(torch, fn, sets, calls: int = 6) -> dict:
+    """torch.profiler over ``calls`` calls of ``fn`` cycling through
+    ``sets``: each B5 kernel's launches and device ms a call, by kernel
+    name.  A profiler started after another one can miss its first
+    kernels, so the calls recorded follow one warm-up step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import schedule
+    fn(sets[0])
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  schedule=schedule(wait=0, warmup=1, active=calls,
+                                    repeat=1)) as prof:
+        for i in range(calls + 1):
+            fn(sets[i % len(sets)])
+            if i == calls:
+                torch.cuda.synchronize()
+            prof.step()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"ssd_scan_\w*?kernel", e.key)
+        if m and e.device_type == DeviceType.CUDA:
+            k = out.setdefault(m.group(0), {"launches_per_call": 0.0,
+                                            "device_ms_per_call": 0.0})
+            k["launches_per_call"] += e.count / calls
+            k["device_ms_per_call"] += e.self_device_time_total / 1e3 / calls
+    return out
+
+
 def ssd_case(torch, label, bs, h, s, p, g, n, dtype, gen, *, chunk=128,
-             with_h0=False, dt_scale=1.0, time_it=True):
+             with_h0=False, dt_scale=1.0, time_it=True, stages=False):
     """B5 on x (bs, h, s, p), dt (bs, h, s), b/c (bs, g, s, n) against the
     plain per-step recurrence, at tests/test_kernels.py::test_ssd_sweep's
     tolerance (5e-4 float32, 5e-2 bf16) and distributions (dt =
     softplus(N(0, 1)) times ``dt_scale``, x divided by it, so that the
     decays dt·A grow while dt·x, and so y and the rounding of its sums,
-    stay at the sweep's scale); the final state at 5e-4.  The
-    timed cases also time the chunked plain version at the config's chunk
-    ``chunk``, on the model's seq-major layout."""
+    stay at the sweep's scale); the final state at 5e-4.  A "tc" case is
+    also held against ``ssd_scan_tc_ref`` at the tighter limits above.
+    The timed cases also time the chunked plain version at the config's
+    chunk ``chunk``, on the model's seq-major layout; with ``stages``, the
+    variant's kernels are profiled one by one."""
     import torch.nn.functional as F
-    from repro_torch.kernels.ssd_scan import ssd_scan_bhsp, ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import (TC_CHUNK, ssd_scan_bhsp,
+                                              ssd_scan_ref, ssd_scan_tc_ref,
+                                              tc_scratch_bytes, variant_of)
     from repro_torch.models.ssm import ssd_chunked
     x = (torch.randn(bs, h, s, p, generator=gen, device=DEVICE) / dt_scale
          ).to(dtype)
@@ -1553,23 +1660,25 @@ def ssd_case(torch, label, bs, h, s, p, g, n, dtype, gen, *, chunk=128,
     d = torch.randn(h, generator=gen, device=DEVICE)
     h0 = (torch.randn(bs, h, n, p, generator=gen, device=DEVICE)
           if with_h0 else None)
-    y, h_final = ssd_scan_bhsp(x, dt, a_log, b, c, d, h0=h0)
+    (y, h_final), kind = variant_of(
+        lambda: ssd_scan_bhsp(x, dt, a_log, b, c, d, h0=h0))
     ref_y, ref_h = ssd_scan_ref(x, dt, a_log, b, c, d, h0=h0)
     torch.cuda.synchronize()
     tol = 5e-2 if dtype == torch.bfloat16 else 5e-4
-    errs = []
-    for what, out, ref, t in (("y", y, ref_y, tol),
-                              ("h_final", h_final, ref_h, 5e-4)):
-        a_, b_ = out.double(), ref.double()
-        if not torch.isfinite(a_).all():
-            raise AssertionError(f"{label}: non-finite kernel {what}")
-        bad = (a_ - b_).abs() > t + t * b_.abs()
-        if bad.any():
-            raise AssertionError(
-                f"{label}: {int(bad.sum())} of {bad.numel()} elements of "
-                f"{what} differ from the plain version beyond {t} (max abs "
-                f"{float((a_ - b_).abs().max())})")
-        errs.append(float((a_ - b_).abs().max()))
+    errs = [_close(f"{label} y", y, ref_y, dtype, tol, tol)[0],
+            _close(f"{label} h_final", h_final, ref_h, dtype, 5e-4,
+                   5e-4)[0]]
+    tc_ref = {}
+    if kind == "tc":
+        tc_y, tc_h = ssd_scan_tc_ref(x, dt, a_log, b, c, d, h0=h0)
+        ey, sy = _close(f"{label} y against the tc plain version", y, tc_y,
+                        dtype, SSD_TC_Y_ATOL, SSD_TC_Y_RTOL)
+        eh, sh = _close(f"{label} h_final against the tc plain version",
+                        h_final, tc_h, dtype, SSD_TC_H_TOL, SSD_TC_H_TOL)
+        tc_ref = {"tc_ref_max_abs_err": ey, "tc_ref_limit_share": sy,
+                  "tc_ref_h_final_max_abs_err": eh,
+                  "tc_ref_h_final_limit_share": sh}
+        del tc_y, tc_h
     dname = str(dtype).split(".")[1]
     flops = ssd_flops(bs, h, s, p, g, n)
     nbytes = (x.nbytes + dt.nbytes + b.nbytes + c.nbytes + a_log.nbytes +
@@ -1579,8 +1688,12 @@ def ssd_case(torch, label, bs, h, s, p, g, n, dtype, gen, *, chunk=128,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     case = {"case": label, "shape_x": [bs, h, s, p], "groups": g,
             "state": n, "dtype": dname, "h0": with_h0, "dt_scale": dt_scale,
-            "ok": True, "max_abs_err": errs[0], "h_final_max_abs_err":
-            errs[1], "tolerance": tol, "flops": flops, "bytes": nbytes,
+            "ok": True, "variant": kind,
+            "chunk": TC_CHUNK if kind == "tc" else 64,
+            "scratch_bytes": tc_scratch_bytes(bs, h, s, p, g, n)
+            if kind == "tc" else 0,
+            "max_abs_err": errs[0], "h_final_max_abs_err": errs[1],
+            "tolerance": tol, **tc_ref, "flops": flops, "bytes": nbytes,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
@@ -1589,6 +1702,16 @@ def ssd_case(torch, label, bs, h, s, p, g, n, dtype, gen, *, chunk=128,
         sets = cold_sets((x, dt, b, c))
         case["kernel_ms"] = device_ms(
             lambda t: ssd_scan_bhsp(t[0], t[1], a_log, t[2], t[3], d), sets)
+        case["bound_share"] = case["bound_ms"] / case["kernel_ms"]
+        if stages:
+            st = ssd_stages(torch, lambda t: ssd_scan_bhsp(
+                t[0], t[1], a_log, t[2], t[3], d), sets)
+            want = SSD_TC_STAGES if kind == "tc" else ("ssd_scan_kernel",)
+            if sorted(st) != sorted(want) or any(
+                    v["launches_per_call"] != 1 for v in st.values()):
+                raise AssertionError(f"{label}: a {kind} call launched "
+                                     f"{st} (want one of each of {want})")
+            case["stages"] = st
         # the plain chunked version, on the model's seq-major tensors
         seq = [(t[0].permute(2, 0, 1, 3).contiguous(),
                 t[1].permute(2, 0, 1).contiguous(),
@@ -1626,15 +1749,19 @@ def ssd_kernel_phase(torch):
     for dtype in (bf16, f32):
         dn = str(dtype).split(".")[1]
         ssd.append(ssd_case(torch, f"mamba2_prefill_{dn}", 4, 32, 2048, 64,
-                            1, 128, dtype, gen, chunk=256))
+                            1, 128, dtype, gen, chunk=256,
+                            stages=dtype == bf16))
         ssd.append(ssd_case(torch, f"hymba_prefill_{dn}", 4, 50, 2048, 64,
-                            1, 16, dtype, gen, chunk=128))
+                            1, 16, dtype, gen, chunk=128,
+                            stages=dtype == bf16))
     ssd.append(ssd_case(torch, "ragged_s1000_h0_bfloat16", 1, 32, 1000, 64,
                         1, 128, bf16, gen, with_h0=True, time_it=False))
     ssd.append(ssd_case(torch, "s1_h0_bfloat16", 4, 32, 1, 64, 1, 128, bf16,
                         gen, with_h0=True, time_it=False))
-    ssd.append(ssd_case(torch, "large_dt_float32", 2, 32, 2048, 64, 1, 128,
-                        f32, gen, dt_scale=40.0, time_it=False))
+    for dtype in (f32, bf16):
+        ssd.append(ssd_case(torch, f"large_dt_{str(dtype).split('.')[1]}",
+                            2, 32, 2048, 64, 1, 128, dtype, gen,
+                            dt_scale=40.0, time_it=False))
     flash = [flash_case(torch, f"hymba_prefill_{name}_bfloat16", 4, 25, 5,
                         2048, 2048, 64, True, window, 0, bf16, gen)
              for window, name in ((1024, "local1024"),
@@ -1671,13 +1798,13 @@ def _zero_counts(counters):
             c.launches_by_shape = {}
 
 
-def _all_tc(path, fn) -> dict:
-    """B2's launches by variant since the counts were set to 0; raises
-    unless every one took the tensor-core variant."""
+def _all_tc(path, fn, what="flash-attention") -> dict:
+    """A kernel's launches by variant since the counts were set to 0;
+    raises unless every one took the tensor-core variant."""
     by = dict(fn.launches_by_variant)
     if by["tc"] != fn.launches:
-        raise AssertionError(f"the {path} path's flash-attention launches "
-                             f"{by} were not all tensor-core")
+        raise AssertionError(f"the {path} path's {what} launches {by} were "
+                             "not all tensor-core")
     return by
 
 
@@ -1722,10 +1849,13 @@ def main(argv=None) -> int:
            built=sorted(built), libraries=[
                os.path.relpath(_build.library_path(n), ROOT)
                for n in _build.SOURCES], ptxas=ptxas)
-    # the tensor-core B2 kernels and every B1 and B3 instantiation
-    spilled = [k for lib in ("flash_attention", "doorbell", "rmsnorm")
+    # the tensor-core B2 and B5 kernels and every B1 and B3 instantiation
+    tc_only = {"flash_attention": ("tc_kernel",), "ssd_scan": SSD_TC_STAGES}
+    spilled = [k for lib in ("flash_attention", "doorbell", "rmsnorm",
+                             "ssd_scan")
                for k in ptxas.get(lib, [])
-               if (lib != "flash_attention" or "tc_kernel" in k["kernel"])
+               if (lib not in tc_only or
+                   any(n in k["kernel"] for n in tc_only[lib]))
                and k["spill_stores"] + k["spill_loads"]]
     if spilled:
         raise AssertionError(f"kernels spill registers: {spilled}")
@@ -1827,10 +1957,13 @@ def main(argv=None) -> int:
     served = serving_phase(torch, "mamba2-370m", args.profile)
     rms_by_shape["mamba2-370m"] = _rms_shapes(served)
     s_rms, s_ssd = rmsnorm.launches, ssd_scan_bhsp.launches
+    ssd_by = {"mamba2-370m": _all_tc("ssm serving", ssd_scan_bhsp,
+                                     "SSD-scan")}
     record("ssm_serving_main_path", seconds=time.perf_counter() - t0,
            flash_attention_launches=flash_attention_bhsd.launches,
            rmsnorm_launches=s_rms, moe_gmm_launches=moe_gmm.launches,
-           ssd_scan_launches=s_ssd, **served)
+           ssd_scan_launches=s_ssd,
+           ssd_scan_launches_by_variant=ssd_by["mamba2-370m"], **served)
     if s_rms == 0 or s_ssd == 0:
         raise AssertionError("the ssm serving path launched no RMSNorm or "
                              "SSD-scan kernel")
@@ -1843,11 +1976,14 @@ def main(argv=None) -> int:
     y_flash, y_rms, y_ssd = (flash_attention_bhsd.launches, rmsnorm.launches,
                              ssd_scan_bhsp.launches)
     flash_by["hymba-1.5b"] = _all_tc("hybrid serving", flash_attention_bhsd)
+    ssd_by["hymba-1.5b"] = _all_tc("hybrid serving", ssd_scan_bhsp,
+                                   "SSD-scan")
     record("hybrid_serving_main_path", seconds=time.perf_counter() - t0,
            flash_attention_launches=y_flash,
            flash_attention_launches_by_variant=flash_by["hymba-1.5b"],
            rmsnorm_launches=y_rms, moe_gmm_launches=moe_gmm.launches,
-           ssd_scan_launches=y_ssd, **served)
+           ssd_scan_launches=y_ssd,
+           ssd_scan_launches_by_variant=ssd_by["hymba-1.5b"], **served)
     if y_flash == 0 or y_rms == 0 or y_ssd == 0:
         raise AssertionError("the hybrid serving path launched no "
                              "flash-attention, RMSNorm or SSD-scan kernel")
@@ -1860,6 +1996,7 @@ def main(argv=None) -> int:
     mhead = next(c for c in moe if c["case"] == "olmoe_decode_bfloat16")
     mpre = next(c for c in moe if c["case"] == "olmoe_prefill_bfloat16")
     shead = next(c for c in ssd if c["case"] == "mamba2_prefill_bfloat16")
+    shymba = next(c for c in ssd if c["case"] == "hymba_prefill_bfloat16")
     timed = ("case", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
              "bound_by", "max_abs_err")
     flash += flash_moe + flash_ssm
@@ -1930,8 +2067,19 @@ def main(argv=None) -> int:
         "bound_ms": shead["bound_ms"], "bound_by": shead["bound_by"],
         "library_ms": None, "shape_x": shead["shape_x"],
         "state": shead["state"], "plain_chunk": shead["plain_chunk"],
+        "variant": shead["variant"], "chunk": shead["chunk"],
+        "scratch_bytes": shead["scratch_bytes"], "stages": shead["stages"],
+        "design": SSD_DESIGN, "launches_by_variant": {
+            k: sum(by[k] for by in ssd_by.values()) for k in SSD_DESIGN},
+        "launches_by_variant_by_path": ssd_by,
+        "hymba": {k: shymba[k] for k in (
+            "shape_x", "state", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_share", "variant", "chunk", "scratch_bytes",
+            "stages")},
         "cases": _summary([c for c in ssd if "kernel_ms" in c],
-                          timed)}]}),
+                          timed + ("variant", "bound_share",
+                                   "tc_ref_limit_share",
+                                   "tc_ref_h_final_limit_share"))}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

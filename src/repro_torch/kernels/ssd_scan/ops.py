@@ -1,18 +1,25 @@
 """Public wrappers of the SSD-scan kernel.
 
 For CUDA tensors :func:`ssd_scan_bhsp` (the kernel's layout) and
-:func:`ssd_scan` (the model's seq-major layout) launch the hand-written
-Hopper kernel (``csrc/ssd_scan.cu``) on the current stream, without
-synchronising, or raise; for CPU tensors they take the plain recurrence
-in :mod:`.ref`.  There is no fallback.  The kernel reads every tensor
-through its strides, so the seq-major adapter hands it permuted views
-and writes y straight into a seq-major tensor: no transposing copy on
-either side.  ``ssd_scan_bhsp.launches`` counts the kernel launches of
-both wrappers.
+:func:`ssd_scan` (the model's seq-major layout) launch one of the two
+hand-written Hopper variants of ``csrc/ssd_scan.cu`` on the current
+stream, without synchronising, or raise; for CPU tensors they take the
+plain recurrence in :mod:`.ref`.  There is no fallback.
+:func:`variant` picks the variant from dtype and shape: ``"tc"`` (the
+chunk-parallel form on the tensor cores, three launches a call, chunk
+:data:`TC_CHUNK`) for bf16 whose head dim P and state size N are
+multiples of 16 up to 128 and 256, ``"simt"`` (one launch, float32
+CUDA-core products, chunk 64) for everything else.  Both read every
+tensor through its strides, so the seq-major adapter hands the kernel
+permuted views and writes y straight into a seq-major tensor: no
+transposing copy on either side.  "tc" reads the rows of x, B and C with
+16-byte ``cp.async``: a view whose rows are not contiguous and 16-byte
+aligned (:func:`rows_aligned`) is copied first and stays on "tc".
+``ssd_scan_bhsp.launches`` counts the wrapper calls that launched a
+variant, ``ssd_scan_bhsp.launches_by_variant`` the same by variant.
 
-The kernel chooses its own chunk length (64, see the source); the
-``chunk`` argument is the reference's tiling hint and changes only the
-rounding of the result.
+The kernel chooses its own chunk length; the ``chunk`` argument is the
+reference's tiling hint and changes only the rounding of the result.
 """
 from __future__ import annotations
 
@@ -27,15 +34,79 @@ from .ref import ssd_scan_ref
 _DTYPES = (torch.float32, torch.bfloat16)
 #: the largest state size the kernel's shared memory takes
 MAX_N = 256
+#: variant names, in the order of the launch counts
+VARIANTS = ("simt", "tc")
+#: the tensor-core variant's chunk length (csrc/ssd_scan.cu, tc::kL)
+TC_CHUNK = 128
+#: the largest head dim and state size the tensor-core variant takes
+TC_MAX_P, TC_MAX_N = 128, 256
+#: cp.async moves 16 bytes from a 16-byte address
+_ALIGN = 16
 
 
-def _kernel():
+def _simt_kernel():
     fn = _build.load("ssd_scan").repro_ssd_scan
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 6 +
                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     return fn
+
+
+def _tc_kernel():
+    fn = _build.load("ssd_scan").repro_ssd_scan_tc
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int64] * 7 +
+                       [ctypes.c_void_p, ctypes.c_void_p])
+    return fn
+
+
+def variant(x: torch.Tensor, b: torch.Tensor) -> str:
+    """The kernel variant a CUDA call on x (bs, h, s, p) and b (bs, g, s,
+    n) takes: ``"tc"`` for bf16 with p and n multiples of 16, p <= 128
+    and n <= 256, else ``"simt"``.  Layout plays no part: a view whose
+    rows ``cp.async`` cannot read is copied first."""
+    p, n = x.shape[-1], b.shape[-1]
+    if x.dtype == b.dtype == torch.bfloat16 and 0 < p <= TC_MAX_P and \
+            p % 16 == 0 and 0 < n <= TC_MAX_N and n % 16 == 0:
+        return "tc"
+    return "simt"
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Whether the tensor-core variant reads the view ``t`` in place: its
+    last dim contiguous, its base address and the byte stride of every
+    other dim longer than 1 multiples of 16."""
+    es = t.element_size()
+    return t.stride(-1) == 1 and t.data_ptr() % _ALIGN == 0 and all(
+        t.stride(i) * es % _ALIGN == 0 for i in range(t.dim() - 1)
+        if t.shape[i] > 1)
+
+
+def _tc_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if :func:`rows_aligned`, else a fresh contiguous copy."""
+    return t if rows_aligned(t) else t.clone(
+        memory_format=torch.contiguous_format)
+
+
+def tc_scratch_bytes(bs: int, h: int, s: int, p: int, g: int,
+                     n: int) -> int:
+    """Bytes of scratch a tensor-core call allocates: the chunk states
+    (bs, h, chunks, n, p) in float32 and the incoming states H_in in bf16
+    (the same shape), the shared C.B^T (bs, g, chunks, TC_CHUNK,
+    TC_CHUNK) and each chunk's decay sum (bs, h, chunks) in float32."""
+    nc = -(-s // TC_CHUNK)
+    return nc * (6 * bs * h * n * p + 4 * bs * g * TC_CHUNK ** 2 +
+                 4 * bs * h)
+
+
+def _strides(*ts) -> ctypes.Array:
+    """The tensors' element strides, outermost first, a dim of size 1 at
+    stride 0 (never stepped along, so any stride reads the same)."""
+    vals = [st if size > 1 else 0 for t in ts
+            for st, size in zip(t.stride(), t.shape)]
+    return (ctypes.c_int64 * len(vals))(*vals)
 
 
 def _check(x, dt, a_log, b, c, d_skip, h0) -> None:
@@ -78,25 +149,47 @@ def _check(x, dt, a_log, b, c, d_skip, h0) -> None:
 
 
 def _launch(x, dt, a_log, b, c, d_skip, h0, y) -> torch.Tensor:
-    """One kernel launch on (bs, h, s, p)-shaped views; writes ``y`` (a
-    view of x's shape and dtype) and returns h_final."""
+    """One call of the variant :func:`variant` picks, on (bs, h, s,
+    p)-shaped views; writes ``y`` (x's shape and dtype, a fresh
+    allocation or a permuted view of one) and returns h_final.  The one
+    launch site of both wrappers."""
     _check(x, dt, a_log, b, c, d_skip, h0)
     bs, h, s, p = x.shape
     g, n = b.shape[1], b.shape[3]
+    kind = variant(x, b)
     h_final = torch.empty((bs, h, n, p), dtype=torch.float32,
                           device=x.device)
-    strides = (ctypes.c_int64 * 19)(*x.stride(), *dt.stride(), *b.stride(),
-                                    *c.stride(), *y.stride())
+    h0_ptr = None if h0 is None else h0.data_ptr()
     with torch.cuda.device(x.device):
-        rc = _kernel()(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
-                       b.data_ptr(), c.data_ptr(), d_skip.data_ptr(),
-                       None if h0 is None else h0.data_ptr(), y.data_ptr(),
-                       h_final.data_ptr(), bs, h, s, p, g, n, strides,
-                       int(x.dtype == torch.bfloat16),
-                       torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if kind == "tc":
+            x, b, c = (_tc_view(t) for t in (x, b, c))
+            nc = -(-s // TC_CHUNK)
+            f32 = dict(dtype=torch.float32, device=x.device)
+            states = torch.empty((bs, h, nc, n, p), **f32)
+            h_in = torch.empty((bs, h, nc, n, p), dtype=torch.bfloat16,
+                               device=x.device)
+            cbt = torch.empty((bs, g, nc, TC_CHUNK, TC_CHUNK), **f32)
+            decay = torch.empty((bs, h, nc), **f32)
+            rc = _tc_kernel()(
+                x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+                c.data_ptr(), d_skip.data_ptr(), h0_ptr, y.data_ptr(),
+                h_final.data_ptr(), states.data_ptr(), h_in.data_ptr(),
+                cbt.data_ptr(), decay.data_ptr(), bs, h, s, p, g, n,
+                TC_CHUNK,
+                _strides(x, dt, b, c, y), stream)
+        else:
+            rc = _simt_kernel()(
+                x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+                c.data_ptr(), d_skip.data_ptr(), h0_ptr, y.data_ptr(),
+                h_final.data_ptr(), bs, h, s, p, g, n,
+                _strides(x, dt, b, c, y), int(x.dtype == torch.bfloat16),
+                stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ssd_scan kernel ({kind}) launch failed: CUDA "
+                           f"error {rc}")
     ssd_scan_bhsp.launches += 1
+    ssd_scan_bhsp.launches_by_variant[kind] += 1
     return h_final
 
 
@@ -134,4 +227,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y, h_final
 
 
+def variant_of(call):
+    """Run ``call`` (one call of a wrapper above) and return (its result,
+    the variant it launched); raises unless exactly one variant
+    launched."""
+    before = dict(ssd_scan_bhsp.launches_by_variant)
+    result = call()
+    ran = [k for k, n in ssd_scan_bhsp.launches_by_variant.items()
+           if n != before[k]]
+    if len(ran) != 1:
+        raise AssertionError(f"ssd_scan: variants {ran} launched in one "
+                             "call")
+    return result, ran[0]
+
+
 ssd_scan_bhsp.launches = 0
+ssd_scan_bhsp.launches_by_variant = dict.fromkeys(VARIANTS, 0)

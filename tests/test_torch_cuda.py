@@ -29,7 +29,9 @@ from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
 from repro_torch.kernels.moe_gmm.ref import activation_f32
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bhsp,
-                                          ssd_scan_ref)
+                                          ssd_scan_ref, ssd_scan_tc_ref)
+from repro_torch.kernels.ssd_scan import variant as ssd_variant
+from repro_torch.kernels.ssd_scan import variant_of as ssd_variant_of
 from repro_torch.models.registry import build_model
 from repro_torch.serving import init_cache, make_prefill_step, \
     make_serve_step
@@ -671,13 +673,101 @@ def test_ssd_scan_matches_plain(cuda, bs, h, s, p, g, n, with_h0, dtype):
     x, dt, a_log, b, c, d = _ssd_inputs(bs, h, s, p, g, n, dtype, cuda)
     h0 = torch.randn(bs, h, n, p, device=cuda) if with_h0 else None
     before = ssd_scan_bhsp.launches
-    y, h_final = ssd_scan_bhsp(x, dt, a_log, b, c, d, h0=h0)
+    (y, h_final), kind = ssd_variant_of(
+        lambda: ssd_scan_bhsp(x, dt, a_log, b, c, d, h0=h0))
     assert ssd_scan_bhsp.launches == before + 1
+    assert kind == ssd_variant(x, b) == (
+        "tc" if dtype == torch.bfloat16 and p % 16 == 0 and n % 16 == 0
+        else "simt")
     torch.cuda.synchronize()
     ref_y, ref_h = ssd_scan_ref(x, dt, a_log, b, c, d, h0=h0)
     assert y.dtype == dtype and y.shape == x.shape
     _ssd_close(y, ref_y, dtype)
     _ssd_close(h_final, ref_h, torch.float32)
+
+
+#: the tensor-core variant against the plain version of its own rounding
+#: (ssd_scan_tc_ref): y within 4e-2 + 1e-2 |ref|, the final state within
+#: 1e-4 + 1e-4 |ref|.  The relative part covers y's own bf16 rounding
+#: tipped the other way (2^-8); the absolute part one bf16 ulp of an M
+#: element that the float32 sums' order tips the other way, times x
+#: (~2^-7 |M| |x|, 0.0156 at |y| 0.21 seen at mamba2's shape), which does
+#: not scale with y.  The final state is not rounded at all.
+SSD_TC_Y_ATOL, SSD_TC_Y_RTOL, SSD_TC_H_TOL = 4e-2, 1e-2, 1e-4
+
+
+def _ssd_tc_case(cuda, bs, h, s, p, g, n, with_h0, dt_scale=1.0):
+    x, dt, a_log, b, c, d = _ssd_inputs(bs, h, s, p, g, n, torch.bfloat16,
+                                        cuda, dt_scale=dt_scale)
+    h0 = torch.randn(bs, h, n, p, device=cuda) if with_h0 else None
+    (y, h_final), kind = ssd_variant_of(
+        lambda: ssd_scan_bhsp(x, dt, a_log, b, c, d, h0=h0))
+    assert kind == "tc"
+    torch.cuda.synchronize()
+    ref_y, ref_h = ssd_scan_ref(x, dt, a_log, b, c, d, h0=h0)
+    _ssd_close(y, ref_y, torch.bfloat16)
+    _ssd_close(h_final, ref_h, torch.float32)
+    tc_y, tc_h = ssd_scan_tc_ref(x, dt, a_log, b, c, d, h0=h0)
+    torch.testing.assert_close(y.float(), tc_y.float(), atol=SSD_TC_Y_ATOL,
+                               rtol=SSD_TC_Y_RTOL)
+    torch.testing.assert_close(h_final, tc_h, atol=SSD_TC_H_TOL,
+                               rtol=SSD_TC_H_TOL)
+
+
+@pytest.mark.parametrize("bs,h,s,p,g,n,with_h0", [
+    (1, 4, 128, 32, 1, 16, False),            # the sweep's tc shape
+    (4, 32, 2048, 64, 1, 128, False),         # mamba2-370m's prefill
+    (4, 50, 2048, 64, 1, 16, False),          # hymba-1.5b's prefill
+    (1, 8, 1000, 64, 1, 128, True),           # ragged s, an initial state
+    (2, 4, 1, 64, 1, 128, True),              # one token
+    (1, 6, 300, 128, 2, 256, True),           # the largest P and N
+    (2, 4, 200, 16, 2, 16, False),            # the smallest, 2 groups
+    (1, 4, 130, 48, 1, 32, True),             # P 48, one row past a chunk
+    (2, 4, 0, 64, 1, 128, True),              # no token: h0 carried out
+])
+def test_ssd_tc_matches_both_plain(cuda, bs, h, s, p, g, n, with_h0):
+    """"tc" within the sweep's bf16 tolerance of the per-step recurrence
+    (y 5e-2, the final state 5e-4) and within the tighter limits above
+    of the plain version of its own rounding."""
+    _ssd_tc_case(cuda, bs, h, s, p, g, n, with_h0)
+
+
+def test_ssd_tc_large_dt_stays_finite(cuda):
+    """dt ~ 40 in bf16: exp(cum) underflows within a chunk, M's masked
+    exponents would overflow; y stays finite and within both limits."""
+    _ssd_tc_case(cuda, 2, 8, 512, 64, 1, 128, False, dt_scale=40.0)
+
+
+@pytest.mark.parametrize("n", [128, 16])
+def test_ssd_tc_fused_views_bitwise(cuda, n):
+    """The model's call: the seq-major adapter on x's seq-major view and
+    on B and C as column views of one fused projection, y written
+    seq-major, is bitwise equal to the kernel-layout call on contiguous
+    copies; so is a view off a 16-byte boundary (copied first)."""
+    s, bs, h, p = 300, 2, 8, 64
+    x, dt, a_log, b, c, d = _ssd_inputs(bs, h, s, p, 1, n, torch.bfloat16,
+                                        cuda)
+    xs = x.permute(2, 0, 1, 3).contiguous()
+    bc = torch.cat([b.permute(2, 0, 1, 3).reshape(s, bs, n),
+                    c.permute(2, 0, 1, 3).reshape(s, bs, n)], dim=-1)
+    bs_, cs_ = (t.reshape(s, bs, 1, n) for t in bc.chunk(2, dim=-1))
+    dts = dt.permute(2, 0, 1).contiguous()
+    (y, h_final), kind = ssd_variant_of(
+        lambda: ssd_scan(xs, dts, a_log, bs_, cs_, d))
+    assert kind == "tc" and y.is_contiguous()
+    want_y, want_h = ssd_scan_bhsp(x.contiguous(), dt, a_log, b.contiguous(),
+                                   c.contiguous(), d)
+    torch.cuda.synchronize()
+    assert torch.equal(y.permute(1, 2, 0, 3), want_y)
+    assert torch.equal(h_final, want_h)
+    flat = torch.empty(1 + x.numel(), dtype=x.dtype, device=cuda)
+    off = flat[1:].view(x.shape)
+    off.copy_(x)
+    (y2, h2), kind = ssd_variant_of(
+        lambda: ssd_scan_bhsp(off, dt, a_log, b, c, d))
+    torch.cuda.synchronize()
+    assert kind == "tc" and torch.equal(y2, want_y) and \
+        torch.equal(h2, want_h)
 
 
 def test_ssd_scan_large_dt_stays_finite(cuda):

@@ -9,6 +9,13 @@ carried across with ``params_from_numpy``) go through both packages:
   ``tests/test_kernels.py::test_ssd_sweep`` (float32 5e-4, bfloat16 5e-2,
   that test's tolerances), and the seq-major adapter against the
   reference's;
+* the plain version of the kernel's tensor-core variant
+  (``ssd_scan_tc_ref``: the chunked scan with w·x as a bf16 pair, H_in
+  and M rounded to bf16) against the same references at the same
+  tolerances (y 5e-2, the final state 5e-4), at the kernel's chunk and a
+  short one, with ragged s, s = 1, h0 in and a large dt; the variant rule
+  (``variant``) on the served and sweep shapes and the strided-view rule
+  (``rows_aligned``), which run on the CPU because they are pure;
 * ``models/ssm.py``: ``ssd_scan`` (y and the final state, with and
   without h0, ragged lengths where the chunk rule steps down, s = 1,
   groups > 1) against the reference's ``ssd_scan`` and ``ssd_reference``
@@ -42,8 +49,12 @@ from repro.serving.engine import make_serve_step as r_make_serve_step
 
 import repro_torch.models.ssm as p_ssm
 from repro_torch.distributed import local_comm
-from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bhsp,
-                                          ssd_scan_ref)
+from repro_torch.configs import get_config
+from repro_torch.kernels.ssd_scan import (TC_CHUNK, rows_aligned, ssd_scan,
+                                          ssd_scan_bhsp, ssd_scan_ref,
+                                          ssd_scan_tc_ref, tc_scratch_bytes,
+                                          variant)
+from repro_torch.kernels.ssd_scan.ops import _tc_view
 from repro_torch.models.blocks import tp_plan
 from repro_torch.models.registry import build_model
 from repro_torch.serving import init_cache, make_prefill_step, \
@@ -115,6 +126,139 @@ def test_seq_major_adapter_matches_reference(dtype):
     tol = 5e-2 if dtype == "bfloat16" else 5e-4
     np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
     assert h_final.shape == (2, 4, 8, 8)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core variant's rounding, its variant rule and its layout rule
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("chunk", [TC_CHUNK, 16])
+@pytest.mark.parametrize("bs,h,s,p,g,n,sweep_chunk", SWEEP)
+def test_tc_rounding_plain_matches_pallas(bs, h, s, p, g, n, sweep_chunk,
+                                          chunk):
+    """The tensor-core variant's arithmetic stays within the sweep's bf16
+    tolerance of the Pallas kernel and the reference recurrence (y 5e-2),
+    and its final state within 5e-4 of the reference's: the bf16 pair
+    keeps w·x to ~2^-17."""
+    rng = np.random.default_rng(20)
+    pairs = _ssd_inputs(rng, bs, h, s, p, g, n, "bfloat16")
+    jargs, targs = [q[0] for q in pairs], [q[1] for q in pairs]
+    got, h_final = ssd_scan_tc_ref(*targs, chunk=chunk)
+    assert got.dtype == torch.bfloat16 and got.shape == (bs, h, s, p)
+    for want in (ssd_scan_tpu(*jargs, chunk=sweep_chunk, interpret=True),
+                 r_ssd_scan_ref(*jargs)):
+        np.testing.assert_allclose(_np(got), _np(want), atol=5e-2,
+                                   rtol=5e-2)
+    sm = [jnp.moveaxis(a, 2, 0) if a.ndim >= 3 else a for a in jargs]
+    _, want_h = r_ssm.ssd_reference(*sm)
+    np.testing.assert_allclose(h_final.numpy(), np.asarray(want_h),
+                               atol=5e-4, rtol=5e-4)
+
+
+#: (bs, h, s, p, g, n, with h0, dt scale): ragged s over several chunks,
+#: one token, an initial state, a large dt (exp(cum) underflows)
+TC_EDGES = {"ragged_s300_h0": (1, 4, 300, 32, 2, 16, True, 1.0),
+            "s1_h0": (2, 4, 1, 64, 1, 16, True, 1.0),
+            "h0_two_chunks": (2, 2, 256, 16, 1, 32, True, 1.0),
+            "large_dt": (1, 4, 300, 16, 1, 16, False, 40.0)}
+
+
+@pytest.mark.parametrize("case", list(TC_EDGES))
+def test_tc_rounding_plain_edges(case):
+    bs, h, s, p, g, n, with_h0, scale = TC_EDGES[case]
+    rng = np.random.default_rng(26)
+    pairs = _ssd_inputs(rng, bs, h, s, p, g, n, "bfloat16", seq_major=True,
+                        dt_scale=scale)
+    jargs, targs = [q[0] for q in pairs], [q[1] for q in pairs]
+    jh0 = th0 = None
+    if with_h0:
+        jh0, th0 = _pair(rng.standard_normal((bs, h, n, p)).astype(
+            np.float32))
+    kern = [t.permute(1, 2, 0, 3) if t.dim() == 4 else
+            t.permute(1, 2, 0) if t.dim() == 3 else t for t in targs]
+    got, got_h = ssd_scan_tc_ref(*kern, h0=th0, chunk=TC_CHUNK)
+    assert torch.isfinite(got.float()).all() and torch.isfinite(got_h).all()
+    want, want_h = r_ssm.ssd_reference(*jargs, h0=jh0)
+    np.testing.assert_allclose(_np(got.permute(2, 0, 1, 3)), _np(want),
+                               atol=5e-2, rtol=5e-2)
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h),
+                               atol=5e-4, rtol=5e-4)
+    ref_y, ref_h = ssd_scan_ref(*kern, h0=th0)
+    np.testing.assert_allclose(_np(got), _np(ref_y), atol=5e-2, rtol=5e-2)
+    np.testing.assert_allclose(got_h.numpy(), ref_h.numpy(), atol=5e-4,
+                               rtol=5e-4)
+
+
+def _xb(dtype, p, n, s=8):
+    return (torch.zeros(1, 2, s, p, dtype=dtype),
+            torch.zeros(1, 1, s, n, dtype=dtype))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_variant_of_served_shapes(arch, dtype):
+    """Every bf16 prefill call of mamba2-370m (P 64, N 128) and hymba-1.5b
+    (P 64, N 16) takes the tensor cores; float32 the CUDA cores."""
+    cfg = get_config(arch)
+    want = "tc" if dtype == torch.bfloat16 else "simt"
+    assert variant(*_xb(dtype, cfg.ssm_headdim, cfg.ssm_state)) == want
+
+
+@pytest.mark.parametrize("p,n,want", [
+    (16, 8, "simt"), (32, 16, "tc"), (8, 4, "simt"),    # the sweep's
+    (16, 16, "tc"), (128, 256, "tc"), (48, 32, "tc"),
+    (40, 256, "simt"), (144, 16, "simt"), (64, 272, "simt"),
+    (64, 24, "simt")])
+def test_variant_choice(p, n, want):
+    """bf16 with P and N multiples of 16, P <= 128 and N <= 256 takes
+    "tc"; any other bf16 shape and every float32 one "simt"."""
+    assert variant(*_xb(torch.bfloat16, p, n)) == want
+    assert variant(*_xb(torch.float32, p, n)) == "simt"
+
+
+def test_rows_aligned():
+    """The tensor-core variant reads a view in place when its last dim is
+    contiguous and its base and other strides lie on 16 bytes: the kernel
+    layout, the model's seq-major views and the fused projection's column
+    views of B and C (N 128 and 16).  Anything else is copied (to equal
+    values, contiguous) and still takes "tc"."""
+    bf16 = torch.bfloat16
+    s, bs, h, p = 12, 2, 4, 64
+    x = torch.randn(bs, h, s, p).to(bf16)
+    assert rows_aligned(x) and _tc_view(x) is x
+    seq = torch.randn(s, bs, h * p).to(bf16)
+    assert rows_aligned(seq.reshape(s, bs, h, p).permute(1, 2, 0, 3))
+    for n in (128, 16):
+        bc = torch.randn(s, bs, 2 * n).to(bf16)
+        for t in torch.chunk(bc, 2, dim=-1):
+            view = t.reshape(s, bs, 1, n).permute(1, 2, 0, 3)
+            assert rows_aligned(view) and _tc_view(view) is view
+    flat = torch.randn(1 + bs * h * s * p).to(bf16)
+    off = flat[1:].view(bs, h, s, p)                        # base off 16 B
+    odd = torch.randn(bs, h, s, p + 4).to(bf16)[..., :p]    # row 136 B
+    cols = torch.randn(bs, h, p, s).to(bf16).transpose(2, 3)  # p strided
+    for bad in (off, odd, cols):
+        assert not rows_aligned(bad)
+        copy = _tc_view(bad)
+        assert copy is not bad and rows_aligned(copy) and \
+            copy.is_contiguous() and torch.equal(copy, bad)
+        assert variant(bad, torch.zeros(bs, 1, s, 16, dtype=bf16)) == "tc"
+    # a dim of size 1 is never stepped along: its stride plays no part
+    assert rows_aligned(torch.randn(1, 1, s, p).to(bf16).as_strided(
+        (1, 1, s, p), (3, 5, p, 1)))
+
+
+def test_tc_scratch_bytes():
+    """Chunk states in float32 and H_in in bf16, C.B^T a group and a decay
+    sum a chunk: 104.9 MB at mamba2's prefill shape (16 chunks of 128),
+    23.9 MB at hymba's."""
+    assert tc_scratch_bytes(4, 32, 2048, 64, 1, 128) == \
+        16 * (6 * 4 * 32 * 128 * 64 + 4 * 4 * 128 * 128 + 4 * 4 * 32)
+    assert tc_scratch_bytes(4, 50, 2048, 64, 1, 16) == \
+        16 * (6 * 4 * 50 * 16 * 64 + 4 * 4 * 128 * 128 + 4 * 4 * 50)
+    assert tc_scratch_bytes(1, 4, 129, 16, 2, 16) == \
+        2 * (6 * 4 * 16 * 16 + 4 * 2 * 128 * 128 + 4 * 4)
+    assert tc_scratch_bytes(2, 4, 0, 64, 1, 128) == 0
 
 
 # ---------------------------------------------------------------------------
