@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one GPU: the fused-doorbell
-message path, gemma3-1b serving, olmoe-1b-7b (MoE) serving, mamba2-370m
-(SSM) serving and hymba-1.5b (hybrid) serving at full width.
+message path (over the sim, shm and socket transports, under chaos and
+across two processes), gemma3-1b serving, olmoe-1b-7b (MoE) serving,
+mamba2-370m (SSM) serving and hymba-1.5b (hybrid) serving at full width.
 
     python3 chip_smoke.py            # from the repository root; one card
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown
@@ -116,10 +117,30 @@ The phases:
    32 flash-attention and 32 SSD-scan launches, all "tc", and 161
    RMSNorm launches a call: norm1,
    the gated norm, the two mix norms and norm2 a layer, plus the final
-   norm), then the same launcher loop (161 RMSNorm launches a step).
+   norm), then the same launcher loop (161 RMSNorm launches a step);
+15. the message path over the ``shm`` and ``socket`` transports: a)
+   phase 4's cases a-d on ``LocalCluster(2, device="cuda",
+   fabric_backend=...)``, 2 windows each, every row byte-exact, nothing
+   lost, duplicated or leaked, one gather a fused doorbell, exactly one
+   copy to the host a frame that carries a CUDA image (counted by
+   ``transport/wire.py::to_host`` against the frames the transports
+   encode) and, for sends into pre-posted CUDA recv buffers, one copy
+   back a frame (an AM arrives as host bytes); ``us_per_msg`` and GB/s
+   beside phase 4's ``sim`` numbers; b) ``reliability="on"`` under the
+   reference's chaos faults (5% drop, dup, reorder) on ``sim`` and
+   ``shm``, one device stream, every tag once and in order, byte-exact,
+   retransmits recorded (each one a copy to the host again); c) two OS
+   processes on the one card through the port's SPMD launcher, on
+   ``shm`` and on ``socket``: each rank (this script with
+   ``--spmd-rank``) posts fused doorbells of CUDA rows to its neighbour,
+   AMs and then sends into its pre-posted CUDA recv buffers, checks every
+   byte it receives and reports its counts; then the launcher's
+   chaos-kill demo with a 5 s heartbeat timeout, whose survivor must
+   drain every outstanding post as ERR_PEER_DEAD and exit 0.  Every child
+   runs under a wall-clock limit.
 
-The launch counts are set to 0 just before phases 4, 7, 10, 13 and 14 and
-read just after; the serving phases also record B3's launches by (rows,
+The launch counts are set to 0 just before phases 4, 7, 10, 13, 14 and
+15 and read just after; the serving phases also record B3's launches by (rows,
 d) a prefill call and a decode step.  Every phase raises on failure;
 nothing is caught.  Each phase
 prints one JSON record; the line before the last is the card's name and
@@ -497,6 +518,7 @@ def kernel_phase(torch):
 # ---------------------------------------------------------------------------
 
 K = 64                  # rows per doorbell (worker_burst default)
+CASE_TIMEOUT = 60.0     # seconds a window's completions may take
 WINDOW = 16             # doorbells in flight before each progress sweep
 WINDOWS = 6
 
@@ -534,13 +556,57 @@ class _StackCount:
         self.torch.stack = self.real
 
 
-def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16):
+class _FrameCount:
+    """Counts, while installed, the frames the ``shm`` and ``socket``
+    transports encode, and those whose payload (a packed burst's wire
+    image, or a scalar payload) is a CUDA tensor: each must cross to the
+    host in exactly one copy."""
+
+    def __init__(self, torch):
+        from repro_torch.core.transport import shm, socket
+        self.torch, self.mods = torch, (shm, socket)
+        self.frames = self.cuda_frames = 0
+
+    def __enter__(self):
+        real = self.mods[0].encode_msg
+
+        def counted(msg):
+            self.frames += 1
+            data = getattr(msg.payload, "data", msg.payload)
+            if isinstance(data, self.torch.Tensor) and data.is_cuda:
+                self.cuda_frames += 1
+            return real(msg)
+        self.real = real
+        for m in self.mods:
+            m.encode_msg = counted
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.encode_msg = self.real
+
+
+def _host_copies():
+    from repro_torch.core.transport.wire import to_card, to_host
+    return to_host.copies, to_card.copies
+
+
+def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16,
+                   backend="sim", windows=WINDOWS, n_devices=4,
+                   attrs=None, ordered=False):
+    """One message-path case: ``windows`` windows of WINDOW doorbells of K
+    CUDA rows through ``LocalCluster(2, device="cuda", fabric_backend=
+    backend)``; ``attrs`` add to the cluster's (the chaos and
+    reliability ones); ``ordered`` also requires the completions in tag
+    order (one device stream)."""
     from repro_torch.core import LocalCluster
     from repro_torch.kernels.doorbell import (stage_copy, stage_copy_ref,
                                               stage_copy_rows)
-    cl = LocalCluster(2, device=DEVICE,
-                      attrs={"wire_bf16": True} if wire_bf16 else None)
-    ep0, ep1 = cl.alloc_endpoint(n_devices=4, stripe="round_robin",
+    cattrs = {"fabric_backend": backend, **(attrs or {})}
+    if wire_bf16:
+        cattrs["wire_bf16"] = True
+    cl = LocalCluster(2, device=DEVICE, attrs=cattrs)
+    ep0, ep1 = cl.alloc_endpoint(n_devices=n_devices, stripe="round_robin",
                                  name=label)
     free0 = [rt.get_attr("free_packets") for rt in cl.runtimes]
     cq = cl[1].alloc_cq()
@@ -561,11 +627,13 @@ def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16):
             return ep0.post_send_many(1, bufs, tags=tags)
 
     launches0, dense0 = stage_copy_rows.launches, stage_copy.launches
+    to_host0, to_card0 = _host_copies()
     stacks = 0
     doorbells = delivered = 0
     elapsed = 0.0
     split = {"post_s": 0.0, "progress_s": 0.0, "pop_s": 0.0}
-    for w in range(WINDOWS):
+    frames = _FrameCount(torch)
+    for w in range(windows):
         if dtype == torch.uint8:
             src = torch.randint(0, 256, (per_window, e), generator=g,
                                 device=DEVICE, dtype=dtype)
@@ -581,41 +649,55 @@ def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16):
                 if st.is_retry():
                     raise AssertionError(f"{label}: recv post retried")
         torch.cuda.synchronize()
-        with _StackCount(torch) as stack:
+        with _StackCount(torch) as stack, frames:
             t0 = time.perf_counter()
             for d in range(WINDOW):
                 sl = slice(d * K, (d + 1) * K)
                 doorbells += _post_all(post, progress, rows[sl], tags[sl])
             t1 = time.perf_counter()
-            progress()
-            t2 = time.perf_counter()
+            # progress until the window's completions are in: over a
+            # socket a large frame takes several passes, and under chaos
+            # a retransmit waits out its backoff
             got = []
-            while True:
-                st = cq.pop()
-                if st.is_retry():
-                    break
-                got.append(st)
+            deadline = time.monotonic() + CASE_TIMEOUT
+            while len(got) < per_window and time.monotonic() < deadline:
+                progress()
+                while True:
+                    st = cq.pop()
+                    if st.is_retry():
+                        break
+                    got.append(st)
+            t2 = time.perf_counter()
             torch.cuda.synchronize()
             t3 = time.perf_counter()
+        cl.quiesce()                         # a duplicate would land now
+        while True:
+            st = cq.pop()
+            if st.is_retry():
+                break
+            got.append(st)
         stacks += stack.calls
         elapsed += t3 - t0
         split["post_s"] += t1 - t0
         split["progress_s"] += t2 - t1
         split["pop_s"] += t3 - t2
         # checks (outside the timed region)
-        seen = sorted(st.tag for st in got)
-        if seen != tags:
+        seen = [st.tag for st in got]
+        if sorted(seen) != tags or (ordered and seen != tags):
             lost = len(set(tags) - set(seen))
             raise AssertionError(f"{label} window {w}: {len(got)} "
                                  f"completions, {lost} lost, "
-                                 f"{len(seen) - len(set(seen))} duplicated")
+                                 f"{len(seen) - len(set(seen))} duplicated"
+                                 f", in order: {seen == tags}")
         delivered += len(got)
         want = src.view(torch.uint8).reshape(per_window, -1)
         if wire_bf16:
             want = (stage_copy_ref(src, wire_bf16=True).view(torch.bfloat16)
                     .float().view(torch.uint8))
         if kind == "am":
-            by_tag = {st.tag: st.get_buffer() for st in got}
+            # over shm and socket an AM is delivered as host bytes
+            by_tag = {st.tag: torch.as_tensor(st.get_buffer()).to(DEVICE)
+                      for st in got}
             have = torch.stack([by_tag[t] for t in tags])
         else:
             have = rbuf.view(torch.uint8).reshape(per_window, -1)
@@ -635,19 +717,304 @@ def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16):
                              f"stage copies and {stacks} torch.stack calls "
                              "(want one gather a doorbell, no dense copy, "
                              "no stack)")
-    n = WINDOWS * per_window
-    return {"case": label, "posted_with": f"post_{kind}_many",
-            "payload": f"{str(dtype).split('.')[1]} {nbytes} B",
-            "wire_bf16": wire_bf16, "messages": n, "delivered": delivered,
-            "lost": 0, "duplicated": 0, "leaked_packets": 0,
-            "doorbells": doorbells, "kernel_launches": launches,
-            "launches_per_doorbell": launches / doorbells,
-            "dense_stage_copy_launches": dense, "torch_stack_calls": stacks,
-            "byte_exact": True,
-            "us_per_msg": elapsed / n * 1e6,
-            "GB_per_s": n * nbytes / elapsed / 1e9,
-            "host_split_s": split, "elapsed_s": elapsed,
-            "window_payload_MiB": per_window * nbytes / 2 ** 20}
+    to_host, to_card = (a - b for a, b in zip(_host_copies(),
+                                               (to_host0, to_card0)))
+    # the copies between host and card, as designed: a CUDA frame crosses
+    # to the host once when it is encoded (a retransmit encodes it
+    # again); a frame delivered into pre-posted CUDA recv buffers crosses
+    # back once (under chaos a dropped or duplicate frame delivers
+    # nothing); an AM is delivered in host memory
+    cuda = frames.cuda_frames
+    if kind == "am" or backend == "sim":
+        card_ok = to_card == 0
+    elif attrs:
+        card_ok = doorbells <= to_card <= cuda
+    else:
+        card_ok = to_card == cuda
+    if (to_host != cuda or not card_ok
+            or cuda < (0 if backend == "sim" else doorbells)):
+        raise AssertionError(f"{label} ({backend}): {frames.cuda_frames} "
+                             f"CUDA frames encoded for {doorbells} "
+                             f"doorbells, {to_host} copies to the host and "
+                             f"{to_card} to the card (want one each way a "
+                             "frame into CUDA recv buffers, one to the "
+                             "host a frame for an AM)")
+    n = windows * per_window
+    rec = {"case": label, "backend": backend,
+           "posted_with": f"post_{kind}_many",
+           "payload": f"{str(dtype).split('.')[1]} {nbytes} B",
+           "wire_bf16": wire_bf16, "messages": n, "delivered": delivered,
+           "lost": 0, "duplicated": 0, "leaked_packets": 0,
+           "doorbells": doorbells, "kernel_launches": launches,
+           "launches_per_doorbell": launches / doorbells,
+           "dense_stage_copy_launches": dense, "torch_stack_calls": stacks,
+           "frames_encoded": frames.frames,
+           "cuda_frames_encoded": frames.cuda_frames,
+           "copies_to_host": to_host, "copies_to_card": to_card,
+           "byte_exact": True,
+           "us_per_msg": elapsed / n * 1e6,
+           "GB_per_s": n * nbytes / elapsed / 1e9,
+           "host_split_s": split, "elapsed_s": elapsed,
+           "window_payload_MiB": per_window * nbytes / 2 ** 20}
+    rel = cl[0].rel
+    if rel is not None:
+        rec["reliability"] = rel.counters()
+        rec["chaos"] = cl.fabric.fault_counters()
+        rec["in_order"] = True
+    cl.close()
+    return rec
+
+
+#: phase 4's four cases: (label, kind, dtype name, payload bytes, wire_bf16)
+MAIN_CASES = (("a", "am", "float32", 65536, False),
+              ("b", "am", "float32", 65536, True),
+              ("c", "send", "float32", 8192, False),
+              ("d", "am", "uint8", 8, False))
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the message path over the shm and socket transports
+# ---------------------------------------------------------------------------
+
+TRANSPORT_WINDOWS = 2   # windows a case on each of shm and socket
+#: the reference's chaos faults (tests/test_chaos.py FAULTS)
+FAULTS = {"chaos_drop": 0.05, "chaos_dup": 0.05, "chaos_reorder": 0.05}
+#: a child's wall-clock limit, seconds (CUDA start-up included)
+CHILD_TIMEOUT = 120.0
+HB_TIMEOUT = 5.0        # the chaos-kill demo's heartbeat timeout
+
+
+def transports_phase(torch, sim_runs):
+    """a) phase 4's cases over shm and socket in one process; b) the
+    reliability protocol under the reference's chaos faults on sim and
+    shm, in order; c) two OS processes on the one card through the SPMD
+    launcher, and the launcher's chaos-kill demo."""
+    out = {"in_process": [], "chaos": [], "processes": []}
+    t0 = time.perf_counter()
+    for backend in ("shm", "socket"):
+        for label, kind, dt, nbytes, bf16 in MAIN_CASES:
+            out["in_process"].append(main_path_case(
+                torch, label, kind, getattr(torch, dt), nbytes, bf16,
+                backend=backend, windows=TRANSPORT_WINDOWS))
+    out["in_process_s"] = time.perf_counter() - t0
+    out["us_per_msg"] = {
+        b: {r["case"]: r["us_per_msg"] for r in runs}
+        for b, runs in (("sim", sim_runs),
+                        ("shm", out["in_process"][:4]),
+                        ("socket", out["in_process"][4:]))}
+    out["GB_per_s"] = {
+        b: {r["case"]: r["GB_per_s"] for r in runs}
+        for b, runs in (("sim", sim_runs),
+                        ("shm", out["in_process"][:4]),
+                        ("socket", out["in_process"][4:]))}
+    t0 = time.perf_counter()
+    for backend in ("sim", "shm"):
+        for label, kind, nbytes in (("chaos_am", "am", 8192),
+                                    ("chaos_send", "send", 8192)):
+            out["chaos"].append(main_path_case(
+                torch, label, kind, torch.float32, nbytes, False,
+                backend=backend, windows=TRANSPORT_WINDOWS, n_devices=1,
+                attrs={"reliability": "on", "chaos_seed": SEED + 7,
+                       **FAULTS}, ordered=True))
+    out["chaos_s"] = time.perf_counter() - t0
+    if not any(r["reliability"]["retransmits"] for r in out["chaos"]):
+        raise AssertionError("the chaos runs retransmitted nothing: the "
+                             "faults did not fire")
+    t0 = time.perf_counter()
+    for backend in ("shm", "socket"):
+        out["processes"].append(spmd_case(backend))
+    out["chaos_kill"] = chaos_kill_case()
+    out["processes_s"] = time.perf_counter() - t0
+    return out
+
+
+#: the two-process rank program: doorbells a window and windows per kind
+SPMD_DOORBELLS, SPMD_WINDOWS = 4, 2
+#: (kind, payload bytes) of the rank program's windows, in turn
+SPMD_KINDS = (("am", 65536), ("send", 8192))
+
+
+def _child_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def spmd_case(backend):
+    """Two ranks of ``chip_smoke.py --spmd-rank`` through the port's SPMD
+    launcher on ``backend``; every rank reports what it sent, received
+    and launched, and any failure or a child past its limit raises."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import spmd
+    outdir = tempfile.mkdtemp(prefix="chip-smoke-spmd-")
+    t0 = time.perf_counter()
+    old = dict(os.environ)
+    os.environ.update(_child_env())
+    try:
+        code = spmd.launch([sys.executable, os.path.abspath(__file__),
+                            "--spmd-rank", outdir], 2, backend=backend,
+                           timeout=CHILD_TIMEOUT)
+        ranks = []
+        for r in range(2):
+            path = os.path.join(outdir, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    ranks.append(json.load(f))
+    finally:
+        os.environ.clear()
+        os.environ.update(old)
+        shutil.rmtree(outdir, ignore_errors=True)
+    if code != 0 or len(ranks) != 2:
+        raise AssertionError(f"the two-process {backend} run exited {code} "
+                             f"with {len(ranks)} rank reports")
+    return {"backend": backend, "seconds": time.perf_counter() - t0,
+            "ranks": ranks}
+
+
+def spmd_rank(outdir) -> int:
+    """One rank of the two-process run: fused doorbells of CUDA rows to
+    the neighbour (AMs, then sends into its pre-posted CUDA recv
+    buffers), every received row checked byte for byte against the
+    sender's seeded rows; writes its report to ``outdir``.  Exits
+    non-zero on any loss, duplicate or wrong byte."""
+    import torch
+    from repro_torch.core import ProcessCluster
+    from repro_torch.kernels.doorbell import stage_copy_rows
+    from repro_torch.launch.spmd import bootstrap
+    ctx = bootstrap()
+    backend = os.environ["REPRO_ATTR_FABRIC_BACKEND"]
+    cl = ProcessCluster(ctx.n_ranks, ctx.rank, session=ctx.session,
+                        device=DEVICE)
+    rt = cl.runtime
+    ep = rt.alloc_endpoint(n_devices=1, name="spmd")
+    cq = rt.alloc_cq()
+    rt.register_rcomp(cq)            # symmetric: rcomp 0 on every rank
+    peer = (ctx.rank + 1) % ctx.n_ranks
+    src_rank = (ctx.rank - 1) % ctx.n_ranks
+    deadline = time.monotonic() + CHILD_TIMEOUT
+
+    def rows_of(rank, kind_i, w, e):
+        g = torch.Generator(device=DEVICE).manual_seed(
+            1000 * rank + 10 * kind_i + w)
+        return torch.randn(SPMD_DOORBELLS * K, e, generator=g,
+                           device=DEVICE)
+
+    def settle(what):
+        """Progress until nothing of mine is left on the wire: a socket
+        sends only when progress is called, and the peer may still wait
+        for my rows while I wait at a barrier."""
+        while rt.pending_ops or cl.fabric.in_flight():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"rank {ctx.rank}: {what} never "
+                                     "drained")
+            ep.progress()
+
+    launches0 = stage_copy_rows.launches
+    to_host0, to_card0 = _host_copies()
+    doorbells = received = 0
+    got = {}                         # tag -> the delivered buffer
+    t0 = time.perf_counter()
+    ctx.barrier(timeout=60)
+    with _FrameCount(torch) as frames:
+        for kind_i, (kind, nbytes) in enumerate(SPMD_KINDS):
+            e = nbytes // 4
+            for w in range(SPMD_WINDOWS):
+                base = (kind_i * SPMD_WINDOWS + w) * SPMD_DOORBELLS * K
+                tags = list(range(base, base + SPMD_DOORBELLS * K))
+                mine = list(rows_of(ctx.rank, kind_i, w, e))
+                want = rows_of(src_rank, kind_i, w, e).view(torch.uint8)
+                rbuf = None
+                if kind == "send":
+                    rbuf = torch.zeros_like(want)
+                    for i, t in enumerate(tags):
+                        if ep.post_recv(src_rank, rbuf[i], nbytes, tag=t,
+                                        local_comp=cq).is_retry():
+                            raise AssertionError("recv post retried")
+                    settle(f"the window before {base}")
+                    ctx.barrier(timeout=60)  # the peer's recvs are posted
+                for d in range(SPMD_DOORBELLS):
+                    sl = slice(d * K, (d + 1) * K)
+                    if kind == "am":
+                        doorbells += _post_all(
+                            lambda b, t: ep.post_am_many(peer, b, 0, tags=t),
+                            ep.progress, mine[sl], tags[sl])
+                    else:
+                        doorbells += _post_all(
+                            lambda b, t: ep.post_send_many(peer, b, tags=t),
+                            ep.progress, mine[sl], tags[sl])
+                # the peer may be a window ahead: its rows land in ``got``
+                # for the window they belong to
+                while any(t not in got for t in tags):
+                    if time.monotonic() > deadline:
+                        lost = sum(t not in got for t in tags)
+                        raise AssertionError(f"rank {ctx.rank}: {lost} of "
+                                             f"window {base} lost")
+                    ep.progress()
+                    while True:
+                        st = cq.pop()
+                        if not st.is_done():
+                            break
+                        if st.tag in got:
+                            raise AssertionError(f"rank {ctx.rank}: tag "
+                                                 f"{st.tag} duplicated")
+                        got[st.tag] = st.get_buffer()
+                if kind == "am":
+                    have = torch.stack([torch.as_tensor(got[t]).to(DEVICE)
+                                        for t in tags])
+                else:
+                    have = rbuf
+                if not torch.equal(have, want):
+                    raise AssertionError(f"rank {ctx.rank}: window {base} "
+                                         "bytes differ from the sender's")
+                received += len(tags)
+        settle("the last window")
+        if len(got) != received:
+            raise AssertionError(f"rank {ctx.rank}: {len(got) - received} "
+                                 "rows beyond the windows sent")
+        ctx.barrier(timeout=60)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = stage_copy_rows.launches - launches0
+    to_host, to_card = (a - b for a, b in zip(_host_copies(),
+                                               (to_host0, to_card0)))
+    report = {"rank": ctx.rank, "backend": backend, "doorbells": doorbells,
+              "kernel_launches": launches, "received": received,
+              "lost": 0, "duplicated": 0, "byte_exact": True,
+              "frames_encoded": frames.frames,
+              "cuda_frames_encoded": frames.cuda_frames,
+              "copies_to_host": to_host, "copies_to_card": to_card,
+              "seconds": elapsed, "device": torch.cuda.get_device_name(0)}
+    cl.close()
+    ctx.close()
+    if launches != doorbells or to_host != frames.cuda_frames:
+        raise AssertionError(f"rank {ctx.rank}: {report}")
+    with open(os.path.join(outdir, f"rank{ctx.rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def chaos_kill_case():
+    """The launcher's chaos-kill demo on the card: rank 1 is SIGKILLed
+    mid-stream; the survivor must detect it, drain every outstanding post
+    as ERR_PEER_DEAD and exit 0 (the launcher's own exit code)."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.spmd", "--ranks", "2",
+         "--backend", "shm", "--chaos-kill", "1", "--kill-after", "1",
+         "--hb-timeout", str(HB_TIMEOUT), "--timeout", str(CHILD_TIMEOUT)],
+        env=_child_env(), capture_output=True, text=True,
+        timeout=CHILD_TIMEOUT + 30)
+    text = r.stdout + r.stderr
+    lines = [ln for ln in text.splitlines() if "spmd-chaos rank 0: drained"
+             in ln]
+    if r.returncode != 0 or not lines or "other=0 hung=0" not in lines[0] \
+            or "peer_dead=0 " in lines[0]:
+        raise AssertionError(f"the chaos-kill demo failed ({r.returncode}):"
+                             f"\n{text}")
+    return {"backend": "shm", "hb_timeout_s": HB_TIMEOUT,
+            "seconds": time.perf_counter() - t0, "survivor": lines[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -1815,12 +2182,17 @@ def main(argv=None) -> int:
                     help="add a torch.profiler breakdown of one prefill "
                          "call and 8 decode steps to phases 7, 10, 13 and "
                          "14")
+    ap.add_argument("--spmd-rank", metavar="DIR",
+                    help="run as one rank of phase 15's two-process run "
+                         "(the SPMD launcher starts it), reporting to DIR")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
               file=sys.stderr)
         return 2
+    if args.spmd_rank:
+        return spmd_rank(args.spmd_rank)
     from repro_torch.kernels import _build
     from repro_torch.kernels.doorbell import (stage_copy, stage_copy_push,
                                               stage_copy_rows)
@@ -1866,10 +2238,9 @@ def main(argv=None) -> int:
 
     # 4. the message path: counts set to 0 just before, read just after
     _zero_counts(counters)
-    runs = [main_path_case(torch, "a", "am", torch.float32, 65536, False),
-            main_path_case(torch, "b", "am", torch.float32, 65536, True),
-            main_path_case(torch, "c", "send", torch.float32, 8192, False),
-            main_path_case(torch, "d", "am", torch.uint8, 8, False)]
+    runs = [main_path_case(torch, label, kind, getattr(torch, dt), nbytes,
+                           bf16)
+            for label, kind, dt, nbytes, bf16 in MAIN_CASES]
     launches = stage_copy_rows.launches
     for r in runs:
         record("main_path", **r)
@@ -1988,6 +2359,26 @@ def main(argv=None) -> int:
         raise AssertionError("the hybrid serving path launched no "
                              "flash-attention, RMSNorm or SSD-scan kernel")
 
+    # 15. the message path over shm and socket, under chaos, and across
+    # two processes: counts set to 0 just before, read just after
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    transports = transports_phase(torch, runs)
+    t_launches = stage_copy_rows.launches
+    p_launches = sum(r["kernel_launches"] for c in transports["processes"]
+                     for r in c["ranks"])
+    record("transports", seconds=time.perf_counter() - t0,
+           kernel_launches_in_process=t_launches,
+           kernel_launches_in_ranks=p_launches, **transports)
+    if t_launches == 0 or p_launches == 0 or stage_copy.launches \
+            or stage_copy_push.launches:
+        raise AssertionError(f"the transports' path launched the gather "
+                             f"{t_launches} times in process and "
+                             f"{p_launches} times in the ranks, the dense "
+                             f"stage copy {stage_copy.launches} times and "
+                             f"the push {stage_copy_push.launches} times "
+                             "(want only the gather)")
+
     # the kernels line: headline numbers at each main path's shape
     head = next(c for c in cases if c["case"] == "rows_f32_64x16384_bf160")
     fhead = next(c for c in flash
@@ -2004,7 +2395,11 @@ def main(argv=None) -> int:
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "doorbell.stage_copy_rows", "route": "cuda",
-        "source": SOURCE, "replaces": REPLACES, "launches": launches,
+        "source": SOURCE, "replaces": REPLACES,
+        "launches": launches + t_launches + p_launches,
+        "launches_by_path": {"message path (phase 4)": launches,
+                             "transports (phase 15)": t_launches,
+                             "two processes (phase 15)": p_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": "bytes",

@@ -7,10 +7,11 @@ fused doorbell whose payloads are CUDA tensors is staged on the card by
 the doorbell kernel (:mod:`repro_torch.kernels.doorbell`).
 
 Ported so far: the host runtime's fused-doorbell message path over the
-``sim`` transport.  Still to port (ROADMAP.md): the functional ``Ring`` /
-``SyncState`` / ``MatchTable`` mirrors, ``ProcessCluster``, the ``shm`` /
-``socket`` / chaos transports with the codec and the reliability
-protocol, and the in-graph collectives.
+``sim``, ``shm`` and ``socket`` transports, the binary codec (the
+reference's frames, byte for byte), the chaos and reliability planes,
+and ``ProcessCluster``.  Still to port (ROADMAP.md): the functional
+``Ring`` / ``SyncState`` / ``MatchTable`` mirrors and the in-graph
+collectives.
 """
 from .attrs import (REGISTRY, AttrError, AttrResource, AttrSpec,
                     ResolvedAttrs, get_spec, parse_attr_args, register_attr,
@@ -40,13 +41,14 @@ from .protocol import Protocol, ProtocolStats, select_protocol
 from .progress import (Endpoint, EndpointSpec, Fabric, MemoryRegion,
                        PackedBurst, ProgressEngine, RendezvousManager,
                        WireKind, WireMsg, pack_payloads)
-from .runtime import (LocalCluster, Runtime, g_runtime, g_runtime_fina,
-                      g_runtime_init, progress, progress_x, resolve_device)
+from .runtime import (LocalCluster, ProcessCluster, Runtime, g_runtime,
+                      g_runtime_fina, g_runtime_init, progress, progress_x,
+                      resolve_device)
 from .telemetry import (NULL_TELEMETRY, MetricRegistry, Telemetry,
                         TraceBuffer, merge_snapshots, record_burst_mix,
                         render_block, summarize_spans)
-from .transport import (Transport, backend_class, make_transport, msg_weight,
-                        register_backend)
+from .transport import (Transport, backend_class, decode_msg, encode_msg,
+                        make_transport, msg_weight, register_backend)
 from .status import (ErrorCode, ErrorKind, FatalError, Status, done, posted,
                      retry)
 
@@ -79,9 +81,9 @@ __all__ = [
     "WireMsg", "g_runtime", "g_runtime_fina", "g_runtime_init", "progress",
     "progress_x", "Endpoint", "EndpointSpec", "ProgressEngine",
     "RendezvousManager", "resolve_device",
-    # pluggable transport backends (DESIGN.md §14; sim only so far)
-    "Transport", "backend_class", "make_transport", "msg_weight",
-    "register_backend",
+    # pluggable transport backends (DESIGN.md §14)
+    "Transport", "ProcessCluster", "backend_class", "decode_msg",
+    "encode_msg", "make_transport", "msg_weight", "register_backend",
     # modes & protocol
     "CommConfig", "CommMode", "parse_mode", "Protocol", "ProtocolStats",
     "select_protocol", "off", "OffBuilder",

@@ -11,9 +11,8 @@ Layout (each file one concern; the paper's Figure-1 chain in engine.py):
   and RMA put/get handling.
 * :mod:`.endpoint` — :class:`Endpoint`/:class:`EndpointSpec`: named
   multi-device bundles with striping + progress policies.
-
-The reference's ``reliability`` module (retransmit protocol) is not
-ported yet; ``reliability="on"`` raises at cluster construction.
+* :mod:`.reliability` — :class:`ReliabilityManager`: stream seqs,
+  cumulative acks, retransmit, dedup and post deadlines (DESIGN.md §16).
 """
 from .endpoint import (ENDPOINT_ATTRS, PROGRESS_POLICIES,
                        STRIPE_POLICIES, Endpoint, EndpointSpec)
@@ -22,12 +21,14 @@ from .fabric import (Fabric, MemoryRegion, PackedBurst, PendingBurst,
                      PendingOp, WireKind, WireMsg, as_bytes_view,
                      next_op_id, pack_payloads, payload_to_bytes,
                      payloads_to_bytes)
+from .reliability import RELIABILITY_ATTRS, ReliabilityManager
 from .rendezvous import RendezvousManager
 
 __all__ = [
     "ENDPOINT_ATTRS", "Endpoint", "EndpointSpec", "Fabric", "MemoryRegion", "PendingOp",
     "PackedBurst", "PendingBurst", "pack_payloads",
-    "ProgressEngine", "RendezvousManager", "WireKind", "WireMsg",
+    "ProgressEngine", "RELIABILITY_ATTRS", "ReliabilityManager",
+    "RendezvousManager", "WireKind", "WireMsg",
     "PROGRESS_POLICIES", "STRIPE_POLICIES", "as_bytes_view", "next_op_id",
     "payload_to_bytes", "payloads_to_bytes",
 ]

@@ -1001,6 +1001,7 @@ class ProgressEngine:
             else:
                 matches = rt.matching.match_now_burst(
                     [make_key(src, t, pol) for t in tags], MatchKind.SEND)
+            on_card = None
             for i, match in enumerate(matches):
                 payload = payloads[i]
                 if match is None:           # per-bucket locked fallback
@@ -1009,6 +1010,15 @@ class ProgressEngine:
                         ("eager", payload, src, tags[i]))
                 if match is not None:
                     _, buf, comp, rdev = match
+                    if (isinstance(buf, torch.Tensor) and buf.is_cuda
+                            and not isinstance(payload, torch.Tensor)):
+                        # host rows (a frame off shm or socket) for a
+                        # CUDA recv buffer: the frame's rows cross to the
+                        # card once, then each row is copied there
+                        if on_card is None:
+                            on_card = burst.to(
+                                buf.device).delivered_payloads()
+                        payload = on_card[i]
                     self.deliver_recv(buf, payload, comp, src, tags[i],
                                       dev, batch=batch)
         elif k == WireKind.EAGER_SEND:

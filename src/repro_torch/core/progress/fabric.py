@@ -33,7 +33,7 @@ from ..status import FatalError
 from ..transport import (FABRIC_ATTRS, PACKED_KINDS, PackedBurst, WireKind,
                          WireMsg, msg_weight)
 from ..transport.sim import Fabric
-from ..transport.wire import f32_to_bf16_bits
+from ..transport.wire import f32_to_bf16_bits, to_card, to_host
 
 __all__ = [
     "FABRIC_ATTRS", "PACKED_KINDS", "PackedBurst", "WireKind", "WireMsg",
@@ -123,14 +123,15 @@ def as_bytes_view(buf: Any):
 def copy_prefix(view, payload, n: int) -> None:
     """``view[:n] = payload[:n]`` for byte views that are ndarrays or
     tensors.  Like to like copies in place (tensor to tensor on the
-    device); a copy between host and card happens only here, when the
-    buffer and the payload live in different places."""
+    device); when the buffer and the payload live in different places
+    the bytes cross in one copy, counted by :func:`to_card` /
+    :func:`to_host`."""
     if isinstance(view, torch.Tensor):
         src = (payload[:n] if isinstance(payload, torch.Tensor)
-               else torch.tensor(payload[:n]))
+               else to_card(payload[:n], view.device))
         view[:n].copy_(src)
     elif isinstance(payload, torch.Tensor):
-        view[:n] = payload[:n].cpu().numpy()
+        view[:n] = to_host(payload[:n])
     else:
         view[:n] = payload[:n]
 

@@ -22,8 +22,8 @@ Every runtime is bound to one torch device (``device=``, default
 ``"cuda"``): CUDA tensor payloads must live there, and a fused doorbell
 of them is staged there by the doorbell kernel.  The device is a
 constructor argument, not an attr, so the attr registry stays equal to
-the reference's.  ``ProcessCluster`` and the chaos / reliability planes
-are not ported yet (ROADMAP.md).
+the reference's.  :class:`ProcessCluster` binds its one rank the same
+way: each OS process of an SPMD job posts CUDA payloads on the card.
 """
 from __future__ import annotations
 
@@ -52,23 +52,17 @@ RUNTIME_ATTRS = ("mode", "n_channels", "eager_max_bytes", "rdv_threshold",
                  "packets_per_lane", "packet_bytes", "pool_lanes",
                  "telemetry_level", "trace_capacity")
 # Re-exported names that historically lived here (public API compatibility).
-from .progress import (ENDPOINT_ATTRS, Endpoint, EndpointSpec, Fabric,
-                       MemoryRegion, PendingOp, ProgressEngine,
-                       RendezvousManager, WireKind, WireMsg, as_bytes_view,
-                       payload_to_bytes)
-from .transport import FABRIC_ATTRS, Transport, make_transport
+from .progress import (ENDPOINT_ATTRS, RELIABILITY_ATTRS, Endpoint,
+                       EndpointSpec, Fabric, MemoryRegion,
+                       PendingOp, ProgressEngine, ReliabilityManager,
+                       RendezvousManager,
+                       WireKind, WireMsg, as_bytes_view, payload_to_bytes)
+from .transport import (CHAOS_ATTRS, FABRIC_ATTRS, ChaosTransport, Transport,
+                        make_transport, maybe_wrap_chaos)
 
 # back-compat aliases for the old private helpers
 _as_bytes_view = as_bytes_view
 _payload_to_bytes = payload_to_bytes
-
-#: the chaos-plane and reliability attrs (the reference keeps these
-#: tuples in ``transport/chaos.py`` and ``progress/reliability.py``,
-#: which are not ported yet; the attrs stay registered regardless)
-CHAOS_ATTRS = ("chaos_seed", "chaos_drop", "chaos_dup", "chaos_reorder",
-               "chaos_delay_p", "chaos_delay_us", "chaos_kill_rank")
-RELIABILITY_ATTRS = ("reliability", "post_deadline_us", "retry_limit",
-                     "retry_backoff")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -85,30 +79,6 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise FatalError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
-
-
-def _refuse_unported(fabric: _attrs.ResolvedAttrs,
-                     chaos: _attrs.ResolvedAttrs,
-                     rel: _attrs.ResolvedAttrs) -> None:
-    """Raise for a configuration that needs a part not ported yet: a
-    transport other than ``sim``, a chaos attr that faults anything (the
-    reference's ``ChaosConfig.active``), or ``reliability="on"``."""
-    if fabric["fabric_backend"] != "sim":
-        raise _attrs.AttrError(
-            f"attribute 'fabric_backend': {fabric['fabric_backend']!r} is "
-            "not ported to repro_torch yet (only 'sim' is)")
-    live = [n for n in ("chaos_drop", "chaos_dup", "chaos_reorder",
-                        "chaos_delay_p") if chaos[n] > 0]
-    if chaos["chaos_kill_rank"] >= 0:
-        live.append("chaos_kill_rank")
-    if live:
-        raise _attrs.AttrError(
-            f"attributes {live}: the chaos plane is not ported to "
-            "repro_torch yet")
-    if rel["reliability"] == "on":
-        raise _attrs.AttrError(
-            "attribute 'reliability': 'on' is not ported to repro_torch "
-            "yet")
 
 
 def _resolve_worker_args(layer: Mapping, n_workers: Optional[int],
@@ -193,12 +163,19 @@ class Runtime(_attrs.AttrResource):
         # shared per-rank op state the engines operate on
         self.pending_ops: Dict[int, PendingOp] = {}
         self.rdv = RendezvousManager(self)
-        # reliability plane (DESIGN.md §16): not ported yet, so never
-        # armed — the cluster refuses reliability="on" and every chaos
-        # fault, and "auto" arms nothing without them.  The engine keeps
-        # the reference's ``rt.rel`` hooks for when it is ported.
+        # reliability plane (DESIGN.md §16): armed explicitly via the
+        # ``reliability`` attr, or automatically when the cluster fabric
+        # is a message-faulting chaos transport — the zero-fault default
+        # stays rel-free and byte-identical to the pre-chaos engine
         self.dead_peers: set = set()
-        self.rel = None
+        relr = _attrs.resolve(RELIABILITY_ATTRS, runtime=self._attr_layer)
+        fabric = cluster.fabric
+        chaos_faults = (isinstance(fabric, ChaosTransport)
+                        and fabric.cfg.faults_messages)
+        mode = relr["reliability"]
+        self.rel = (ReliabilityManager(self, relr)
+                    if mode == "on" or (mode == "auto" and chaos_faults)
+                    else None)
         self.engine = ProgressEngine(self, name=f"rank{rank}/shared")
         self.endpoints: List[Endpoint] = []
         self.default_device = self.alloc_device(lane=0)
@@ -520,9 +497,6 @@ class LocalCluster(_attrs.AttrResource):
         fr = _attrs.resolve(FABRIC_ATTRS, runtime=self._attr_layer,
                             overrides=fabric_overrides)
         rr = _attrs.resolve(RUNTIME_ATTRS, runtime=self._attr_layer)
-        cr = _attrs.resolve(CHAOS_ATTRS, runtime=self._attr_layer)
-        _refuse_unported(fr, cr, _attrs.resolve(RELIABILITY_ATTRS,
-                                                runtime=self._attr_layer))
         # the cluster-wide telemetry hub: every rank's runtime shares it
         # unless a per-rank config resolves a different level
         self.tele = Telemetry(rr["telemetry_level"], rr["trace_capacity"])
@@ -530,6 +504,11 @@ class LocalCluster(_attrs.AttrResource):
             fr["fabric_backend"], n_ranks, depth=fr["fabric_depth"],
             latency=fr["link_latency"], resolved=fr,
             ring_bytes=fr["shm_ring_bytes"], **self._transport_extra())
+        # chaos plane (DESIGN.md §16): an active chaos_* config wraps the
+        # backend in the fault-injecting transport; the zero-fault
+        # default returns the backend untouched
+        cr = _attrs.resolve(CHAOS_ATTRS, runtime=self._attr_layer)
+        self.fabric = maybe_wrap_chaos(self.fabric, cr)
         self.fabric.set_telemetry(self.tele)
         self._init_attrs(fr.merged(rr).merged(cr))
         self._export_attr("rank_n", lambda: self.n_ranks)
@@ -623,6 +602,64 @@ class LocalCluster(_attrs.AttrResource):
                 _time.sleep(max(self.fabric.latency / 4,
                                 1e-4 if rels else 1e-5))
         raise FatalError("cluster failed to quiesce")
+
+
+class ProcessCluster(LocalCluster):
+    """One rank of an N-process SPMD job — the paper's *process mode*.
+
+    Each OS process holds exactly one :class:`Runtime` (its rank) and a
+    cross-process transport (``shm`` rings or ``socket`` frames) to its
+    peers.  Construction mirrors :class:`LocalCluster`; ``rank`` and the
+    shared ``session`` (a directory name both sides derive ring/socket
+    paths from) normally arrive from :mod:`repro_torch.launch.spmd` via
+    the ``REPRO_SPMD_*`` environment, so benchmark code can build either
+    cluster shape from the same attrs.  The frames are the reference's,
+    so a rank of either package can join the same session.
+
+    ``device`` binds the rank as :class:`LocalCluster` does: the card
+    unless the caller asks for the CPU.
+
+    ``runtimes`` maps rank → Runtime and holds only this process's rank;
+    ``cluster[r]`` for a remote rank raises — remote state is another
+    process's business.
+    """
+
+    def __init__(self, n_ranks: int, rank: int,
+                 config: Optional[CommConfig] = None,
+                 fabric_depth: Optional[int] = None,
+                 link_latency: Optional[float] = None,
+                 attrs: Optional[Mapping[str, Any]] = None,
+                 fabric_backend: Optional[str] = None,
+                 session: Optional[str] = None, device=None):
+        if not 0 <= rank < n_ranks:
+            raise FatalError(f"rank {rank} out of range for {n_ranks} ranks")
+        self.rank_me = rank
+        self._session = session
+        super().__init__(n_ranks, config, fabric_depth, link_latency,
+                         attrs, fabric_backend, device=device)
+        self.runtimes = {rt.rank: rt for rt in self.runtimes}
+        self._export_attr("rank_me", lambda: self.rank_me)
+
+    def _transport_extra(self) -> Dict[str, Any]:
+        return {"rank": self.rank_me, "session": self._session}
+
+    def _local_ranks(self):
+        return (self.rank_me,)
+
+    def local_runtimes(self) -> List[Runtime]:
+        return list(self.runtimes.values())
+
+    @property
+    def runtime(self) -> Runtime:
+        """This process's one runtime."""
+        return self.runtimes[self.rank_me]
+
+    def __getitem__(self, rank: int) -> Runtime:
+        if rank != self.rank_me:
+            raise FatalError(
+                f"rank {rank} lives in another process (this is rank "
+                f"{self.rank_me}); only the local runtime is addressable")
+        return self.runtimes[rank]
 
 
 # -- module-level convenience (paper's g_runtime) ---------------------------

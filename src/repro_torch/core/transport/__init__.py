@@ -1,22 +1,30 @@
 """Pluggable transport backends behind the Fabric surface (DESIGN.md §14).
 
-One ABC (:class:`Transport`) and, in this port so far, one backend:
+One ABC (:class:`Transport`), three backends selected through the
+``fabric_backend`` attr:
 
 ========  =====================  ==========================================
 backend   processes              mechanism
 ========  =====================  ==========================================
 sim       one (deterministic)    in-process bounded deques, latency model
+shm       one host, N processes  SPSC shared-memory rings in ``/dev/shm``
+socket    cross-host fallback    Unix-domain stream sockets, codec frames
 ========  =====================  ==========================================
 
-The reference's ``shm`` and ``socket`` backends, the chaos wrapper and
-the binary codec are not ported yet: selecting them raises
-:class:`~repro_torch.core.attrs.AttrError` at cluster construction (see
-:mod:`repro_torch.core.runtime`).  Backends register lazily, as in the
-reference.
+Backends register lazily: importing this package never touches mmap or
+socket machinery until a backend is actually constructed.
+
+The frames ``shm`` and ``socket`` carry are the reference's, byte for
+byte (:mod:`.codec`).  A CUDA payload crosses to the host once a frame
+when it is encoded; ``sim`` passes tensors through untouched.
 """
 from .base import (FABRIC_ATTRS, Transport, backend_class, make_transport,
                    register_backend)
-from .wire import PACKED_KINDS, PackedBurst, WireKind, WireMsg, msg_weight
+from .chaos import (CHAOS_ATTRS, ChaosConfig, ChaosTransport,
+                    maybe_wrap_chaos)
+from .codec import CodecError, decode_msg, encode_msg
+from .wire import (PACKED_KINDS, PackedBurst, WireKind, WireMsg, msg_weight,
+                   to_card, to_host)
 
 __all__ = [
     "FABRIC_ATTRS",
@@ -24,11 +32,20 @@ __all__ = [
     "backend_class",
     "make_transport",
     "register_backend",
+    "CHAOS_ATTRS",
+    "ChaosConfig",
+    "ChaosTransport",
+    "maybe_wrap_chaos",
+    "CodecError",
+    "decode_msg",
+    "encode_msg",
     "PACKED_KINDS",
     "PackedBurst",
     "WireKind",
     "WireMsg",
     "msg_weight",
+    "to_card",
+    "to_host",
 ]
 
 
@@ -37,4 +54,16 @@ def _load_sim():
     return Fabric
 
 
+def _load_shm():
+    from .shm import ShmTransport
+    return ShmTransport
+
+
+def _load_socket():
+    from .socket import SocketTransport
+    return SocketTransport
+
+
 register_backend("sim", _load_sim)
+register_backend("shm", _load_shm)
+register_backend("socket", _load_socket)

@@ -102,6 +102,14 @@ class PackedBurst:
         return PackedBurst(self.data[:n], self.sizes[:n], self.tags[:n],
                            n, self.wire_dtype)
 
+    def to(self, device) -> "PackedBurst":
+        """This burst with its wire image on ``device`` (one copy of the
+        rows between host and card, :func:`to_card`): a frame received
+        over ``shm`` or ``socket`` lands on the card this way when its
+        rows fill pre-posted CUDA recv buffers."""
+        return PackedBurst(to_card(self.data, device), self.sizes,
+                           self.tags, self.count, self.wire_dtype)
+
     def delivered_payloads(self) -> List[np.ndarray]:
         """Per-row payload byte arrays as the receiver must observe them
         (bf16 rows decompressed back to float32 bytes in ONE vectorized
@@ -142,3 +150,37 @@ def bf16_rows_to_f32_bytes(data):
         bits = data.view(np.uint16).astype(np.uint32, order="C") << 16
         return bits.view(np.uint8)
     return data.view(torch.bfloat16).float().view(torch.uint8)
+
+
+def to_host(data) -> np.ndarray:
+    """A payload or wire image as a C-contiguous host ndarray, for the
+    codec.  A CUDA tensor crosses to the host in ONE copy, counted in
+    ``to_host.copies``: a broadcast burst (stride 0 on dim 0) copies its
+    one row and repeats it on the host.  The copy is a blocking
+    ``Tensor.cpu()`` on the current stream, so it runs after the
+    doorbell kernel that staged the rows there and the host reads no
+    stale bytes.  ndarrays and CPU tensors need no copy between host
+    and card."""
+    if isinstance(data, np.ndarray):
+        return np.ascontiguousarray(data)
+    if data.is_cuda:
+        to_host.copies += 1
+        if data.dim() == 2 and data.shape[0] > 1 and data.stride(0) == 0:
+            row = data[0].cpu().numpy()
+            return np.ascontiguousarray(np.broadcast_to(row, data.shape))
+        return data.cpu().numpy()
+    return np.ascontiguousarray(data.numpy())
+
+
+def to_card(data, device) -> torch.Tensor:
+    """A copy of host ndarray ``data`` as a tensor on ``device``; a copy
+    from host to card is ONE blocking copy, counted in
+    ``to_card.copies``."""
+    out = torch.tensor(np.ascontiguousarray(data), device=device)
+    if out.is_cuda:
+        to_card.copies += 1
+    return out
+
+
+to_host.copies = 0
+to_card.copies = 0

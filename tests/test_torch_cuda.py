@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions: the doorbell stage copy (B1), flash attention (B2, any head dim
 up to 256), RMSNorm (B3), the MoE grouped matmul (B4) and the SSD scan
-(B5), plus the model path's launch counts.
+(B5), plus the model path's launch counts, and CUDA doorbells over the
+``shm`` and ``socket`` transports (one gather, one copy to the host a
+frame, one back to the card a frame of rows for CUDA recv buffers).
 
 Every test here is marked ``gpu`` and skips without a CUDA card (the
 decision is taken in a fixture, never at import).  The file imports no
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.core import FatalError, LocalCluster
 from repro_torch.core.packet_pool import init_buffers, init_pool
+from repro_torch.core.transport.wire import to_card, to_host
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import doorbell as db
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -223,6 +226,88 @@ def test_recv_into_host_buffer_copies_explicitly(cuda):
                                       device=cuda)] * 4, tags=[5, 6, 7, 8])
     cl.quiesce()
     assert (host == 9).all()
+
+
+def _transport_run(cuda, backend, kind, bf16, attrs=None, doorbells=2):
+    """``doorbells`` fused doorbells of 64 rows of 64 KiB float32 on the
+    card over ``backend`` (many large rows: a copy to the host that did
+    not wait for the gather would ship stale bytes); returns the gather
+    launches, the copies each way, the receiver's bytes and the sent
+    ones, and the sender's reliability counters."""
+    cl = LocalCluster(2, device=cuda, attrs={
+        "fabric_backend": backend, "wire_bf16": bf16, **(attrs or {})})
+    try:
+        ep0, ep1 = cl.alloc_endpoint(n_devices=1)
+        cq = cl[1].alloc_cq()
+        rc = cl[1].register_rcomp(cq)
+        g = torch.Generator(device=cuda).manual_seed(3)
+        src = torch.randn(64 * doorbells, 16384, generator=g, device=cuda)
+        rbuf = torch.zeros_like(src)
+        tags = list(range(64 * doorbells))
+        if kind == "send":
+            for t in tags:
+                ep1.post_recv(0, rbuf[t], 65536, tag=t, local_comp=cq)
+        before = (db.stage_copy_rows.launches, to_host.copies,
+                  to_card.copies)
+        for d in range(doorbells):
+            sl = slice(64 * d, 64 * d + 64)
+            post = (ep0.post_send_many(1, list(src[sl]), tags=tags[sl])
+                    if kind == "send" else
+                    ep0.post_am_many(1, list(src[sl]), rc, tags=tags[sl]))
+            assert not any(st.is_retry() for st in post)
+        cl.quiesce()
+        got = {}
+        while True:
+            st = cq.pop()
+            if not st.is_done():
+                break
+            assert st.tag not in got
+            got[st.tag] = st.get_buffer()
+        assert sorted(got) == tags
+        if kind == "send":
+            have = rbuf.view(torch.uint8)
+        else:
+            assert all(isinstance(b, np.ndarray) for b in got.values())
+            have = torch.stack([torch.from_numpy(got[t]) for t in tags]
+                               ).to(cuda)
+        want = src
+        if bf16:
+            want = src.to(torch.bfloat16).float()
+        counts = tuple(a - b for a, b in zip(
+            (db.stage_copy_rows.launches, to_host.copies, to_card.copies),
+            before))
+        rel = cl[0].rel.counters() if cl[0].rel is not None else None
+        return counts, have, want.view(torch.uint8), rel
+    finally:
+        cl.close()
+
+
+@pytest.mark.parametrize("kind,bf16", [("am", False), ("am", True),
+                                       ("send", False)])
+@pytest.mark.parametrize("backend", ["shm", "socket"])
+def test_transport_carries_cuda_doorbells(cuda, backend, kind, bf16):
+    """Each fused doorbell of CUDA rows: one gather launch, one copy of
+    the frame to the host, and for sends into CUDA recv buffers one copy
+    of the frame's rows back to the card; an AM lands as host bytes.
+    Every row byte-exact."""
+    (launches, to_h, to_c), have, want, _ = _transport_run(
+        cuda, backend, kind, bf16)
+    assert (launches, to_h, to_c) == (2, 2, 2 if kind == "send" else 0)
+    assert torch.equal(have, want)
+
+
+def test_transport_retransmit_copies_again(cuda):
+    """Under chaos a retransmit re-encodes its frame: the CUDA image
+    crosses to the host once more for each retransmit, and every row is
+    still delivered once, byte-exact."""
+    (launches, to_h, to_c), have, want, rel = _transport_run(
+        cuda, "shm", "send", False, doorbells=8,
+        attrs={"reliability": "on", "chaos_seed": 7, "chaos_drop": 0.2,
+               "chaos_dup": 0.05, "chaos_reorder": 0.05})
+    assert launches == 8
+    assert to_h == 8 + rel["retransmits"] and rel["retransmits"] > 0
+    assert 8 <= to_c <= to_h
+    assert torch.equal(have, want)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@
   holds inside the port;
 * a walk of ``examples/quickstart.py`` §1-§9 runs on the port;
 * construction without a device raises where there is no GPU, and the
-  parts not ported yet are refused by name.
+  configurations once refused as not ported (the ``shm`` and ``socket``
+  backends, the chaos faults, ``reliability="on"``) construct and run.
 """
 import dataclasses
 import time
@@ -382,7 +383,7 @@ def test_quickstart_walk():
 
 
 # ---------------------------------------------------------------------------
-# device binding and parts not ported yet
+# device binding, and the parts once refused as not ported
 # ---------------------------------------------------------------------------
 
 def test_no_device_raises_without_gpu():
@@ -399,8 +400,24 @@ def test_no_device_raises_without_gpu():
     {"chaos_drop": 0.1}, {"chaos_kill_rank": 1}, {"reliability": "on"},
 ], ids=["shm", "socket", "chaos_drop", "chaos_kill", "reliability_on"])
 def test_unported_parts_refused(attrs):
-    with pytest.raises(port.AttrError, match="not ported"):
-        port.LocalCluster(2, attrs=attrs, device="cpu")
+    """These configurations raised "not ported" until the transports and
+    the chaos and reliability planes were ported: each now builds the
+    reference's fabric and reliability layer and delivers a message."""
+    with port.LocalCluster(2, attrs=attrs, device="cpu") as cl, \
+            ref.LocalCluster(2, attrs=attrs) as rcl:
+        assert cl.fabric.backend == rcl.fabric.backend
+        assert type(cl.fabric).__name__ == type(rcl.fabric).__name__
+        assert [rt.rel is None for rt in cl.runtimes] == \
+            [rt.rel is None for rt in rcl.runtimes]
+        if "chaos_kill_rank" in attrs:
+            return                       # rank 1's traffic is swallowed
+        cq = cl[1].alloc_cq()
+        port.post_am(cl[0], 1, np.arange(16, dtype=np.uint8),
+                     remote_comp=cl[1].register_rcomp(cq), tag=5)
+        cl.quiesce()
+        st = cq.pop()
+        assert st.is_done() and st.tag == 5
+        assert _np(st.get_buffer()).tobytes() == bytes(range(16))
 
 
 def test_inert_chaos_and_auto_reliability_allowed():
