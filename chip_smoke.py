@@ -556,39 +556,18 @@ class _StackCount:
         self.torch.stack = self.real
 
 
-class _FrameCount:
-    """Counts, while installed, the frames the ``shm`` and ``socket``
-    transports encode, and those whose payload (a packed burst's wire
-    image, or a scalar payload) is a CUDA tensor: each must cross to the
-    host in exactly one copy."""
-
-    def __init__(self, torch):
-        from repro_torch.core.transport import shm, socket
-        self.torch, self.mods = torch, (shm, socket)
-        self.frames = self.cuda_frames = 0
-
-    def __enter__(self):
-        real = self.mods[0].encode_msg
-
-        def counted(msg):
-            self.frames += 1
-            data = getattr(msg.payload, "data", msg.payload)
-            if isinstance(data, self.torch.Tensor) and data.is_cuda:
-                self.cuda_frames += 1
-            return real(msg)
-        self.real = real
-        for m in self.mods:
-            m.encode_msg = counted
-        return self
-
-    def __exit__(self, *exc):
-        for m in self.mods:
-            m.encode_msg = self.real
-
-
-def _host_copies():
+def _wire_counts():
+    """(frames encoded, CUDA frames encoded, copies to the host, copies to
+    the card): the codec counts the frames the ``shm`` and ``socket``
+    transports encode, and ``wire.to_host`` / ``to_card`` the copies."""
+    from repro_torch.core.transport.codec import encode_msg
     from repro_torch.core.transport.wire import to_card, to_host
-    return to_host.copies, to_card.copies
+    return (encode_msg.frames, encode_msg.cuda_frames, to_host.copies,
+            to_card.copies)
+
+
+def _since(before):
+    return tuple(a - b for a, b in zip(_wire_counts(), before))
 
 
 def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16,
@@ -627,12 +606,11 @@ def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16,
             return ep0.post_send_many(1, bufs, tags=tags)
 
     launches0, dense0 = stage_copy_rows.launches, stage_copy.launches
-    to_host0, to_card0 = _host_copies()
+    wire0 = _wire_counts()
     stacks = 0
     doorbells = delivered = 0
     elapsed = 0.0
     split = {"post_s": 0.0, "progress_s": 0.0, "pop_s": 0.0}
-    frames = _FrameCount(torch)
     for w in range(windows):
         if dtype == torch.uint8:
             src = torch.randint(0, 256, (per_window, e), generator=g,
@@ -649,7 +627,7 @@ def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16,
                 if st.is_retry():
                     raise AssertionError(f"{label}: recv post retried")
         torch.cuda.synchronize()
-        with _StackCount(torch) as stack, frames:
+        with _StackCount(torch) as stack:
             t0 = time.perf_counter()
             for d in range(WINDOW):
                 sl = slice(d * K, (d + 1) * K)
@@ -717,28 +695,36 @@ def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16,
                              f"stage copies and {stacks} torch.stack calls "
                              "(want one gather a doorbell, no dense copy, "
                              "no stack)")
-    to_host, to_card = (a - b for a, b in zip(_host_copies(),
-                                               (to_host0, to_card0)))
-    # the copies between host and card, as designed: a CUDA frame crosses
-    # to the host once when it is encoded (a retransmit encodes it
-    # again); a frame delivered into pre-posted CUDA recv buffers crosses
-    # back once (under chaos a dropped or duplicate frame delivers
-    # nothing); an AM is delivered in host memory
-    cuda = frames.cuda_frames
+    frames, cuda, to_host, to_card = _since(wire0)
+    rel = cl[0].rel
+    retransmits = rel.counters()["retransmits"] if rel is not None else 0
+    # the copies between host and card, as designed: every fused doorbell
+    # is one frame, encoded once, and its CUDA image crosses to the host
+    # once (a retransmit encodes it again); a frame delivered into
+    # pre-posted CUDA recv buffers crosses back once (under chaos a frame
+    # can be delivered in parts, one copy each, or dropped); an AM is
+    # delivered in host memory; sim encodes nothing
+    if backend == "sim":
+        want = {"frames": 0, "to_host": 0}
+    else:
+        want = {"cuda_frames": doorbells + retransmits,
+                "to_host": doorbells + retransmits}
+    have = {"frames": frames, "cuda_frames": cuda, "to_host": to_host}
+    wrong = {k: (have[k], v) for k, v in want.items() if have[k] != v}
     if kind == "am" or backend == "sim":
         card_ok = to_card == 0
     elif attrs:
         card_ok = doorbells <= to_card <= cuda
     else:
-        card_ok = to_card == cuda
-    if (to_host != cuda or not card_ok
-            or cuda < (0 if backend == "sim" else doorbells)):
-        raise AssertionError(f"{label} ({backend}): {frames.cuda_frames} "
-                             f"CUDA frames encoded for {doorbells} "
-                             f"doorbells, {to_host} copies to the host and "
-                             f"{to_card} to the card (want one each way a "
-                             "frame into CUDA recv buffers, one to the "
-                             "host a frame for an AM)")
+        card_ok = to_card == doorbells
+    if wrong or not card_ok:
+        raise AssertionError(f"{label} ({backend}): (counted, wanted) "
+                             f"{wrong}; {to_card} copies to the card for "
+                             f"{doorbells} doorbells, {retransmits} "
+                             "retransmits (want one frame and one copy to "
+                             "the host a doorbell and a retransmit, one "
+                             "copy to the card a doorbell into CUDA recv "
+                             "buffers)")
     n = windows * per_window
     rec = {"case": label, "backend": backend,
            "posted_with": f"post_{kind}_many",
@@ -748,15 +734,13 @@ def main_path_case(torch, label, kind, dtype, nbytes, wire_bf16,
            "doorbells": doorbells, "kernel_launches": launches,
            "launches_per_doorbell": launches / doorbells,
            "dense_stage_copy_launches": dense, "torch_stack_calls": stacks,
-           "frames_encoded": frames.frames,
-           "cuda_frames_encoded": frames.cuda_frames,
+           "frames_encoded": frames, "cuda_frames_encoded": cuda,
            "copies_to_host": to_host, "copies_to_card": to_card,
            "byte_exact": True,
            "us_per_msg": elapsed / n * 1e6,
            "GB_per_s": n * nbytes / elapsed / 1e9,
            "host_split_s": split, "elapsed_s": elapsed,
            "window_payload_MiB": per_window * nbytes / 2 ** 20}
-    rel = cl[0].rel
     if rel is not None:
         rec["reliability"] = rel.counters()
         rec["chaos"] = cl.fabric.fault_counters()
@@ -834,11 +818,10 @@ SPMD_DOORBELLS, SPMD_WINDOWS = 4, 2
 SPMD_KINDS = (("am", 65536), ("send", 8192))
 
 
-def _child_env():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
-        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-    return env
+def _src_path():
+    """PYTHONPATH for a child: the checkout's ``src`` first."""
+    old = os.environ.get("PYTHONPATH")
+    return os.path.join(ROOT, "src") + (os.pathsep + old if old else "")
 
 
 def spmd_case(backend):
@@ -850,12 +833,11 @@ def spmd_case(backend):
     from repro_torch.launch import spmd
     outdir = tempfile.mkdtemp(prefix="chip-smoke-spmd-")
     t0 = time.perf_counter()
-    old = dict(os.environ)
-    os.environ.update(_child_env())
     try:
         code = spmd.launch([sys.executable, os.path.abspath(__file__),
                             "--spmd-rank", outdir], 2, backend=backend,
-                           timeout=CHILD_TIMEOUT)
+                           timeout=CHILD_TIMEOUT,
+                           env={"PYTHONPATH": _src_path()})
         ranks = []
         for r in range(2):
             path = os.path.join(outdir, f"rank{r}.json")
@@ -863,12 +845,17 @@ def spmd_case(backend):
                 with open(path) as f:
                     ranks.append(json.load(f))
     finally:
-        os.environ.clear()
-        os.environ.update(old)
         shutil.rmtree(outdir, ignore_errors=True)
     if code != 0 or len(ranks) != 2:
         raise AssertionError(f"the two-process {backend} run exited {code} "
                              f"with {len(ranks)} rank reports")
+    for r, rep in enumerate(ranks):
+        sends = ranks[(r - 1) % 2]["doorbells"]["send"]
+        if rep["copies_to_card"] != sends:
+            raise AssertionError(f"rank {r} ({backend}): "
+                                 f"{rep['copies_to_card']} copies to the "
+                                 f"card for the peer's {sends} send "
+                                 "doorbells into its CUDA recv buffers")
     return {"backend": backend, "seconds": time.perf_counter() - t0,
             "ranks": ranks}
 
@@ -912,83 +899,86 @@ def spmd_rank(outdir) -> int:
             ep.progress()
 
     launches0 = stage_copy_rows.launches
-    to_host0, to_card0 = _host_copies()
-    doorbells = received = 0
+    wire0 = _wire_counts()
+    doorbells = {"am": 0, "send": 0}
+    received = 0
     got = {}                         # tag -> the delivered buffer
     t0 = time.perf_counter()
     ctx.barrier(timeout=60)
-    with _FrameCount(torch) as frames:
-        for kind_i, (kind, nbytes) in enumerate(SPMD_KINDS):
-            e = nbytes // 4
-            for w in range(SPMD_WINDOWS):
-                base = (kind_i * SPMD_WINDOWS + w) * SPMD_DOORBELLS * K
-                tags = list(range(base, base + SPMD_DOORBELLS * K))
-                mine = list(rows_of(ctx.rank, kind_i, w, e))
-                want = rows_of(src_rank, kind_i, w, e).view(torch.uint8)
-                rbuf = None
-                if kind == "send":
-                    rbuf = torch.zeros_like(want)
-                    for i, t in enumerate(tags):
-                        if ep.post_recv(src_rank, rbuf[i], nbytes, tag=t,
-                                        local_comp=cq).is_retry():
-                            raise AssertionError("recv post retried")
-                    settle(f"the window before {base}")
-                    ctx.barrier(timeout=60)  # the peer's recvs are posted
-                for d in range(SPMD_DOORBELLS):
-                    sl = slice(d * K, (d + 1) * K)
-                    if kind == "am":
-                        doorbells += _post_all(
-                            lambda b, t: ep.post_am_many(peer, b, 0, tags=t),
-                            ep.progress, mine[sl], tags[sl])
-                    else:
-                        doorbells += _post_all(
-                            lambda b, t: ep.post_send_many(peer, b, tags=t),
-                            ep.progress, mine[sl], tags[sl])
-                # the peer may be a window ahead: its rows land in ``got``
-                # for the window they belong to
-                while any(t not in got for t in tags):
-                    if time.monotonic() > deadline:
-                        lost = sum(t not in got for t in tags)
-                        raise AssertionError(f"rank {ctx.rank}: {lost} of "
-                                             f"window {base} lost")
-                    ep.progress()
-                    while True:
-                        st = cq.pop()
-                        if not st.is_done():
-                            break
-                        if st.tag in got:
-                            raise AssertionError(f"rank {ctx.rank}: tag "
-                                                 f"{st.tag} duplicated")
-                        got[st.tag] = st.get_buffer()
+    for kind_i, (kind, nbytes) in enumerate(SPMD_KINDS):
+        e = nbytes // 4
+        for w in range(SPMD_WINDOWS):
+            base = (kind_i * SPMD_WINDOWS + w) * SPMD_DOORBELLS * K
+            tags = list(range(base, base + SPMD_DOORBELLS * K))
+            mine = list(rows_of(ctx.rank, kind_i, w, e))
+            want = rows_of(src_rank, kind_i, w, e).view(torch.uint8)
+            rbuf = None
+            if kind == "send":
+                rbuf = torch.zeros_like(want)
+                for i, t in enumerate(tags):
+                    if ep.post_recv(src_rank, rbuf[i], nbytes, tag=t,
+                                    local_comp=cq).is_retry():
+                        raise AssertionError("recv post retried")
+                settle(f"the window before {base}")
+                ctx.barrier(timeout=60)  # the peer's recvs are posted
+            for d in range(SPMD_DOORBELLS):
+                sl = slice(d * K, (d + 1) * K)
                 if kind == "am":
-                    have = torch.stack([torch.as_tensor(got[t]).to(DEVICE)
-                                        for t in tags])
+                    doorbells[kind] += _post_all(
+                        lambda b, t: ep.post_am_many(peer, b, 0, tags=t),
+                        ep.progress, mine[sl], tags[sl])
                 else:
-                    have = rbuf
-                if not torch.equal(have, want):
-                    raise AssertionError(f"rank {ctx.rank}: window {base} "
-                                         "bytes differ from the sender's")
-                received += len(tags)
-        settle("the last window")
-        if len(got) != received:
-            raise AssertionError(f"rank {ctx.rank}: {len(got) - received} "
-                                 "rows beyond the windows sent")
-        ctx.barrier(timeout=60)
+                    doorbells[kind] += _post_all(
+                        lambda b, t: ep.post_send_many(peer, b, tags=t),
+                        ep.progress, mine[sl], tags[sl])
+            # the peer may be a window ahead: its rows land in ``got``
+            # for the window they belong to
+            while any(t not in got for t in tags):
+                if time.monotonic() > deadline:
+                    lost = sum(t not in got for t in tags)
+                    raise AssertionError(f"rank {ctx.rank}: {lost} of "
+                                         f"window {base} lost")
+                ep.progress()
+                while True:
+                    st = cq.pop()
+                    if not st.is_done():
+                        break
+                    if st.tag in got:
+                        raise AssertionError(f"rank {ctx.rank}: tag "
+                                             f"{st.tag} duplicated")
+                    got[st.tag] = st.get_buffer()
+            if kind == "am":
+                have = torch.stack([torch.as_tensor(got[t]).to(DEVICE)
+                                    for t in tags])
+            else:
+                have = rbuf
+            if not torch.equal(have, want):
+                raise AssertionError(f"rank {ctx.rank}: window {base} "
+                                     "bytes differ from the sender's")
+            received += len(tags)
+    settle("the last window")
+    if len(got) != received:
+        raise AssertionError(f"rank {ctx.rank}: {len(got) - received} "
+                             "rows beyond the windows sent")
+    ctx.barrier(timeout=60)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = stage_copy_rows.launches - launches0
-    to_host, to_card = (a - b for a, b in zip(_host_copies(),
-                                               (to_host0, to_card0)))
-    report = {"rank": ctx.rank, "backend": backend, "doorbells": doorbells,
-              "kernel_launches": launches, "received": received,
-              "lost": 0, "duplicated": 0, "byte_exact": True,
-              "frames_encoded": frames.frames,
-              "cuda_frames_encoded": frames.cuda_frames,
-              "copies_to_host": to_host, "copies_to_card": to_card,
-              "seconds": elapsed, "device": torch.cuda.get_device_name(0)}
+    frames, cuda, to_host, to_card = _since(wire0)
+    sent = sum(doorbells.values())
+    report = {"rank": ctx.rank, "backend": backend,
+              "doorbells": doorbells, "kernel_launches": launches,
+              "received": received, "lost": 0, "duplicated": 0,
+              "byte_exact": True, "frames_encoded": frames,
+              "cuda_frames_encoded": cuda, "copies_to_host": to_host,
+              "copies_to_card": to_card, "seconds": elapsed,
+              "device": torch.cuda.get_device_name(0)}
     cl.close()
     ctx.close()
-    if launches != doorbells or to_host != frames.cuda_frames:
+    # one gather, one CUDA frame and one copy to the host a doorbell sent;
+    # the copies to the card (one a send frame received) are held against
+    # the peer's send doorbells by the launching process
+    if launches != sent or cuda != sent or to_host != sent:
         raise AssertionError(f"rank {ctx.rank}: {report}")
     with open(os.path.join(outdir, f"rank{ctx.rank}.json"), "w") as f:
         json.dump(report, f)
@@ -1004,7 +994,8 @@ def chaos_kill_case():
         [sys.executable, "-m", "repro_torch.launch.spmd", "--ranks", "2",
          "--backend", "shm", "--chaos-kill", "1", "--kill-after", "1",
          "--hb-timeout", str(HB_TIMEOUT), "--timeout", str(CHILD_TIMEOUT)],
-        env=_child_env(), capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": _src_path()},
+        capture_output=True, text=True,
         timeout=CHILD_TIMEOUT + 30)
     text = r.stdout + r.stderr
     lines = [ln for ln in text.splitlines() if "spmd-chaos rank 0: drained"

@@ -22,7 +22,7 @@ from .base import (FABRIC_ATTRS, Transport, backend_class, make_transport,
                    register_backend)
 from .chaos import (CHAOS_ATTRS, ChaosConfig, ChaosTransport,
                     maybe_wrap_chaos)
-from .codec import CodecError, decode_msg, encode_msg
+from .codec import CodecError, decode_msg, encode_msg, frame_bytes
 from .wire import (PACKED_KINDS, PackedBurst, WireKind, WireMsg, msg_weight,
                    to_card, to_host)
 
@@ -39,6 +39,7 @@ __all__ = [
     "CodecError",
     "decode_msg",
     "encode_msg",
+    "frame_bytes",
     "PACKED_KINDS",
     "PackedBurst",
     "WireKind",

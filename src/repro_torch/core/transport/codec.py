@@ -36,7 +36,11 @@ tensor.  A CPU tensor encodes to the same bytes as the equal ndarray; a
 CUDA one (the ``(K, row_bytes)`` image the doorbell kernel staged on the
 card) crosses to the host in ONE copy a frame
 (:func:`~repro_torch.core.transport.wire.to_host`, which counts it).
-The decoder returns host arrays, copied out of the ring or socket
+``encode_msg.frames`` counts the frames encoded and
+``encode_msg.cuda_frames`` those whose payload lay on the card, so a
+caller can hold the copies to the host against the frames; a transport
+that may refuse a frame asks :func:`frame_bytes` first, so a refused
+frame costs no copy.  The decoder returns host arrays, copied out of the ring or socket
 buffer before the transport reuses it.
 
 Version 2 hardens the decoder for the chaos plane (DESIGN.md §16): the
@@ -53,6 +57,7 @@ import zlib
 from typing import Any, Tuple
 
 import numpy as np
+import torch
 
 from ..matching import MatchingPolicy
 from ..status import FatalError
@@ -104,6 +109,30 @@ _CODE_TO_WD = {v: k for k, v in _WD_TO_CODE.items()}
 _HDR = struct.Struct("<HBB iiqqq iBi d Bqq qiI B")
 
 
+def _nbytes(data) -> int:
+    """Bytes of an ndarray or tensor, without reading them."""
+    if isinstance(data, np.ndarray):
+        return int(data.nbytes)
+    return data.numel() * data.element_size()
+
+
+def frame_bytes(msg: WireMsg) -> int:
+    """The length of ``encode_msg(msg)``, computed without encoding (and
+    so without copying a CUDA payload to the host)."""
+    payload = msg.payload
+    if payload is None:
+        body = 0
+    elif isinstance(payload, PackedBurst):
+        count = int(payload.data.shape[0])
+        row_bytes = _nbytes(payload.data) // count if count else 0
+        body = 9 + 16 * count + count * row_bytes
+    elif isinstance(payload, tuple):
+        body = 4 + 8 * len(payload)
+    else:
+        body = 8 + _nbytes(payload)
+    return _HDR.size + body
+
+
 def _payload_bytes(payload) -> bytes:
     arr = to_host(payload)
     if arr.dtype != np.uint8:
@@ -122,6 +151,10 @@ def encode_msg(msg: WireMsg) -> bytes:
         rb_tag, (rb0, rb1) = 1, msg.remote_buf
 
     payload = msg.payload
+    data = payload.data if isinstance(payload, PackedBurst) else payload
+    encode_msg.frames += 1
+    if isinstance(data, torch.Tensor) and data.is_cuda:
+        encode_msg.cuda_frames += 1
     if payload is None:
         p_tag, body = _P_NONE, b""
     elif isinstance(payload, PackedBurst):
@@ -155,6 +188,10 @@ def encode_msg(msg: WireMsg) -> bytes:
                     msg.seq, msg.epoch, zlib.crc32(body) & 0xFFFFFFFF,
                     p_tag)
     return hdr + body
+
+
+encode_msg.frames = 0
+encode_msg.cuda_frames = 0
 
 
 def _need(view: memoryview, off: int, n: int, what: str) -> None:

@@ -52,7 +52,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from .. import attrs as _attrs
 from ..status import FatalError
 from .base import Transport
-from .codec import decode_msg, encode_msg
+from .codec import decode_msg, encode_msg, frame_bytes
 from .wire import PackedBurst, WireMsg, msg_weight
 
 # header-page slots (one per 64-byte cache line; u64 little-endian).
@@ -118,10 +118,9 @@ class _Ring:
         return max(0, self.pushed - self.drained)
 
     # -- producer side ----------------------------------------------------
-    def try_write(self, body: bytes, weight: int, ready_at: float,
-                  flags: int = 0) -> bool:
-        """Append one record; ``False`` = not enough free bytes."""
-        span = _REC_SIZE + len(body)
+    def _place(self, span: int) -> Optional[Tuple[int, int, int]]:
+        """``(tail, pos, rem)`` for a record of ``span`` bytes, or
+        ``None`` when the free bytes (wrap padding included) are short."""
         tail = self._get(_OFF_TAIL)
         head = self._get(_OFF_HEAD)
         free = self.capacity - (tail - head)
@@ -129,7 +128,23 @@ class _Ring:
         rem = self.capacity - pos
         pad = rem if rem < span else 0     # wrap cost if the record won't fit
         if span + pad > free:
+            return None
+        return tail, pos, rem
+
+    def fits(self, nbytes: int) -> bool:
+        """Whether a record of ``nbytes`` body bytes fits now.  Only the
+        producer writes, so the room can only grow until it does."""
+        return self._place(_REC_SIZE + nbytes) is not None
+
+    def try_write(self, body: bytes, weight: int, ready_at: float,
+                  flags: int = 0) -> bool:
+        """Append one record; ``False`` = not enough free bytes."""
+        span = _REC_SIZE + len(body)
+        place = self._place(span)
+        if place is None:
             return False
+        tail, pos, rem = place
+        pad = rem if rem < span else 0
         if pad:
             if rem >= _REC_SIZE:           # explicit PAD record
                 _REC.pack_into(self.mm, _HEADER_BYTES + pos, rem, _F_PAD,
@@ -269,9 +284,16 @@ class ShmTransport(Transport):
     # -- producer side ----------------------------------------------------
     def _write_msg(self, ring: _Ring, msg: WireMsg, weight: int,
                    dst: int, didx: int) -> bool:
+        # room first: a frame the ring refuses is never encoded, so a
+        # CUDA payload crosses to the host once however often it waits
+        size = frame_bytes(msg)
+        spill = _REC_SIZE + size > self.ring_bytes // 2
+        if not ring.fits(8 if spill else size):
+            self._full_events.fetch_add(1)
+            return False
         body = encode_msg(msg)
         flags = 0
-        if _REC_SIZE + len(body) > self.ring_bytes // 2:
+        if spill:
             # oversized (rendezvous payloads): spill to a side file, ride
             # the ring as an 8-byte reference so FIFO order is preserved
             key = (dst, didx)

@@ -60,7 +60,6 @@ _SLOT = 64                       # one cache line per rank counter
 _BARRIER_FILE = "barrier"
 _HB_FILE = "heartbeat"
 _HB = struct.Struct("<Qd")       # [beat count][wall-clock stamp]
-ALLOW_DIRTY_ENV = "REPRO_SPMD_ALLOW_DIRTY"
 
 
 def _store(mm: mmap.mmap, off: int, raw: bytes) -> None:
@@ -199,7 +198,7 @@ def bootstrap() -> SpmdContext:
 # ---------------------------------------------------------------------------
 # host hygiene: leftovers of dead SPMD jobs skew every timing they share
 # a machine with (an orphaned rank spins a core; a stale /dev/shm session
-# holds ring memory).  The launcher warns; benchmarks refuse timing rows.
+# holds ring memory).  The launcher warns and proceeds.
 # ---------------------------------------------------------------------------
 
 def _spmd_procs() -> List[Dict]:
@@ -283,27 +282,16 @@ def hygiene_report(roots: Optional[Sequence[str]] = None) -> Dict:
             "stale_sessions": sorted(stale)}
 
 
-def preflight(strict: bool = False,
-              roots: Optional[Sequence[str]] = None) -> Dict:
-    """Hygiene gate run before launching (or timing).  Prints one line
-    per finding; with ``strict`` raises instead of proceeding.  Setting
-    ``REPRO_SPMD_ALLOW_DIRTY=1`` downgrades strict to warn (for hosts
-    where the leftovers are someone else's and known-idle)."""
+def preflight(roots: Optional[Sequence[str]] = None) -> Dict:
+    """Hygiene check run before launching: prints one line per finding
+    (orphaned ranks, stale session dirs) and proceeds."""
     rep = hygiene_report(roots)
-    if rep["clean"]:
-        return rep
     for p in rep["orphans"]:
         print(f"spmd: orphaned rank pid={p['pid']} "
               f"(launcher dead, session {p['session']})", file=sys.stderr)
     for path in rep["stale_sessions"]:
         print(f"spmd: stale session dir {path} (no live ranks; teardown "
               f"was skipped)", file=sys.stderr)
-    if strict and os.environ.get(ALLOW_DIRTY_ENV) != "1":
-        raise RuntimeError(
-            f"SPMD hygiene preflight failed: {len(rep['orphans'])} "
-            f"orphaned rank(s), {len(rep['stale_sessions'])} stale "
-            f"session dir(s).  Kill the orphans / remove the dirs, or "
-            f"set {ALLOW_DIRTY_ENV}=1 to proceed anyway.")
     return rep
 
 
@@ -312,8 +300,9 @@ def preflight(strict: bool = False,
 # ---------------------------------------------------------------------------
 
 def _child_env(rank: int, n_ranks: int, session: str, backend: str,
-               attr_overrides: Dict[str, str]) -> Dict[str, str]:
-    env = dict(os.environ)
+               attr_overrides: Dict[str, str],
+               extra: Dict[str, str]) -> Dict[str, str]:
+    env = {**os.environ, **extra}
     env[RANK_ENV] = str(rank)
     env[NRANKS_ENV] = str(n_ranks)
     env[SESSION_ENV] = session
@@ -368,10 +357,11 @@ def _all_beating(session: str, n_ranks: int) -> bool:
 def launch(cmd: List[str], n_ranks: int, backend: str = "shm",
            attr_overrides: Optional[Dict[str, str]] = None,
            timeout: float = 120.0, session: Optional[str] = None,
-           keep_session: bool = False, kill_rank: Optional[int] = None,
-           kill_after: float = 1.0) -> int:
+           kill_rank: Optional[int] = None, kill_after: float = 1.0,
+           env: Optional[Dict[str, str]] = None) -> int:
     """Fork ``cmd`` N times with SPMD bootstrap env; returns the exit
-    code (0 only if every rank exited 0 within ``timeout``).
+    code (0 only if every rank exited 0 within ``timeout``).  ``env``
+    adds to (or overrides) the environment the ranks inherit.
 
     ``kill_rank`` arms the chaos kill: once every rank has heartbeat at
     least once, wait ``kill_after`` seconds and SIGKILL that rank's
@@ -379,7 +369,7 @@ def launch(cmd: List[str], n_ranks: int, backend: str = "shm",
     tear the survivors down, and success means every OTHER rank exited 0
     (the rank-death recovery contract, DESIGN.md §16).
     """
-    preflight(strict=False)          # warn about leftovers of dead jobs
+    preflight()                      # warn about leftovers of dead jobs
     if kill_rank is not None and not 0 <= kill_rank < n_ranks:
         raise ValueError(f"kill_rank {kill_rank} out of range")
     owns_session = session is None
@@ -394,7 +384,7 @@ def launch(cmd: List[str], n_ranks: int, backend: str = "shm",
         for rank in range(n_ranks):
             procs.append(subprocess.Popen(
                 cmd, env=_child_env(rank, n_ranks, session, backend,
-                                    attr_overrides or {}),
+                                    attr_overrides or {}, env or {}),
                 start_new_session=True))
         deadline = time.monotonic() + timeout
         live = list(procs)
@@ -441,7 +431,7 @@ def launch(cmd: List[str], n_ranks: int, backend: str = "shm",
             code = 1
     finally:
         _reap(procs)
-        if owns_session and not keep_session:
+        if owns_session:
             shutil.rmtree(session, ignore_errors=True)
     return code
 

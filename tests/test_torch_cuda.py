@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import FatalError, LocalCluster
 from repro_torch.core.packet_pool import init_buffers, init_pool
+from repro_torch.core.transport.codec import encode_msg
 from repro_torch.core.transport.wire import to_card, to_host
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import doorbell as db
@@ -232,8 +233,9 @@ def _transport_run(cuda, backend, kind, bf16, attrs=None, doorbells=2):
     """``doorbells`` fused doorbells of 64 rows of 64 KiB float32 on the
     card over ``backend`` (many large rows: a copy to the host that did
     not wait for the gather would ship stale bytes); returns the gather
-    launches, the copies each way, the receiver's bytes and the sent
-    ones, and the sender's reliability counters."""
+    launches, the CUDA frames encoded, the copies each way, the
+    receiver's bytes and the sent ones, and the sender's reliability
+    counters."""
     cl = LocalCluster(2, device=cuda, attrs={
         "fabric_backend": backend, "wire_bf16": bf16, **(attrs or {})})
     try:
@@ -247,8 +249,8 @@ def _transport_run(cuda, backend, kind, bf16, attrs=None, doorbells=2):
         if kind == "send":
             for t in tags:
                 ep1.post_recv(0, rbuf[t], 65536, tag=t, local_comp=cq)
-        before = (db.stage_copy_rows.launches, to_host.copies,
-                  to_card.copies)
+        before = (db.stage_copy_rows.launches, encode_msg.cuda_frames,
+                  to_host.copies, to_card.copies)
         for d in range(doorbells):
             sl = slice(64 * d, 64 * d + 64)
             post = (ep0.post_send_many(1, list(src[sl]), tags=tags[sl])
@@ -274,7 +276,8 @@ def _transport_run(cuda, backend, kind, bf16, attrs=None, doorbells=2):
         if bf16:
             want = src.to(torch.bfloat16).float()
         counts = tuple(a - b for a, b in zip(
-            (db.stage_copy_rows.launches, to_host.copies, to_card.copies),
+            (db.stage_copy_rows.launches, encode_msg.cuda_frames,
+             to_host.copies, to_card.copies),
             before))
         rel = cl[0].rel.counters() if cl[0].rel is not None else None
         return counts, have, want.view(torch.uint8), rel
@@ -290,9 +293,10 @@ def test_transport_carries_cuda_doorbells(cuda, backend, kind, bf16):
     the frame to the host, and for sends into CUDA recv buffers one copy
     of the frame's rows back to the card; an AM lands as host bytes.
     Every row byte-exact."""
-    (launches, to_h, to_c), have, want, _ = _transport_run(
+    (launches, frames, to_h, to_c), have, want, _ = _transport_run(
         cuda, backend, kind, bf16)
-    assert (launches, to_h, to_c) == (2, 2, 2 if kind == "send" else 0)
+    assert (launches, frames, to_h, to_c) == \
+        (2, 2, 2, 2 if kind == "send" else 0)
     assert torch.equal(have, want)
 
 
@@ -300,12 +304,13 @@ def test_transport_retransmit_copies_again(cuda):
     """Under chaos a retransmit re-encodes its frame: the CUDA image
     crosses to the host once more for each retransmit, and every row is
     still delivered once, byte-exact."""
-    (launches, to_h, to_c), have, want, rel = _transport_run(
+    (launches, frames, to_h, to_c), have, want, rel = _transport_run(
         cuda, "shm", "send", False, doorbells=8,
         attrs={"reliability": "on", "chaos_seed": 7, "chaos_drop": 0.2,
                "chaos_dup": 0.05, "chaos_reorder": 0.05})
     assert launches == 8
-    assert to_h == 8 + rel["retransmits"] and rel["retransmits"] > 0
+    assert to_h == frames == 8 + rel["retransmits"]
+    assert rel["retransmits"] > 0
     assert 8 <= to_c <= to_h
     assert torch.equal(have, want)
 

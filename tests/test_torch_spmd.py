@@ -32,16 +32,10 @@ def _env_without_spmd():
 
 
 def _launch(cmd, **kw):
-    """``spmd.launch`` with the children's environment set up (the
-    launcher hands its own environment down)."""
-    old = dict(os.environ)
-    os.environ.clear()
-    os.environ.update(_env_without_spmd())
-    try:
-        return spmd.launch(cmd, 2, **kw)
-    finally:
-        os.environ.clear()
-        os.environ.update(old)
+    """``spmd.launch`` with the source tree on the children's path."""
+    return spmd.launch(cmd, 2, env={
+        "PYTHONPATH": SRC + os.pathsep + os.environ.get("PYTHONPATH", ""),
+        "SRC": SRC}, **kw)
 
 
 def _spmd(*args, timeout=120):
@@ -144,6 +138,16 @@ def test_live_reference_peer_never_read_dead(tmp_path):
         proc.join(timeout=30)
         assert not proc.is_alive()
         me.close()
+
+
+def test_preflight_warns_and_proceeds(tmp_path, capsys):
+    """A stale session dir is reported on stderr; the launcher goes on."""
+    (tmp_path / "repro-spmd-stale").mkdir()
+    (tmp_path / "other").mkdir()
+    rep = spmd.preflight(roots=[str(tmp_path)])
+    assert rep["stale_sessions"] == [str(tmp_path / "repro-spmd-stale")]
+    assert not rep["clean"]
+    assert "stale session dir" in capsys.readouterr().err
 
 
 class TestLauncher:

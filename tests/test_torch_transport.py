@@ -163,6 +163,20 @@ def test_frames_equal_and_cross_decode(name, spec, tensor):
         assert p_of_r.payload.data.flags.writeable
 
 
+@pytest.mark.parametrize("tensor", [False, True], ids=["numpy", "tensor"])
+@pytest.mark.parametrize("name,spec", CODEC_CASES,
+                         ids=[c[0] for c in CODEC_CASES])
+def test_frame_bytes_is_encoded_length(name, spec, tensor):
+    """``frame_bytes`` (what a transport checks before it encodes) is the
+    length of the frame, and each encode counts one frame."""
+    msg = _msg("port", spec, tensor)
+    frames, cuda = port_codec.encode_msg.frames, \
+        port_codec.encode_msg.cuda_frames
+    assert port_codec.frame_bytes(msg) == len(port_codec.encode_msg(msg))
+    assert port_codec.encode_msg.frames == frames + 1
+    assert port_codec.encode_msg.cuda_frames == cuda
+
+
 def test_tensor_burst_stays_host_and_counts_no_copy():
     """A CPU tensor never crosses between host and card: the copy
     counters of both directions stay put."""
@@ -351,6 +365,34 @@ class TestShmTransport:
             out = b.drain(1, 0)
             assert [m.payload.count for m in out] == [6, 4]
             assert np.array_equal(out[1].payload.data, data[:4])
+        finally:
+            a.close(); b.close()
+
+    def test_full_ring_refuses_before_encoding(self, tmp_path, tensor):
+        """A doorbell the ring has no bytes for is refused before it is
+        encoded, so its retry is the only encode (and, for a CUDA image,
+        the only copy to the host)."""
+        a, b = _shm_pair(tmp_path, ring_bytes=4096)
+        try:
+            data = np.arange(8 * 200, dtype=np.uint8).reshape(8, 200) % 251
+            burst = PackedBurst(torch.from_numpy(data) if tensor else data,
+                                np.full(8, 200, np.int64), list(range(8)), 8)
+            msg = WireMsg(WireKind.EAGER_PACKED_AM, 0, 1, payload=burst,
+                          size=data.nbytes, rcomp=0)
+            enc = port_codec.encode_msg
+            frames = enc.frames
+            for _ in range(2):                        # 1.8 KiB of 4 KiB
+                assert a.push_packed(msg) == 8
+            assert enc.frames == frames + 2
+            full = a.full_events
+            assert a.push_packed(msg) == 0            # no bytes left
+            assert (enc.frames, a.full_events) == (frames + 2, full + 1)
+            assert b.drain(1, 0, limit=8)[0].payload.count == 8
+            assert a.push_packed(msg) == 8
+            assert enc.frames == frames + 3
+            out = b.drain(1, 0)
+            assert [m.payload.count for m in out] == [8, 8]
+            assert np.array_equal(out[1].payload.data, data)
         finally:
             a.close(); b.close()
 
