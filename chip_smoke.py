@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main paths on one GPU: the fused-doorbell
 message path (over the sim, shm and socket transports, under chaos and
 across two processes), gemma3-1b serving, olmoe-1b-7b (MoE) serving,
-mamba2-370m (SSM) serving and hymba-1.5b (hybrid) serving at full width.
+mamba2-370m (SSM) serving and hymba-1.5b (hybrid) serving at full width,
+and serving on the comm core (the reference's serve traffic).
 
     python3 chip_smoke.py            # from the repository root; one card
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown
@@ -137,10 +138,30 @@ The phases:
    byte it receives and reports its counts; then the launcher's
    chaos-kill demo with a 5 s heartbeat timeout, whose survivor must
    drain every outstanding post as ERR_PEER_DEAD and exit 0.  Every child
-   runs under a wall-clock limit.
+   runs under a wall-clock limit;
+16. serving on the comm core (``ServePlane``, ``ContinuousBatcher``,
+   ``TokenClient``, ``SyntheticModel`` on the card) under the reference's
+   open-loop serve traffic (``benchmarks/serve_traffic.py``'s
+   ``make_workload`` and ``server_overrides``, ported here, seed 0): a)
+   ``LocalCluster(2, device="cuda", fabric_depth=1<<15)`` on ``sim`` at
+   c64 / 2 s and c1024 / 4 s; b) c128 / 2 s under ``chaos_drop=0.05``; c)
+   c128 / 2 s across two OS processes on ``shm`` (``chip_smoke.py
+   --serve-rank``, rank 0 the client, rank 1 the server); each cell
+   exactly-once (nothing lost, duplicated, mismatched or out of order,
+   every stream equal to the oracle), one gather launch and no
+   ``torch.stack`` a fused decode doorbell (a tick of 2 or 3 rows posts
+   unfused with one stack) and no dense stage copy, no host sync
+   on the server's tick (``torch.cuda.set_sync_debug_mode("warn")``
+   counts them) on ``sim``, and on ``shm`` one copy to the host a CUDA
+   frame; TTFT, inter-token latency, goodput, slot occupancy,
+   preemptions, retransmits and the share of decode bursts that fuse are
+   recorded; d) the functional ``MatchTable`` / ``Ring`` / ``SyncState``
+   mirrors on CUDA and CPU tensors, bitwise equal, with no host sync on
+   the card; e) ``apps/kmer.py`` on a card-bound cluster at
+   ``configs/paper.py``'s quick sizes, ranks 2 and 4, exact.
 
-The launch counts are set to 0 just before phases 4, 7, 10, 13, 14 and
-15 and read just after; the serving phases also record B3's launches by (rows,
+The launch counts are set to 0 just before phases 4, 7, 10, 13, 14, 15
+and 16 and read just after; the serving phases also record B3's launches by (rows,
 d) a prefill call and a decode step.  Every phase raises on failure;
 nothing is caught.  Each phase
 prints one JSON record; the line before the last is the card's name and
@@ -1006,6 +1027,552 @@ def chaos_kill_case():
                              f"\n{text}")
     return {"backend": "shm", "hb_timeout_s": HB_TIMEOUT,
             "seconds": time.perf_counter() - t0, "survivor": lines[0]}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: serving on the comm core
+# ---------------------------------------------------------------------------
+
+#: the reference's open-loop serving traffic (benchmarks/serve_traffic.py),
+#: ported here: vocab, prompt and output length clips, deadlines
+SERVE_VOCAB = 32000
+PROMPT_CLIP = (4, 256)
+OUTPUT_CLIP = (1, 64)
+SUBMIT_DEADLINE_S = 60.0
+DRAIN_DEADLINE_S = 120.0
+#: (clients, arrival-window seconds) of the sim cells, the reference's
+#: c64 / 2 s and its full default c1024 / 4 s; the chaos cell and the
+#: two-process shm cell at c128 / 2 s
+SERVE_CELLS = ((64, 2.0), (1024, 4.0))
+SERVE_CHAOS = (128, 2.0, 0.05)
+SERVE_XPROC = (128, 2.0)
+SERVE_CHILD_TIMEOUT = 180.0
+KMER_SEED = 3           # benchmarks/kmer.py's
+
+
+def make_workload(n_clients: int, duration: float, seed: int):
+    """The reference's open-loop schedule: Poisson arrivals (uniform
+    order statistics conditioned on N) with lognormal heavy-tailed
+    prompt and output lengths."""
+    rng = np.random.default_rng(seed)
+    arrivals = np.sort(rng.uniform(0.0, duration, n_clients))
+    plens = np.clip(rng.lognormal(2.8, 1.0, n_clients),
+                    *PROMPT_CLIP).astype(int)
+    outs = np.clip(rng.lognormal(1.4, 0.9, n_clients),
+                   *OUTPUT_CLIP).astype(int)
+    prompts = [rng.integers(0, SERVE_VOCAB, p).astype(np.int32)
+               for p in plens]
+    return arrivals, prompts, outs
+
+
+def server_overrides(n_clients: int) -> dict:
+    """The reference's engine geometry scaled to the cell."""
+    slots = max(8, min(64, n_clients // 8))
+    return {"kv_slots": slots, "kv_page_tokens": 16,
+            "kv_pages": 16 * slots, "prefill_chunk": 32}
+
+
+class _DecodeBursts:
+    """Records the size of every ``post_am_many`` the server's decode
+    endpoint rings, and the ``torch.stack`` calls made inside it while a
+    :class:`_StackCount` is installed (``stack``).  A burst of
+    ``fused_min_burst`` rows or more is a fused doorbell, which the
+    doorbell gather stages in one launch a 256 rows, with no stack; a
+    shorter one posts unfused: a lone row is cloned, and 2 or 3 rows take
+    one ``torch.stack`` copy (``fabric.py::payloads_to_bytes``)."""
+
+    def __init__(self, server):
+        from repro_torch.kernels.doorbell.ops import ROWS_PER_LAUNCH
+        self.per_launch = ROWS_PER_LAUNCH
+        self.sizes, self.stacks = [], []
+        self.stack = None
+        self.fused_min = server.runtime.fused_min_burst
+        ep = server.decode_ep
+        real = ep.post_am_many
+
+        def counted(rank, bufs, *a, **kw):
+            s0 = self.stack.calls if self.stack else 0
+            try:
+                return real(rank, bufs, *a, **kw)
+            finally:
+                self.sizes.append(len(bufs))
+                self.stacks.append((self.stack.calls if self.stack else 0)
+                                   - s0)
+        ep.post_am_many = counted
+
+    def summary(self) -> dict:
+        fused = [k for k in self.sizes if k >= self.fused_min]
+        split = {True: 0, False: 0}
+        for k, n in zip(self.sizes, self.stacks):
+            split[k >= self.fused_min] += n
+        return {"decode_doorbells": len(self.sizes),
+                "fused_decode_doorbells": len(fused),
+                "fused_share": len(fused) / max(len(self.sizes), 1),
+                "rows_in_fused": sum(fused),
+                "max_burst": max(self.sizes, default=0),
+                "launches_wanted": sum(-(-k // self.per_launch)
+                                       for k in fused),
+                "torch_stack_calls_fused": split[True],
+                "torch_stack_calls_unfused": split[False]}
+
+
+class _SyncCount:
+    """Counts the host syncs the card reports while installed
+    (``torch.cuda.set_sync_debug_mode("warn")``: every synchronizing
+    CUDA call warns)."""
+
+    def __init__(self, torch):
+        self.torch, self.calls, self.where = torch, 0, []
+
+    def __enter__(self):
+        import warnings
+        self._catch = warnings.catch_warnings(record=True)
+        self._seen = self._catch.__enter__()
+        warnings.simplefilter("always")
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+        hits = [w for w in self._seen
+                if "called a synchronizing" in str(w.message)]
+        self.calls = len(hits)
+        self.where = sorted({f"{w.filename}:{w.lineno}" for w in hits})
+
+
+class _Occupancy:
+    """Time-throttled samples of the slot allocator's occupancy."""
+
+    def __init__(self, slots, period_s: float = 2e-3):
+        self.slots, self.period, self.samples, self._last = \
+            slots, period_s, [], 0.0
+
+    def tick(self) -> None:
+        now = time.perf_counter()
+        if now - self._last >= self.period:
+            self.samples.append(self.slots.occupancy())
+            self._last = now
+
+    def result(self) -> dict:
+        if not self.samples:
+            return {"mean": 0.0, "peak": 0.0}
+        return {"mean": float(np.mean(self.samples)),
+                "peak": float(np.max(self.samples))}
+
+
+def _percentiles(xs, scale: float):
+    if not len(xs):
+        return 0.0, 0.0
+    arr = np.asarray(xs) * scale
+    return float(np.percentile(arr, 50)), float(np.percentile(arr, 99))
+
+
+def _serve_metrics(report: dict, wall: float) -> dict:
+    """The reference's serve-traffic numbers of one cell."""
+    ttft = _percentiles(report["ttft_s"], 1e3)
+    gap = _percentiles(report["gap_s"], 1e6)
+    return {"ttft_p50_ms": ttft[0], "ttft_p99_ms": ttft[1],
+            "tok_p50_us": gap[0], "tok_p99_us": gap[1],
+            "goodput_tok_s": report["tokens"] / wall if wall > 0 else 0.0,
+            "tokens": report["tokens"], "wall_s": wall}
+
+
+def _exactly_once(case: str, report: dict, n_clients: int) -> dict:
+    bad = {k: report[k] for k in ("lost", "duplicated", "mismatched",
+                                  "out_of_order", "bad_done", "unexpected")
+           if report[k]}
+    if bad or report["submitted"] != n_clients \
+            or report["completed"] != report["submitted"]:
+        raise AssertionError(f"{case}: exactly-once contract violated: "
+                             f"submitted {report['submitted']}, completed "
+                             f"{report['completed']}, {bad}")
+    return {k: report[k] for k in ("submitted", "completed", "lost",
+                                   "duplicated", "mismatched",
+                                   "out_of_order", "submit_retries")}
+
+
+def warm_tick(torch) -> None:
+    """One decode tick's device work on dummy rows (the model's decode,
+    ``ResultTokens.pack`` and ``wire_rows``, a gather, the unfused
+    stack and clone, a first-token row), so that a cell's first requests
+    do not pay the process's first launches of these kernels.  Launches
+    the gather once: run it before the counts are set to 0."""
+    from repro_torch.kernels.doorbell import stage_copy_rows
+    from repro_torch.serving import (ResultTokens, SyntheticModel,
+                                     encode_token_row)
+    model = SyntheticModel(seed=SEED, device=DEVICE)
+    toks = model.decode([1, 2, 3, 4], [0, 1, 2, 3])
+    res = ResultTokens.pack([3, 0, 2, 1], [1, 2, 3, 4], toks, [1, 2, 3, 4],
+                            [0, 0, 0, 1], 8)
+    rows = [row for _, row in res.wire_rows()]
+    stage_copy_rows(rows)
+    torch.stack(rows[:2])
+    rows[0].clone()
+    encode_token_row(1, 0, toks[0], 0)
+    torch.cuda.synchronize()
+
+
+def serve_cell(torch, card, n_clients, duration, chaos_drop=0.0):
+    """One open-loop cell of the reference's serve traffic on
+    ``LocalCluster(2, device="cuda")`` over ``sim``: the client submits
+    on the schedule, the server steps between arrivals, and the run
+    drains every token.  The whole traffic runs under the sync counter
+    and the ``torch.stack`` counter; the client's streams are checked
+    against the oracle only after the run (``TokenClient.collect``)."""
+    from repro_torch.core import LocalCluster
+    from repro_torch.kernels.doorbell import stage_copy, stage_copy_rows
+    from repro_torch.serving import (ContinuousBatcher, ServePlane,
+                                     SyntheticModel, TokenClient)
+    case = f"c{n_clients}/d{duration:g}" + ("/chaos_drop" if chaos_drop
+                                            else "")
+    attrs = {}
+    if chaos_drop:
+        attrs = {"chaos_drop": chaos_drop, "chaos_seed": SEED + 1}
+    cl = LocalCluster(2, device=DEVICE, attrs=attrs, fabric_depth=1 << 15)
+    try:
+        plane = ServePlane(cl)
+        model = SyntheticModel(seed=SEED, device=DEVICE)
+        server = ContinuousBatcher(plane, model,
+                                   **server_overrides(n_clients))
+        client = TokenClient(plane, model, drain_workers=2)
+        bursts = _DecodeBursts(server)
+        occ = _Occupancy(server.slots)
+        arrivals, prompts, outs = make_workload(n_clients, duration, SEED)
+        launches0, dense0 = stage_copy_rows.launches, stage_copy.launches
+        with _StackCount(torch) as stack, _SyncCount(torch) as syncs:
+            bursts.stack = stack
+            t0 = time.perf_counter()
+            for i in range(n_clients):
+                while time.perf_counter() - t0 < arrivals[i]:
+                    server.step()
+                    occ.tick()
+                rid, st = client.submit(prompts[i], int(outs[i]))
+                deadline = time.monotonic() + SUBMIT_DEADLINE_S
+                while st.is_retry():
+                    server.step()
+                    occ.tick()
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"{case}: submit wedged at "
+                                             f"client {i}")
+                    rid, st = client.submit(prompts[i], int(outs[i]),
+                                            rid=rid)
+            deadline = time.monotonic() + DRAIN_DEADLINE_S
+            while not (server.completed >= n_clients and server.idle):
+                server.step()
+                occ.tick()
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{case}: server stalled: "
+                                         f"{server.counters()}")
+            while client.drain.drained < client.expected_tokens:
+                client.pump()
+                if time.monotonic() > deadline:
+                    break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        report = client.collect()
+        launches = stage_copy_rows.launches - launches0
+        dense = stage_copy.launches - dense0
+        b = bursts.summary()
+        rel = [rt.rel.counters()["retransmits"] for rt in cl.runtimes
+               if rt.rel is not None]
+        counters = server.counters()
+        rec = {"case": case, "backend": "sim", "card": card,
+               "clients": n_clients, "duration_s": duration,
+               "chaos_drop": chaos_drop,
+               **_exactly_once(case, report, n_clients),
+               **_serve_metrics(report, wall),
+               "slot_occupancy_mean": occ.result()["mean"],
+               "slot_occupancy_peak": occ.result()["peak"],
+               "preemptions": counters["preemptions"],
+               "retransmits": sum(rel), "server": counters,
+               "kernel_launches": launches, **b,
+               "dense_stage_copy_launches": dense,
+               "torch_stack_calls": stack.calls,
+               "host_syncs_on_server_tick": syncs.calls,
+               "host_sync_sites": syncs.where}
+        # one gather a fused decode doorbell and no stack in one; the only
+        # stacks on the tick are those of unfused 2- and 3-row bursts
+        if launches != b["launches_wanted"] or dense \
+                or b["torch_stack_calls_fused"] \
+                or stack.calls != b["torch_stack_calls_unfused"]:
+            raise AssertionError(f"{case}: {launches} gather launches for "
+                                 f"{b['fused_decode_doorbells']} fused "
+                                 f"decode doorbells (want "
+                                 f"{b['launches_wanted']}), {dense} dense "
+                                 f"stage copies, {stack.calls} torch.stack "
+                                 f"calls ({b['torch_stack_calls_fused']} in "
+                                 "fused doorbells)")
+        if syncs.calls:
+            raise AssertionError(f"{case}: {syncs.calls} host syncs on the "
+                                 f"server's tick at {syncs.where}")
+        if server.completed != n_clients:
+            raise AssertionError(f"{case}: the server completed "
+                                 f"{server.completed} of {n_clients}")
+        return rec
+    finally:
+        cl.close()
+
+
+def serve_xproc_case(card):
+    """The cross-process cell: two ranks of ``chip_smoke.py
+    --serve-rank`` through the port's SPMD launcher on ``shm``, rank 0
+    the client and rank 1 the server, both on the one card."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import spmd
+    outdir = tempfile.mkdtemp(prefix="chip-smoke-serve-")
+    n_clients, duration = SERVE_XPROC
+    t0 = time.perf_counter()
+    try:
+        code = spmd.launch([sys.executable, os.path.abspath(__file__),
+                            "--serve-rank", outdir], 2, backend="shm",
+                           timeout=SERVE_CHILD_TIMEOUT,
+                           env={"PYTHONPATH": _src_path()})
+        frags = {}
+        for r in range(2):
+            path = os.path.join(outdir, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    frags[r] = json.load(f)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    if code != 0 or len(frags) != 2:
+        raise AssertionError(f"the two-process serve cell exited {code} "
+                             f"with {len(frags)} rank reports: {frags}")
+    client, server = frags[0], frags[1]
+    case = f"c{n_clients}/d{duration:g}/xproc/shm"
+    rec = {"case": case, "backend": "shm", "card": card,
+           "clients": n_clients, "duration_s": duration,
+           **_exactly_once(case, client["report"], n_clients),
+           **client["metrics"],
+           "slot_occupancy_mean": server["occupancy"]["mean"],
+           "slot_occupancy_peak": server["occupancy"]["peak"],
+           "preemptions": server["counters"]["preemptions"],
+           "retransmits": 0, "server": server["counters"],
+           **{k: server[k] for k in (
+               "kernel_launches", "decode_doorbells",
+               "fused_decode_doorbells", "fused_share", "rows_in_fused",
+               "max_burst", "launches_wanted", "torch_stack_calls",
+               "torch_stack_calls_fused", "torch_stack_calls_unfused",
+               "dense_stage_copy_launches", "frames_encoded",
+               "cuda_frames_encoded", "copies_to_host", "copies_to_card")},
+           "seconds": time.perf_counter() - t0}
+    if server["counters"]["completed"] != n_clients:
+        raise AssertionError(f"{case}: the server completed "
+                             f"{server['counters']['completed']}")
+    return rec
+
+
+def serve_rank(outdir) -> int:
+    """One rank of the two-process serve cell (rank 0 the client, rank 1
+    the server, over ``shm``): writes its fragment to ``outdir``.  The
+    server gates one gather a fused decode doorbell and one copy to the
+    host a CUDA frame; the client sends the end-of-traffic message only
+    after draining every expected token."""
+    import torch
+    from repro_torch.core import ProcessCluster
+    from repro_torch.kernels.doorbell import stage_copy, stage_copy_rows
+    from repro_torch.launch.spmd import bootstrap
+    from repro_torch.serving import (ContinuousBatcher, ServePlane,
+                                     SyntheticModel, TokenClient)
+    ctx = bootstrap()
+    n_clients, duration = SERVE_XPROC
+    cl = ProcessCluster(ctx.n_ranks, ctx.rank, fabric_depth=1 << 15,
+                        session=os.path.join(ctx.session, "serve"),
+                        device=DEVICE)
+    plane = ServePlane(cl, client_rank=0, server_rank=1)
+    model = SyntheticModel(seed=SEED, device=DEVICE)
+    if ctx.rank == 1:
+        warm_tick(torch)             # before the client starts its clock
+    ctx.barrier(timeout=60)
+    if ctx.rank == 1:
+        server = ContinuousBatcher(plane, model,
+                                   **server_overrides(n_clients))
+        bursts = _DecodeBursts(server)
+        occ = _Occupancy(server.slots)
+        launches0, dense0 = stage_copy_rows.launches, stage_copy.launches
+        wire0 = _wire_counts()
+        deadline = time.monotonic() + duration + DRAIN_DEADLINE_S
+        with _StackCount(torch) as stack:
+            bursts.stack = stack
+            while not (server.eot_seen and server.idle):
+                server.step()
+                occ.tick()
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"serve rank 1: stalled "
+                                         f"{server.counters()}")
+        torch.cuda.synchronize()
+        frames, cuda, to_host, to_card = _since(wire0)
+        out = {"role": "server", "counters": server.counters(),
+               "occupancy": occ.result(),
+               "kernel_launches": stage_copy_rows.launches - launches0,
+               "dense_stage_copy_launches": stage_copy.launches - dense0,
+               "frames_encoded": frames, "cuda_frames_encoded": cuda,
+               "copies_to_host": to_host, "copies_to_card": to_card,
+               "torch_stack_calls": stack.calls, **bursts.summary()}
+        # one gather and no stack a fused decode doorbell; every CUDA
+        # frame (a burst or a lone row) crosses to the host once
+        if out["kernel_launches"] != out["launches_wanted"] \
+                or out["dense_stage_copy_launches"] or not cuda \
+                or out["torch_stack_calls_fused"] \
+                or stack.calls != out["torch_stack_calls_unfused"] \
+                or to_host != cuda or to_card:
+            raise AssertionError(f"serve rank 1: {out}")
+    else:
+        client = TokenClient(plane, model, drain_workers=2)
+        arrivals, prompts, outs = make_workload(n_clients, duration, SEED)
+        t0 = time.perf_counter()
+        for i in range(n_clients):
+            while time.perf_counter() - t0 < arrivals[i]:
+                client.pump()
+            rid, st = client.submit(prompts[i], int(outs[i]))
+            deadline = time.monotonic() + SUBMIT_DEADLINE_S
+            while st.is_retry():
+                client.pump()
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"serve rank 0: submit wedged at "
+                                         f"client {i}")
+                rid, st = client.submit(prompts[i], int(outs[i]), rid=rid)
+        deadline = time.monotonic() + DRAIN_DEADLINE_S
+        while client.drain.drained < client.expected_tokens:
+            client.pump()
+            if time.monotonic() > deadline:
+                raise AssertionError("serve rank 0: tokens never drained")
+        wall = time.perf_counter() - t0
+        client.send_eot()
+        for _ in range(200):                 # flush the EOT
+            client.pump()
+        report = client.collect()
+        out = {"role": "client",
+               "report": {k: v for k, v in report.items()
+                          if k not in ("ttft_s", "gap_s")},
+               "metrics": _serve_metrics(report, wall)}
+    with open(os.path.join(outdir, f"rank{ctx.rank}.json"), "w") as f:
+        json.dump(out, f)
+    ctx.barrier(timeout=60)
+    cl.close()
+    ctx.close()
+    return 0
+
+
+def mirrors_case(torch):
+    """The functional mirrors: one seeded sequence of ``insert_batch``
+    (duplicate keys, both kinds), ``probe_batch`` (duplicates), ring
+    pushes and pops past full and empty, and sync signals past the
+    payload's slots, on CUDA tensors and on CPU tensors, compared
+    bitwise; the CUDA run under the sync counter."""
+    from repro_torch.core import (encode_key, init_ring, init_sync,
+                                  init_table, insert_batch, pending_count,
+                                  probe_batch, ring_pop, ring_push,
+                                  ring_size, sync_ready, sync_signal)
+    rng = np.random.default_rng(SEED + 16)
+    pool = np.array([int(encode_key(r, t)) for r in range(8)
+                     for t in range(8)] + [2**31 - 1, -5, 0x3FFF0000],
+                    np.int32)
+    n = 256
+    keys = pool[rng.integers(0, len(pool), n)]
+    kinds = rng.integers(1, 3, n).astype(np.int32)
+    vals = rng.integers(0, 1 << 30, n).astype(np.int32)
+    probes = pool[rng.integers(0, len(pool), 128)]
+    ring_ops = rng.random(96) < 0.55
+    records = rng.normal(size=(96, 4)).astype(np.float32)
+
+    def inputs(dev):
+        return [torch.from_numpy(x).to(dev)
+                for x in (keys, kinds, vals, probes, records)]
+
+    def run(dev, keys, kinds, vals, probes, recs):
+        t = init_table(64, 8, device=dev)
+        t, m, s = insert_batch(t, keys, kinds, vals)
+        t, pv, ph = probe_batch(t, probes, 1)
+        ring = init_ring(16, 4, torch.float32, device=dev)
+        outs = []
+        for i, push in enumerate(ring_ops):
+            if push:
+                ring, st = ring_push(ring, recs[i])
+                outs.append(st)
+            else:
+                ring, rec, st = ring_pop(ring)
+                outs += [rec, st]
+        sync = init_sync(40, 4, device=dev)
+        for rec in recs[:48]:
+            sync = sync_signal(sync, rec)
+        return [t.keys, t.kinds, t.vals, m, s, pv, ph, pending_count(t),
+                ring.buf, ring.head, ring.tail, ring_size(ring),
+                sync.received, sync.payload, sync_ready(sync)] + outs
+
+    on_dev = inputs(DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _SyncCount(torch) as syncs:      # the mirrors' calls only
+        on_card = run(DEVICE, *on_dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    on_cpu = run("cpu", *inputs("cpu"))
+    wrong = [i for i, (a, b) in enumerate(zip(on_card, on_cpu))
+             if a.dtype != b.dtype or not torch.equal(a.cpu(), b)]
+    if wrong:
+        raise AssertionError(f"the functional mirrors differ across "
+                             f"devices at outputs {wrong}")
+    if syncs.calls:
+        raise AssertionError(f"the functional mirrors synced the host "
+                             f"{syncs.calls} times at {syncs.where}")
+    hits = int(on_cpu[6].sum())
+    return {"case": "functional_mirrors", "inserts": n,
+            "matched": int((on_cpu[3] >= 0).sum()),
+            "bucket_full": int((on_cpu[4] == 2).sum()), "probes": 128,
+            "probe_hits": hits, "ring_ops": int(len(ring_ops)),
+            "sync_signals": 48, "bitwise_equal": True,
+            "host_syncs": syncs.calls, "card_s": card_s}
+
+
+def kmer_case(torch, n_ranks):
+    """``run_kmer_count`` on a card-bound cluster at ``configs/paper.py``'s
+    quick sizes and the reference benchmark's seed
+    (``benchmarks/kmer.py``), exact by its rule: every k-mer that occurs
+    twice or more is counted exactly; the Bloom filter's false positives
+    may add k-mers counted once, which are reported."""
+    from repro_torch.apps.kmer import (generate_reads, reference_count,
+                                       run_kmer_count)
+    from repro_torch.configs.paper import PAPER
+    reads = generate_reads(PAPER.kmer_reads // 4, PAPER.kmer_read_len,
+                           seed=KMER_SEED)
+    hist, stats = run_kmer_count(reads, PAPER.kmer_k, n_ranks,
+                                 agg_bytes=PAPER.kmer_agg_bytes,
+                                 device=DEVICE)
+    oracle = reference_count(reads, PAPER.kmer_k)
+    missing = sum(1 for k in oracle if hist.get(k, 0) != oracle[k])
+    extra = {k: n for k, n in hist.items() if k not in oracle}
+    if missing or any(n != 1 for n in extra.values()):
+        raise AssertionError(f"k-mer counts on {n_ranks} ranks: {missing} "
+                             f"of {len(oracle)} repeated k-mers wrong, "
+                             f"extra {extra}")
+    return {"case": f"kmer_ranks{n_ranks}", "reads": len(reads),
+            "k": PAPER.kmer_k, "repeated_kmers": len(oracle),
+            "exact": True, "bloom_false_positives": len(extra),
+            "messages": stats.messages, "bytes_sent": stats.bytes_sent,
+            "aggregation_flushes": stats.aggregation_flushes,
+            "elapsed_s": stats.elapsed_s}
+
+
+def serve_phase(torch, card):
+    """a) the sim cells; b) the chaos cell; c) the two-process shm cell;
+    d) the functional mirrors across devices; e) the k-mer app."""
+    out = {"cells": []}
+    t0 = time.perf_counter()
+    for n, dur in SERVE_CELLS:
+        out["cells"].append(serve_cell(torch, card, n, dur))
+    n, dur, drop = SERVE_CHAOS
+    out["cells"].append(serve_cell(torch, card, n, dur, chaos_drop=drop))
+    if not out["cells"][-1]["retransmits"]:
+        raise AssertionError("the chaos serve cell retransmitted nothing: "
+                             "the faults did not fire")
+    out["sim_s"] = time.perf_counter() - t0
+    out["cells"].append(serve_xproc_case(card))
+    out["mirrors"] = mirrors_case(torch)
+    out["kmer"] = [kmer_case(torch, r) for r in (2, 4)]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2176,6 +2743,10 @@ def main(argv=None) -> int:
     ap.add_argument("--spmd-rank", metavar="DIR",
                     help="run as one rank of phase 15's two-process run "
                          "(the SPMD launcher starts it), reporting to DIR")
+    ap.add_argument("--serve-rank", metavar="DIR",
+                    help="run as one rank of phase 16's two-process serve "
+                         "cell (the SPMD launcher starts it), reporting to "
+                         "DIR")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2184,6 +2755,8 @@ def main(argv=None) -> int:
         return 2
     if args.spmd_rank:
         return spmd_rank(args.spmd_rank)
+    if args.serve_rank:
+        return serve_rank(args.serve_rank)
     from repro_torch.kernels import _build
     from repro_torch.kernels.doorbell import (stage_copy, stage_copy_push,
                                               stage_copy_rows)
@@ -2370,6 +2943,27 @@ def main(argv=None) -> int:
                              f"the push {stage_copy_push.launches} times "
                              "(want only the gather)")
 
+    # 16. serving on the comm core: counts set to 0 just before, read
+    # just after (after one warm-up tick)
+    warm_tick(torch)
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    serve = serve_phase(torch, card)
+    v_launches = stage_copy_rows.launches
+    v_ranks = serve["cells"][-1]["kernel_launches"]
+    for cell in serve["cells"]:
+        record("serve_plane", **cell)
+    record("serve_plane_mirrors_kmer", seconds=time.perf_counter() - t0,
+           mirrors=serve["mirrors"], kmer=serve["kmer"])
+    if v_launches + v_ranks == 0 or stage_copy.launches \
+            or stage_copy_push.launches:
+        raise AssertionError(f"the serve plane launched the gather "
+                             f"{v_launches} times in process and {v_ranks} "
+                             f"times in the server rank, the dense stage "
+                             f"copy {stage_copy.launches} times and the "
+                             f"push {stage_copy_push.launches} times (want "
+                             "only the gather)")
+
     # the kernels line: headline numbers at each main path's shape
     head = next(c for c in cases if c["case"] == "rows_f32_64x16384_bf160")
     fhead = next(c for c in flash
@@ -2387,10 +2981,14 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [{
         "name": "doorbell.stage_copy_rows", "route": "cuda",
         "source": SOURCE, "replaces": REPLACES,
-        "launches": launches + t_launches + p_launches,
+        "launches": launches + t_launches + p_launches + v_launches
+        + v_ranks,
         "launches_by_path": {"message path (phase 4)": launches,
                              "transports (phase 15)": t_launches,
-                             "two processes (phase 15)": p_launches},
+                             "two processes (phase 15)": p_launches,
+                             "serve plane (phase 16)": v_launches,
+                             "serve plane, server rank (phase 16)":
+                                 v_ranks},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": "bytes",

@@ -9,24 +9,28 @@ the doorbell kernel (:mod:`repro_torch.kernels.doorbell`).
 Ported so far: the host runtime's fused-doorbell message path over the
 ``sim``, ``shm`` and ``socket`` transports, the binary codec (the
 reference's frames, byte for byte), the chaos and reliability planes,
-and ``ProcessCluster``.  Still to port (ROADMAP.md): the functional
-``Ring`` / ``SyncState`` / ``MatchTable`` mirrors and the in-graph
-collectives.
+``ProcessCluster``, and the functional ``Ring`` / ``SyncState`` /
+``MatchTable`` mirrors (plain functions on tensors).  Still to port
+(ROADMAP A4): the in-graph collectives.
 """
 from .attrs import (REGISTRY, AttrError, AttrResource, AttrSpec,
                     ResolvedAttrs, get_spec, parse_attr_args, register_attr,
                     registry_table, resolve, resolve_one,
                     resolved_from_values)
-from .backlog import BacklogQueue
+from .backlog import (BacklogQueue, Ring, init_ring, ring_pop, ring_push,
+                      ring_size)
 from .channels import Channel, Device, make_channels
 from .concurrency import (LCQ, AtomicCounter, AtomicCredit, AtomicFlag,
                           ProgressWorkerPool, ThreadSafeCompletionQueue,
                           TryLock, aggregate_lock_stats)
 from .completion import (CompletionHandler, CompletionObject, CompletionQueue,
-                         MPMCArray, Synchronizer)
+                         MPMCArray, Synchronizer, SyncState, init_sync,
+                         sync_ready, sync_signal)
 from .graph import CompletionGraph
-from .matching import (HostMatchingEngine, MatchKind, MatchingPolicy,
-                       make_key)
+from .matching import (HostMatchingEngine, MatchKind, MatchTable,
+                       MatchingPolicy, encode_key, init_table, insert,
+                       insert_batch, make_key, pending_count, probe,
+                       probe_batch)
 from .modes import CommConfig, CommMode, parse_mode
 from .off import OffBuilder, off
 from .packet_pool import (HostPacketPool, SlotPool, free_count,
@@ -66,8 +70,12 @@ __all__ = [
     "Synchronizer", "HostMatchingEngine", "HostPacketPool",
     "MatchingPolicy", "MatchKind", "make_channels", "make_key",
     # functional resources (tensor mirrors)
+    "Ring", "init_ring", "ring_push", "ring_pop", "ring_size",
     "SlotPool", "init_pool", "pool_get", "pool_put", "free_count",
     "pool_from_numpy", "pool_to_numpy",
+    "MatchTable", "init_table", "insert", "insert_batch", "encode_key",
+    "pending_count", "probe", "probe_batch",
+    "SyncState", "init_sync", "sync_signal", "sync_ready",
     # posting
     "CommKind", "Direction", "classify", "post_comm", "post_comm_x",
     "post_send", "post_send_x", "post_recv", "post_recv_x", "post_am",

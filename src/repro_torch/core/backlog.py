@@ -16,14 +16,18 @@ An optional capacity bound surfaces ``retry(RETRY_BACKLOG_FULL)`` on
 item (a rejected signal redelivery, a still-full fabric) must not fail,
 so the head push bypasses the capacity check.
 
-The reference also has a functional ring (``init_ring`` /
-``ring_push`` / ``ring_pop``) for jitted programs; its tensor mirror is
-not ported yet (see ROADMAP.md).
+The functional ring (:func:`init_ring` / :func:`ring_push` /
+:func:`ring_pop`) is the tensor mirror of the reference's jitted ring:
+plain functions on tensors that run on whatever device their inputs are
+on, branch-free, returning a new ring rather than mutating the old one.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 from typing import Any, Optional
+
+import torch
 
 from .concurrency.atomics import AtomicFlag
 from .concurrency.locks import TryLock
@@ -87,3 +91,59 @@ class BacklogQueue:
 
     def __len__(self) -> int:
         return len(self._q)
+
+
+# ---------------------------------------------------------------------------
+# Functional ring (the mirror of the reference's in-graph ring):
+#
+#   buf  (cap, width) int32/float payload records
+#   head ()           int32  -- next pop position (monotone counter)
+#   tail ()           int32  -- next push position (monotone counter)
+#
+# Indices wrap modulo cap; (tail - head) is the live count.  Every op is
+# tensor arithmetic selected with ``torch.where`` and indexed with
+# ``index_select`` / ``index_copy`` (no host branch, no index read back),
+# so a ring on the card never syncs with the host, and every op returns a
+# new ring: the old one stays valid, as the reference's values do.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Ring:
+    buf: torch.Tensor
+    head: torch.Tensor
+    tail: torch.Tensor
+
+
+def init_ring(cap: int, width: int, dtype=torch.int32, *,
+              device="cuda") -> Ring:
+    return Ring(buf=torch.zeros((cap, width), dtype=dtype, device=device),
+                head=torch.zeros((), dtype=torch.int32, device=device),
+                tail=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def ring_push(ring: Ring, record) -> tuple[Ring, torch.Tensor]:
+    """Push one record. Returns (ring', status): 0 ok, 1 full (retry)."""
+    cap = ring.buf.shape[0]
+    ok = ring.tail - ring.head < cap
+    pos = torch.remainder(ring.tail, cap).long().reshape(1)
+    record = torch.as_tensor(record, dtype=ring.buf.dtype,
+                             device=ring.buf.device)
+    row = torch.where(ok, record, ring.buf.index_select(0, pos))
+    return (Ring(ring.buf.index_copy(0, pos, row), ring.head,
+                 ring.tail + ok.to(torch.int32)),
+            torch.where(ok, 0, 1).to(torch.int32))
+
+
+def ring_pop(ring: Ring) -> tuple[Ring, torch.Tensor, torch.Tensor]:
+    """Pop one record. Returns (ring', record, status): 0 ok, 1 empty."""
+    cap = ring.buf.shape[0]
+    ok = ring.tail > ring.head
+    pos = torch.remainder(ring.head, cap).long().reshape(1)
+    row = ring.buf.index_select(0, pos)[0]
+    rec = torch.where(ok, row, torch.zeros_like(row))
+    return (Ring(ring.buf, ring.head + ok.to(torch.int32), ring.tail),
+            rec, torch.where(ok, 0, 1).to(torch.int32))
+
+
+def ring_size(ring: Ring) -> torch.Tensor:
+    return ring.tail - ring.head

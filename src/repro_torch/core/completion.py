@@ -7,7 +7,10 @@ graph."  The graph lives in :mod:`repro_torch.core.graph`.
 
 Host-side objects carry the paper's exact semantics and are used by the
 runtime (:mod:`repro_torch.core.runtime`).  The reference's in-graph
-``SyncState`` signal counter has no tensor mirror yet (see ROADMAP.md).
+signal counter has a tensor mirror here (:class:`SyncState`,
+:func:`init_sync`, :func:`sync_signal`, :func:`sync_ready`): plain
+functions on tensors that run on whatever device their inputs are on and
+return a new state rather than mutating the old one.
 
 Atomicity notes from the paper, and what happens to them here:
 
@@ -22,8 +25,11 @@ Atomicity notes from the paper, and what happens to them here:
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 from typing import Any, Callable, List, Optional
+
+import torch
 
 from . import attrs as _attrs
 from .status import ErrorCode, FatalError, Status, done, retry
@@ -299,3 +305,42 @@ class MPMCArray:
 
     def __len__(self) -> int:
         return self._n
+
+
+# ---------------------------------------------------------------------------
+# Functional synchronizer: a signal counter + fixed payload slots (the
+# mirror of the reference's in-graph one).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SyncState:
+    expected: torch.Tensor    # () int32
+    received: torch.Tensor    # () int32
+    payload: torch.Tensor     # (expected_max, width) float32
+
+
+def init_sync(expected: int, width: int, max_signals: int = 0, *,
+              device="cuda") -> SyncState:
+    cap = max(expected, max_signals, 1)
+    return SyncState(
+        expected=torch.full((), expected, dtype=torch.int32, device=device),
+        received=torch.zeros((), dtype=torch.int32, device=device),
+        payload=torch.zeros((cap, width), dtype=torch.float32,
+                            device=device))
+
+
+def sync_signal(state: SyncState, record) -> SyncState:
+    """Count one signal and store its record; signals past the payload's
+    last slot overwrite that slot, as the reference's clamped index
+    does."""
+    pos = torch.clamp(state.received, max=state.payload.shape[0] - 1)
+    row = torch.as_tensor(record, dtype=state.payload.dtype,
+                          device=state.payload.device)
+    row = row.expand(1, state.payload.shape[1])
+    return SyncState(state.expected, state.received + 1,
+                     state.payload.index_copy(0, pos.long().reshape(1),
+                                              row))
+
+
+def sync_ready(state: SyncState) -> torch.Tensor:
+    return state.received >= state.expected

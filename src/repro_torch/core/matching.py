@@ -19,9 +19,11 @@ Two implementations in the reference:
    inserts on different buckets never contend) and the whole
    check-complement/append step is atomic per bucket, which is what makes
    insert linearizable.
-2. The reference's functional engine (``init_table`` /
-   ``insert_batch`` / ``probe_batch``), a fixed-capacity hash table for
-   jitted programs, has no tensor mirror yet (see ROADMAP.md).
+2. The functional engine (:func:`init_table` / :func:`insert_batch` /
+   :func:`probe_batch`), the tensor mirror of the reference's
+   fixed-capacity hash table for jitted programs: plain functions on
+   tensors that run on whatever device their inputs are on, returning a
+   new table rather than mutating the old one.
 
 The paper's relaxed semantics (out-of-order delivery, restricted wildcard)
 are what make the hash-table design legal; we adopt the same semantics and
@@ -30,9 +32,12 @@ the same default bucket count (65536).
 from __future__ import annotations
 
 import collections
+import dataclasses
 import enum
 from typing import Any, Callable, Hashable, Optional, Sequence
 
+import numpy as np
+import torch
 
 from . import attrs as _attrs
 from .concurrency.atomics import AtomicCounter
@@ -284,3 +289,224 @@ class HostMatchingEngine(_attrs.AttrResource):
         return {"level": self.tele.level,
                 "counters": {f"matching.{k}": v
                              for k, v in self.telemetry_counters().items()}}
+
+
+# ---------------------------------------------------------------------------
+# Functional engine (the mirror of the reference's in-graph one).
+#
+# Fixed geometry: ``n_buckets`` x ``bucket_cap`` slots. State tensors:
+#   keys  (n_buckets, bucket_cap) int32   -- 0 == empty
+#   kinds (n_buckets, bucket_cap) int32   -- MatchKind or 0
+#   vals  (n_buckets, bucket_cap) int32   -- payload index (e.g. packet slot)
+#
+# Every op is tensor arithmetic: both sides of the reference's
+# ``lax.cond`` are computed and selected with ``torch.where``, and cells
+# are read and written with ``index_select`` / ``index_copy`` at a
+# computed flat index, so a table on the card never syncs with the host.
+# The batch forms resolve their keys one after another in a host loop of
+# fixed length, as the reference's ``lax.scan`` does: duplicate keys in
+# one burst each pop (or store) a distinct entry.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MatchTable:
+    keys: torch.Tensor
+    kinds: torch.Tensor
+    vals: torch.Tensor
+
+
+def init_table(n_buckets: int, bucket_cap: int, *,
+               device="cuda") -> MatchTable:
+    shape = (n_buckets, bucket_cap)
+    return MatchTable(
+        keys=torch.zeros(shape, dtype=torch.int32, device=device),
+        kinds=torch.zeros(shape, dtype=torch.int32, device=device),
+        vals=torch.full(shape, -1, dtype=torch.int32, device=device))
+
+
+def _i32(x, device=None) -> torch.Tensor:
+    """``x`` (a tensor, a host int or array) as an int32 tensor; a tensor
+    keeps its device unless ``device`` is given, host data goes to
+    ``device`` (the CPU when ``None``).  A host int is written by a fill
+    kernel: ``as_tensor`` would copy it from pageable host memory, which
+    blocks the host."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device or x.device, dtype=torch.int32)
+    if isinstance(x, (int, np.integer)):
+        return torch.full((), int(x), dtype=torch.int32, device=device)
+    return torch.as_tensor(x, dtype=torch.int32, device=device)
+
+
+#: Knuth's multiplier 2654435761 split into 16-bit halves: the uint32
+#: product is formed from two products that fit in int64
+_HASH_HI, _HASH_LO = 2654435761 >> 16, 2654435761 & 0xFFFF
+
+
+def _hash_key(key: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """Cheap integer hash (Knuth multiplicative) -> bucket index: the
+    reference's uint32 arithmetic in int64 (the key's bits as uint32,
+    the product kept to its low 32 bits before the shift)."""
+    k = key.to(torch.int64) & 0xFFFFFFFF
+    h = (k * _HASH_LO + ((k * _HASH_HI) & 0xFFFF) * 65536) & 0xFFFFFFFF
+    return ((h >> 16) % n_buckets).to(torch.int32)
+
+
+def encode_key(rank, tag, policy: MatchingPolicy = MatchingPolicy.RANK_TAG):
+    """Pack (rank, tag) into one nonzero int32 key under the policy.
+
+    Layout: bit 30 = nonzero marker, bits 16..29 = rank (14 bits),
+    bits 0..15 = tag.  (Bit 31 would overflow int32.)  The key lies on
+    the device of a tensor argument, else on the CPU."""
+    dev = next((x.device for x in (rank, tag)
+                if isinstance(x, torch.Tensor)), None)
+    rank = _i32(rank, dev)
+    tag = _i32(tag, dev)
+    if policy == MatchingPolicy.RANK_ONLY:
+        tag = torch.zeros_like(tag)
+    elif policy == MatchingPolicy.TAG_ONLY:
+        rank = torch.zeros_like(rank)
+    return ((rank & 0x3FFF) << 16) | (tag & 0xFFFF) | (1 << 30)
+
+
+def _first(mask: torch.Tensor) -> torch.Tensor:
+    """``jnp.argmax`` of a bool row: the first True index, 0 if none."""
+    idx = torch.arange(mask.shape[0], device=mask.device)
+    return torch.where(mask, idx, mask.shape[0]).min() % mask.shape[0]
+
+
+def _cell(arr: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    return arr.reshape(-1).index_select(0, flat)[0]
+
+
+def _with_cell(arr: torch.Tensor, flat: torch.Tensor, v) -> torch.Tensor:
+    """A copy of ``arr`` with the cell at ``flat`` set to ``v``."""
+    return arr.reshape(-1).index_copy(
+        0, flat, v.reshape(1).to(arr.dtype)).reshape(arr.shape)
+
+
+def _bucket(table: MatchTable, key: torch.Tensor):
+    """The key's bucket (a (1,) index) and its key and kind rows."""
+    b = _hash_key(key, table.keys.shape[0]).long().reshape(1)
+    return b, table.keys.index_select(0, b)[0], \
+        table.kinds.index_select(0, b)[0]
+
+
+def _insert(table: MatchTable, key, kind: torch.Tensor, comp, val):
+    """One insert of ``kind`` against its complement ``comp`` (int32
+    tensors): pop a complementary entry, else store in the first empty
+    slot, else leave the table as it was."""
+    dev = table.keys.device
+    key, val = _i32(key, dev), _i32(val, dev)
+    cap = table.keys.shape[1]
+    b, row_keys, row_kinds = _bucket(table, key)
+    is_match = (row_keys == key) & (row_kinds == comp)
+    any_match = is_match.any()
+    match_slot = _first(is_match)
+    matched_val = torch.where(any_match,
+                              _cell(table.vals, b * cap + match_slot), -1)
+    is_empty = row_kinds == 0
+    any_empty = is_empty.any()
+    # on match: clear the matched slot; on store: fill the empty slot
+    slot = torch.where(any_match, match_slot, _first(is_empty))
+    flat = b * cap + slot
+    can_write = any_match | any_empty
+
+    def write(arr, v):
+        return _with_cell(arr, flat,
+                          torch.where(can_write, v, _cell(arr, flat)))
+
+    table = MatchTable(write(table.keys, torch.where(any_match, 0, key)),
+                       write(table.kinds, torch.where(any_match, 0, kind)),
+                       write(table.vals, torch.where(any_match, -1, val)))
+    status = torch.where(any_match, 1, torch.where(any_empty, 0, 2))
+    return table, matched_val.to(torch.int32), status.to(torch.int32)
+
+
+def insert(table: MatchTable, key, kind: int, val):
+    """Insert one entry; returns (table', matched_val, status).
+
+    matched_val == -1 when no complementary entry existed (entry stored,
+    status=posted->0 stored / 1 matched); status==2 => bucket full (retry).
+    """
+    dev = table.keys.device
+    comp = MatchKind(kind).complement
+    return _insert(table, key, _i32(int(kind), dev), _i32(int(comp), dev),
+                   val)
+
+
+def _stack(parts, dtype, device) -> torch.Tensor:
+    return (torch.stack(parts) if parts
+            else torch.zeros(0, dtype=dtype, device=device))
+
+
+def insert_batch(table: MatchTable, keys, kinds, vals):
+    """Sequential batch insert (keeps matching semantics exact): key
+    ``i`` is resolved against the table keys ``0..i-1`` left."""
+    dev = table.keys.device
+    keys, kinds, vals = _i32(keys, dev), _i32(kinds, dev), _i32(vals, dev)
+    send, recv = int(MatchKind.SEND), int(MatchKind.RECV)
+    matched, status = [], []
+    for i in range(keys.shape[0]):
+        comp = torch.where(kinds[i] == send, recv, send)
+        table, m, s = _insert(table, keys[i], kinds[i], comp, vals[i])
+        matched.append(m)
+        status.append(s)
+    return (table, _stack(matched, torch.int32, dev),
+            _stack(status, torch.int32, dev))
+
+
+def _probe(table: MatchTable, key: torch.Tensor, comp: int, gate=None):
+    """Pop a complementary entry if one is stored (and ``gate`` holds);
+    never store."""
+    cap = table.keys.shape[1]
+    b, row_keys, row_kinds = _bucket(table, key)
+    is_match = (row_keys == key) & (row_kinds == comp)
+    any_match = is_match.any() if gate is None else is_match.any() & gate
+    flat = b * cap + _first(is_match)
+    matched_val = torch.where(any_match, _cell(table.vals, flat), -1)
+
+    def clear(arr, empty):
+        return _with_cell(arr, flat,
+                          torch.where(any_match, empty, _cell(arr, flat)))
+
+    table = MatchTable(clear(table.keys, 0), clear(table.kinds, 0),
+                       clear(table.vals, -1))
+    return table, matched_val.to(torch.int32), any_match
+
+
+def probe(table: MatchTable, key, kind: int):
+    """Functional ``match_now``: pop a complementary entry if one is
+    already stored — NEVER store.  Returns ``(table', matched_val,
+    hit)``; ``matched_val == -1`` and ``hit == False`` when no
+    complement is present (the caller falls back to :func:`insert`)."""
+    return _probe(table, _i32(key, table.keys.device),
+                  int(MatchKind(kind).complement))
+
+
+def probe_batch(table: MatchTable, keys, kind: int):
+    """Vectorized burst probe — the fused doorbell's one hashed-array
+    pass: every key is hashed and its bucket row compared in a single
+    vectorized gather, producing a per-key candidate mask; the actual
+    pops then resolve one after another, because duplicate keys in one
+    burst must each pop a *distinct* pre-posted entry — the same
+    exactness argument as :func:`insert_batch`.  Returns ``(table',
+    matched_vals, hits)`` aligned with ``keys``."""
+    dev = table.keys.device
+    keys = _i32(keys, dev)
+    comp = int(MatchKind(kind).complement)
+    # the one hashed-array pass: (k,) bucket indices, (k, cap) gathered
+    # rows, one vectorized candidate mask over the whole burst
+    b = _hash_key(keys, table.keys.shape[0]).long()
+    candidates = ((table.keys.index_select(0, b) == keys[:, None])
+                  & (table.kinds.index_select(0, b) == comp)).any(dim=1)
+    vals, hits = [], []
+    for i in range(keys.shape[0]):
+        table, v, ok = _probe(table, keys[i], comp, candidates[i])
+        vals.append(v)
+        hits.append(ok)
+    return (table, _stack(vals, torch.int32, dev),
+            _stack(hits, torch.bool, dev))
+
+
+def pending_count(table: MatchTable) -> torch.Tensor:
+    return (table.kinds != 0).sum().to(torch.int32)

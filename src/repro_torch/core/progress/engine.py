@@ -104,6 +104,9 @@ class ProgressEngine:
         self._passes = AtomicCounter()
         self._reactions = AtomicCounter()
         self._burst_posts = AtomicCounter()
+        # (id(device), id(comp)) -> signals to ``comp`` parked in that
+        # device's backlog: a later signal to the comp queues behind them
+        self._parked_signals: Dict[Tuple[int, int], int] = {}
 
     @property
     def passes(self) -> int:
@@ -813,6 +816,12 @@ class ProgressEngine:
                 if comp.signal(st2).is_retry():
                     dev.backlog.push_front(item)
                     break
+                key = (id(dev), id(comp))
+                left = self._parked_signals.get(key, 0) - 1
+                if left > 0:
+                    self._parked_signals[key] = left
+                else:
+                    self._parked_signals.pop(key, None)
                 did = True
         return did
 
@@ -1075,10 +1084,25 @@ class ProgressEngine:
         and the next progress pass redelivers (paper §4.4)."""
         if comp is None:
             return
+        dev = dev or self.rt.default_device
+        if self._parked_signals and (id(dev), id(comp)) \
+                in self._parked_signals:
+            self._park_signal(dev, comp, st)    # behind the parked ones
+            return
         result = comp.signal(st)
         if isinstance(result, Status) and result.is_retry():
-            dev = dev or self.rt.default_device
-            dev.backlog.push(("signal", comp, st))
+            self._park_signal(dev, comp, st)
+
+    def _park_signal(self, dev, comp: CompletionObject, st: Status) -> None:
+        """Park a signal ``comp`` rejected (or one that must wait behind
+        signals parked earlier) in the device backlog.  While any signal
+        to ``comp`` waits there, :meth:`signal` and :meth:`signal_many`
+        park later ones behind it, so a completion freed by a consumer in
+        the meantime cannot overtake an earlier one: per-comp FIFO holds
+        on a bounded queue."""
+        if dev.backlog.push(("signal", comp, st)).is_done():
+            key = (id(dev), id(comp))
+            self._parked_signals[key] = self._parked_signals.get(key, 0) + 1
 
     def signal_many(self, comp: Optional[CompletionObject],
                     statuses: List[Status], dev=None) -> None:
@@ -1087,6 +1111,12 @@ class ProgressEngine:
         prefix-accept's tail, in order) parks in the device backlog for
         in-order redelivery, exactly like scalar :meth:`signal`."""
         if comp is None or not statuses:
+            return
+        dev = dev or self.rt.default_device
+        if self._parked_signals and (id(dev), id(comp)) \
+                in self._parked_signals:
+            for st in statuses:                 # behind the parked ones
+                self._park_signal(dev, comp, st)
             return
         tele = self.tele
         if tele.timers_on:
@@ -1097,7 +1127,6 @@ class ProgressEngine:
         last = results[-1] if results else None
         if not (isinstance(last, Status) and last.is_retry()):
             return          # rejects are a suffix: clean last = clean burst
-        dev = dev or self.rt.default_device
         for st, r in zip(statuses, results):
             if isinstance(r, Status) and r.is_retry():
-                dev.backlog.push(("signal", comp, st))
+                self._park_signal(dev, comp, st)

@@ -4,7 +4,7 @@ The mirror of :mod:`repro.distributed.comm` for the ``local_comm()``
 deployment: no mesh axes, tp = 1, every collective the identity and
 ``weight()`` a no-op.  Model code is written against the same method
 names as the reference, so the multi-rank ``Comm`` on
-``torch.distributed`` (ROADMAP A7) slots in without touching it.
+``torch.distributed`` (ROADMAP A4) slots in without touching it.
 """
 from __future__ import annotations
 

@@ -119,7 +119,7 @@ def attention_op(x: torch.Tensor, p: Dict[str, torch.Tensor],
     un-residual.  One flash-attention launch on CUDA."""
     if comm.tp != 1:
         raise NotImplementedError("attention_op: tp > 1 is not ported "
-                                  "(ROADMAP A7)")
+                                  "(ROADMAP A4)")
     dh = cfg.resolved_head_dim
     s, b = x.shape[:2]
     nq, nkv = plan.q_local(cfg), plan.kv_local(cfg)

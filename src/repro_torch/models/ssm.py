@@ -234,7 +234,7 @@ def ssm_op(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
     SSD-scan and one RMSNorm launch on CUDA."""
     if comm.tp != 1:
         raise NotImplementedError("ssm_op: tp > 1 is not ported "
-                                  "(ROADMAP A7)")
+                                  "(ROADMAP A4)")
     s, bs, _ = x.shape
     h, g, n = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
     z, xs, dt_raw, b, c = ssm_in_proj(x, p, comm, prefix)

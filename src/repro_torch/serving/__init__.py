@@ -1,15 +1,25 @@
 """Serving on the port: the decode/prefill engine for the dense, moe, ssm
-and hybrid families, the paged KV allocator and the continuous-batching
-scheduler.
+and hybrid families, the paged KV allocator, the continuous-batching
+scheduler, and serving on the comm core (``ContinuousBatcher``,
+``ServePlane``, ``TokenClient``) with each tick's tokens on the engine's
+device.
 
-Still to port (ROADMAP A6): ``batching`` (``ContinuousBatcher``,
-``ServePlane``), ``slots`` and ``result_tokens``; ``cache_pspecs`` waits
-for the multi-rank ``Comm`` (A7)."""
+Still to port: ``cache_pspecs``, which waits for the multi-rank ``Comm``
+(ROADMAP A4)."""
 from .engine import DecodeCache, init_cache, make_prefill_step, \
     make_serve_step
 from .kv_cache import PagedKVAllocator
 from .scheduler import Request, ResultDrain, ServeScheduler, ServeTransport
+from .result_tokens import (ResultTokens, SlotData, decode_token_row,
+                            encode_token_row)
+from .slots import SERVING_ATTRS, SlotAllocator
+from .batching import (ContinuousBatcher, ServePlane, SyntheticModel,
+                       TokenClient)
 
 __all__ = ["DecodeCache", "init_cache", "make_serve_step",
            "make_prefill_step", "PagedKVAllocator", "Request",
-           "ResultDrain", "ServeScheduler", "ServeTransport"]
+           "ResultDrain", "ServeScheduler", "ServeTransport",
+           "ResultTokens", "SlotData", "encode_token_row",
+           "decode_token_row", "SERVING_ATTRS", "SlotAllocator",
+           "ContinuousBatcher", "ServePlane", "SyntheticModel",
+           "TokenClient"]

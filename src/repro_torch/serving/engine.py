@@ -187,7 +187,7 @@ def make_serve_step(cfg: ModelConfig, comm: Optional[Comm] = None, *,
     lm_mod.require_ported(cfg, "make_serve_step")
     if joint_kv or tp2d:
         raise NotImplementedError("make_serve_step: joint_kv and tp2d "
-                                  "serving are not ported (ROADMAP A7)")
+                                  "serving are not ported (ROADMAP A4)")
     comm = comm or local_comm()
     plan = tp_plan(cfg, comm.tp)
     final_kind = lm_mod.final_norm_kind(cfg)

@@ -1,9 +1,11 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions: the doorbell stage copy (B1), flash attention (B2, any head dim
 up to 256), RMSNorm (B3), the MoE grouped matmul (B4) and the SSD scan
-(B5), plus the model path's launch counts, and CUDA doorbells over the
+(B5), plus the model path's launch counts, CUDA doorbells over the
 ``shm`` and ``socket`` transports (one gather, one copy to the host a
-frame, one back to the card a frame of rows for CUDA recv buffers).
+frame, one back to the card a frame of rows for CUDA recv buffers), the
+serve plane's decode bursts (one gather a fused doorbell, no host sync
+on the server's tick) and the functional mirrors across devices.
 
 Every test here is marked ``gpu`` and skips without a CUDA card (the
 decision is taken in a fixture, never at import).  The file imports no
@@ -313,6 +315,153 @@ def test_transport_retransmit_copies_again(cuda):
     assert rel["retransmits"] > 0
     assert 8 <= to_c <= to_h
     assert torch.equal(have, want)
+
+
+# ---------------------------------------------------------------------------
+# serving on the comm core: token bursts staged by B1 on the card
+# ---------------------------------------------------------------------------
+
+class _DecodeBursts:
+    """Records the size of every ``post_am_many`` the server's decode
+    endpoint rings and the ``torch.stack`` calls made inside it.  A burst
+    of ``fused_min_burst`` rows or more is one fused doorbell, one gather
+    launch a 256 rows and no stack; 2 or 3 rows post unfused and take
+    one stack copy (``fabric.py::payloads_to_bytes``)."""
+
+    def __init__(self, server):
+        self.sizes, self.stacks = [], []
+        self.fused_min = server.runtime.fused_min_burst
+        ep = server.decode_ep
+        real = ep.post_am_many
+
+        def counted(rank, bufs, *a, **kw):
+            real_stack, calls = torch.stack, []
+
+            def stack(*sa, **skw):
+                calls.append(1)
+                return real_stack(*sa, **skw)
+            torch.stack = stack
+            try:
+                return real(rank, bufs, *a, **kw)
+            finally:
+                torch.stack = real_stack
+                self.sizes.append(len(bufs))
+                self.stacks.append(len(calls))
+        ep.post_am_many = counted
+
+    @property
+    def fused(self):
+        return [k for k in self.sizes if k >= self.fused_min]
+
+    def launches(self):
+        from repro_torch.kernels.doorbell.ops import ROWS_PER_LAUNCH
+        return sum(-(-k // ROWS_PER_LAUNCH) for k in self.fused)
+
+    def fused_stacks(self):
+        return sum(n for k, n in zip(self.sizes, self.stacks)
+                   if k >= self.fused_min)
+
+
+def test_serve_plane_stages_decode_bursts_on_the_card(cuda):
+    """A small continuous-batching run on a card-bound cluster: every
+    fused decode doorbell is one gather launch with no ``torch.stack``,
+    no dense stage copy runs, no host sync happens on the server's tick,
+    and every stream is exact."""
+    from repro_torch.serving import (ContinuousBatcher, ServePlane,
+                                     SyntheticModel, TokenClient)
+    cl = LocalCluster(2, device=cuda)
+    try:
+        plane = ServePlane(cl)
+        model = SyntheticModel(seed=3, device=cuda)
+        server = ContinuousBatcher(plane, model, kv_slots=8,
+                                   kv_page_tokens=8, prefill_chunk=16)
+        client = TokenClient(plane, model, drain_workers=2)
+        bursts = _DecodeBursts(server)
+        rng = np.random.default_rng(0)
+        before = (db.stage_copy_rows.launches, db.stage_copy.launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for rid in range(1, 25):
+                prompt = rng.integers(0, 1000, int(rng.integers(1, 40))
+                                      ).astype(np.int32)
+                _, st = client.submit(prompt, int(rng.integers(4, 12)),
+                                      rid=rid)
+                assert st.is_done()
+                server.step()
+            server.run_until_idle()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        while client.drain.drained < client.expected_tokens:
+            client.pump()
+        report = client.collect()
+        launches = db.stage_copy_rows.launches - before[0]
+        assert db.stage_copy.launches == before[1]
+        assert bursts.fused and launches == bursts.launches()
+        assert bursts.fused_stacks() == 0
+        assert report["completed"] == 24
+        for key in ("lost", "duplicated", "mismatched", "out_of_order",
+                    "bad_done", "unexpected"):
+            assert report[key] == 0, report
+    finally:
+        cl.close()
+
+
+def test_wire_rows_on_the_card_equal_the_cpu_ones(cuda):
+    from repro_torch.serving import ResultTokens, SyntheticModel
+    rng = np.random.default_rng(1)
+    slots = [int(s) for s in rng.permutation(64)[:40]]
+    rids = [int(r) for r in rng.integers(1, 1 << 30, 40)]
+    pos = [int(p) for p in rng.integers(0, 4096, 40)]
+    lengths = [int(x) for x in rng.integers(1, 64, 40)]
+    dones = [int(x) for x in rng.integers(0, 2, 40)]
+    rows = {}
+    for dev in ("cpu", cuda):
+        toks = SyntheticModel(seed=9, device=dev).decode(rids, pos)
+        rt = ResultTokens.pack(slots, rids, toks, lengths, dones, 64)
+        assert rt.data.device.type == torch.device(dev).type
+        rows[str(dev)] = [(rid, row.cpu().numpy().tobytes())
+                          for rid, row in rt.wire_rows()]
+    assert rows["cpu"] == rows[str(cuda)]
+
+
+def test_functional_mirrors_bitwise_across_devices(cuda):
+    """The same insert_batch / probe_batch / ring / sync sequence on CUDA
+    and CPU tensors, bitwise equal (duplicate keys in both bursts)."""
+    from repro_torch.core import (encode_key, init_ring, init_sync,
+                                  init_table, insert_batch, pending_count,
+                                  probe_batch, ring_pop, ring_push,
+                                  sync_signal)
+    rng = np.random.default_rng(2)
+    pool = np.array([int(encode_key(r, t)) for r in range(4)
+                     for t in range(3)] + [2**31 - 1, -5], np.int32)
+    keys = pool[rng.integers(0, len(pool), 48)]
+    kinds = rng.integers(1, 3, 48).astype(np.int32)
+    vals = rng.integers(0, 1 << 30, 48).astype(np.int32)
+    probes = pool[rng.integers(0, len(pool), 32)]
+    records = rng.normal(size=(12, 4)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        t = init_table(16, 4, device=dev)
+        t, m, s = insert_batch(t, torch.from_numpy(keys).to(dev),
+                               torch.from_numpy(kinds).to(dev),
+                               torch.from_numpy(vals).to(dev))
+        t, pv, ph = probe_batch(t, torch.from_numpy(probes).to(dev), 1)
+        ring = init_ring(8, 4, torch.float32, device=dev)
+        popped = []
+        for i, rec in enumerate(records):
+            ring, _ = ring_push(ring, torch.from_numpy(rec).to(dev))
+            if i % 3 == 2:
+                ring, r, _ = ring_pop(ring)
+                popped.append(r)
+        sync = init_sync(5, 4, device=dev)
+        for rec in records[:7]:
+            sync = sync_signal(sync, torch.from_numpy(rec).to(dev))
+        out[str(dev)] = [x.cpu() for x in (
+            t.keys, t.kinds, t.vals, m, s, pv, ph, pending_count(t),
+            ring.buf, ring.head, ring.tail, torch.stack(popped),
+            sync.received, sync.payload)]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -107,7 +107,8 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.kernels.doorbell, repro_torch.kernels.rmsnorm, "
             "repro_torch.kernels.flash_attention, repro_torch.models, "
             "repro_torch.models.registry, repro_torch.configs, "
-            "repro_torch.serving, repro_torch.launch.serve; "
+            "repro_torch.serving, repro_torch.serving.batching, "
+            "repro_torch.apps.kmer, repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes')); print(bad)")
     env = dict(os.environ, PYTHONPATH=SRC)
@@ -115,6 +116,36 @@ def test_import_leaves_jax_and_reference_out():
                        text=True, timeout=120, env=env)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]"
+
+
+def test_serving_exports_the_batching_surface():
+    """The port's counterpart of ``tests/test_public_api.py``'s check: the
+    continuous-batching surface is public API of ``repro_torch.serving``
+    too."""
+    import importlib
+    serving = importlib.import_module("repro_torch.serving")
+    for name in ("ContinuousBatcher", "ServePlane", "TokenClient",
+                 "SyntheticModel", "ResultTokens", "SlotData",
+                 "SlotAllocator", "SERVING_ATTRS", "ResultDrain",
+                 "encode_token_row", "decode_token_row"):
+        assert name in serving.__all__, name
+        assert hasattr(serving, name), name
+
+
+#: the reference's public names the port does not export yet, and why:
+#: both wait for the in-graph collectives and the multi-rank ``Comm``
+NOT_PORTED = {"repro.core": {"collectives"},
+              "repro.serving": {"cache_pspecs"}}
+
+
+@pytest.mark.parametrize("name", sorted(NOT_PORTED))
+def test_port_exports_the_reference_names(name):
+    import importlib
+    ref_mod = importlib.import_module(name)
+    port_mod = importlib.import_module(name.replace("repro", "repro_torch",
+                                                    1))
+    missing = set(ref_mod.__all__) - set(port_mod.__all__)
+    assert missing == NOT_PORTED[name]
 
 
 _FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
