@@ -140,29 +140,38 @@ The phases:
    drain every outstanding post as ERR_PEER_DEAD and exit 0.  Every child
    runs under a wall-clock limit;
 16. serving on the comm core (``ServePlane``, ``ContinuousBatcher``,
-   ``TokenClient``, ``SyntheticModel`` on the card) under the reference's
-   open-loop serve traffic (``benchmarks/serve_traffic.py``'s
-   ``make_workload`` and ``server_overrides``, ported here, seed 0): a)
-   ``LocalCluster(2, device="cuda", fabric_depth=1<<15)`` on ``sim`` at
-   c64 / 2 s and c1024 / 4 s; b) c128 / 2 s under ``chaos_drop=0.05``; c)
-   c128 / 2 s across two OS processes on ``shm`` (``chip_smoke.py
-   --serve-rank``, rank 0 the client, rank 1 the server); each cell
-   exactly-once (nothing lost, duplicated, mismatched or out of order,
-   every stream equal to the oracle), one gather launch and no
-   ``torch.stack`` a fused decode doorbell (a tick of 2 or 3 rows posts
-   unfused with one stack) and no dense stage copy, no host sync
-   on the server's tick (``torch.cuda.set_sync_debug_mode("warn")``
-   counts them) on ``sim``, and on ``shm`` one copy to the host a CUDA
-   frame; TTFT, inter-token latency, goodput, slot occupancy,
+   ``TokenClient``, ``SyntheticModel`` on the card): first the doorbell
+   gather byte for byte against its plain version at the path's rows
+   (``ResultTokens.pack(...).wire_rows()`` on the card: bursts of 4, 41
+   and 64 16-byte token rows, and one mixing two ticks' images as parked
+   rows do); then the reference's open-loop serve traffic
+   (``benchmarks/serve_traffic.py``'s ``make_workload`` and
+   ``server_overrides``, ported here, seed 0): a) ``LocalCluster(2,
+   device="cuda", fabric_depth=1<<15)`` on ``sim`` at c64 / 2 s and
+   c1024 / 4 s; b) c128 / 2 s under ``chaos_drop=0.05``, and a
+   closed-loop burst (24 streams at once into 8 slots) under it, which
+   must fuse decode doorbells; c) the c128 / 2 s traffic and the burst
+   across two OS processes on ``shm`` (``chip_smoke.py --serve-rank
+   DIR --serve-cell traffic|burst``, rank 0 the client, rank 1 the
+   server); each cell exactly-once (nothing lost, duplicated,
+   mismatched or out of order, every stream equal to the oracle), one
+   gather launch and no ``torch.stack`` a fused decode doorbell (a tick
+   of 2 or 3 rows posts unfused with one stack) and no dense stage copy,
+   no host sync on the server's tick
+   (``torch.cuda.set_sync_debug_mode("warn")`` counts them) on ``sim``,
+   and on ``shm`` one copy to the host a CUDA frame; TTFT, inter-token
+   latency, goodput, slot occupancy,
    preemptions, retransmits and the share of decode bursts that fuse are
    recorded; d) the functional ``MatchTable`` / ``Ring`` / ``SyncState``
    mirrors on CUDA and CPU tensors, bitwise equal, with no host sync on
    the card; e) ``apps/kmer.py`` on a card-bound cluster at
-   ``configs/paper.py``'s quick sizes, ranks 2 and 4, exact.
+   ``configs/paper.py``'s quick sizes, ranks 2 and 4, equal to its run
+   on the CPU and exact on every repeated k-mer.
 
 The launch counts are set to 0 just before phases 4, 7, 10, 13, 14, 15
-and 16 and read just after; the serving phases also record B3's launches by (rows,
-d) a prefill call and a decode step.  Every phase raises on failure;
+and 16 (after its kernel check) and read just after; the serving phases
+also record B3's launches by (rows, d) a prefill call and a decode
+step.  Every phase raises on failure;
 nothing is caught.  Each phase
 prints one JSON record; the line before the last is the card's name and
 power limit, then the ``kernels`` record, and the last line is
@@ -1047,6 +1056,15 @@ SERVE_CELLS = ((64, 2.0), (1024, 4.0))
 SERVE_CHAOS = (128, 2.0, 0.05)
 SERVE_XPROC = (128, 2.0)
 SERVE_CHILD_TIMEOUT = 180.0
+#: the closed-loop burst cells (tests/test_torch_batching.py's
+#: test_chaos_burst_serve_matches_reference): 24 streams submitted at
+#: once into 8 slots, so that decode bursts fuse whatever the tick's
+#: timing; run on sim under chaos_drop and across two processes on shm
+SERVE_BURST = 24
+SERVE_BURST_OVERRIDES = {"kv_slots": 8, "kv_page_tokens": 8}
+#: the fused decode bursts the gather is held at, in rows of 16 bytes: the
+#: smallest that fuses, the c1024 cell's largest and a full 64-slot tick
+SERVE_GATHER_K = (4, 41, 64)
 KMER_SEED = 3           # benchmarks/kmer.py's
 
 
@@ -1070,6 +1088,28 @@ def server_overrides(n_clients: int) -> dict:
     slots = max(8, min(64, n_clients // 8))
     return {"kv_slots": slots, "kv_page_tokens": 16,
             "kv_pages": 16 * slots, "prefill_chunk": 32}
+
+
+def burst_workload(seed: int = 11):
+    """The closed-loop burst: ``SERVE_BURST`` streams that all arrive at
+    once, prompts of 1-39 tokens and 4-11 new tokens each."""
+    rng = np.random.default_rng(seed)
+    plens = rng.integers(1, 40, SERVE_BURST)
+    outs = rng.integers(4, 12, SERVE_BURST)
+    prompts = [rng.integers(0, SERVE_VOCAB, p).astype(np.int32)
+               for p in plens]
+    return np.zeros(SERVE_BURST), prompts, outs
+
+
+def serve_workload(cell: str):
+    """``(clients, window seconds, (arrivals, prompts, outputs), engine
+    overrides)`` of a two-process cell: ``traffic`` is the reference's
+    open-loop c128 / 2 s, ``burst`` the closed-loop burst."""
+    if cell == "burst":
+        return SERVE_BURST, 0.0, burst_workload(), SERVE_BURST_OVERRIDES
+    n, duration = SERVE_XPROC
+    return n, duration, make_workload(n, duration, SEED), \
+        server_overrides(n)
 
 
 class _DecodeBursts:
@@ -1192,53 +1232,110 @@ def _exactly_once(case: str, report: dict, n_clients: int) -> dict:
                                    "out_of_order", "submit_retries")}
 
 
-def warm_tick(torch) -> None:
-    """One decode tick's device work on dummy rows (the model's decode,
-    ``ResultTokens.pack`` and ``wire_rows``, a gather, the unfused
-    stack and clone, a first-token row), so that a cell's first requests
-    do not pay the process's first launches of these kernels.  Launches
-    the gather once: run it before the counts are set to 0."""
-    from repro_torch.kernels.doorbell import stage_copy_rows
+def serve_gather_cases(torch) -> list:
+    """B1 at the serve plane's own shapes against its plain version.  A
+    fused decode burst is K 16-byte uint8 rows, each a view of one tick's
+    wire image (``ResultTokens.pack(...).wire_rows()`` on the card), and
+    rows parked from an older tick's image join the next burst ahead of
+    the new ones.  For K in ``SERVE_GATHER_K`` and for one burst that
+    mixes two ticks' images, ``stage_copy_rows`` must equal
+    ``stage_copy_rows_ref`` byte for byte in one launch; the K = 41
+    burst is also timed.  The rest of a tick's device work (the unfused
+    stack and clone, a first-token row) runs once, so that a cell's first
+    requests do not pay the process's first launches.  Launches the
+    gather: run it before the counts are set to 0."""
+    from repro_torch.kernels.doorbell import (stage_copy_rows,
+                                              stage_copy_rows_ref)
     from repro_torch.serving import (ResultTokens, SyntheticModel,
                                      encode_token_row)
+    from repro_torch.serving.result_tokens import ROW_BYTES
     model = SyntheticModel(seed=SEED, device=DEVICE)
-    toks = model.decode([1, 2, 3, 4], [0, 1, 2, 3])
-    res = ResultTokens.pack([3, 0, 2, 1], [1, 2, 3, 4], toks, [1, 2, 3, 4],
-                            [0, 0, 0, 1], 8)
-    rows = [row for _, row in res.wire_rows()]
-    stage_copy_rows(rows)
+    rng = np.random.default_rng(SEED + 20)
+
+    def tick(k, n_slots=64):
+        """one decode tick's k wire rows, slots in random order"""
+        slots = [int(x) for x in rng.permutation(n_slots)[:k]]
+        rids = [int(x) for x in rng.integers(1, 1 << 20, k)]
+        toks = model.decode(rids, [int(x) for x in rng.integers(4, 320, k)])
+        res = ResultTokens.pack(
+            slots, rids, toks, [int(x) for x in rng.integers(1, 65, k)],
+            [int(x) for x in rng.integers(0, 2, k)], n_slots)
+        return [row for _, row in res.wire_rows()]
+
+    bursts = [(f"serve_rows_u8_{k}x{ROW_BYTES}", tick(k))
+              for k in SERVE_GATHER_K]
+    older, newer = tick(6), tick(30)
+    bursts.append((f"serve_rows_u8_mixed_3+30x{ROW_BYTES}",
+                   older[::2] + newer))
+    cases = []
+    for label, rows in bursts:
+        n0 = stage_copy_rows.launches
+        out = stage_copy_rows(rows)
+        got = stage_copy_rows.launches - n0
+        ref = stage_copy_rows_ref(rows)
+        torch.cuda.synchronize()
+        if got != 1 or tuple(out.shape) != (len(rows), ROW_BYTES):
+            raise AssertionError(f"{label}: {got} gather launches, wire "
+                                 f"image {tuple(out.shape)}")
+        case = {"case": label, "wrapper": "stage_copy_rows",
+                "shape": [len(rows), ROW_BYTES], "dtype": "uint8",
+                "wire_bf16": False, "ok": True, "byte_exact": True,
+                "max_abs_err": compare(label, out, ref, torch.uint8, False),
+                "launches": got}
+        if len(rows) == 41:
+            sets = [tick(41) for _ in range(16)]
+            nbytes = len(rows) * ROW_BYTES
+            case.update({
+                "kernel_ms": device_ms(stage_copy_rows, sets),
+                "plain_ms": device_ms(stage_copy_rows_ref, sets),
+                "library_ms": device_ms(torch.stack, sets),
+                "kernel_call_ms": call_ms(stage_copy_rows, sets),
+                "bound_ms": bound_ms(nbytes, nbytes)})
+            case["bound_share"] = case["bound_ms"] / case["kernel_ms"]
+        cases.append(case)
+    rows = bursts[0][1]
     torch.stack(rows[:2])
     rows[0].clone()
-    encode_token_row(1, 0, toks[0], 0)
+    encode_token_row(1, 0, model.decode([1], [0])[0], 0)
     torch.cuda.synchronize()
+    return cases
 
 
-def serve_cell(torch, card, n_clients, duration, chaos_drop=0.0):
-    """One open-loop cell of the reference's serve traffic on
-    ``LocalCluster(2, device="cuda")`` over ``sim``: the client submits
-    on the schedule, the server steps between arrivals, and the run
-    drains every token.  The whole traffic runs under the sync counter
-    and the ``torch.stack`` counter; the client's streams are checked
-    against the oracle only after the run (``TokenClient.collect``)."""
+def serve_cell(torch, card, n_clients, duration, chaos_drop=0.0,
+               burst=False):
+    """One cell on ``LocalCluster(2, device="cuda")`` over ``sim``: the
+    reference's open-loop serve traffic, or with ``burst`` the
+    closed-loop burst, which must fuse decode doorbells.  The client
+    submits on the schedule, the server steps between arrivals, and the
+    run drains every token.  The whole traffic runs under the sync
+    counter and the ``torch.stack`` counter; the client's streams are
+    checked against the oracle only after the run
+    (``TokenClient.collect``)."""
     from repro_torch.core import LocalCluster
     from repro_torch.kernels.doorbell import stage_copy, stage_copy_rows
     from repro_torch.serving import (ContinuousBatcher, ServePlane,
                                      SyntheticModel, TokenClient)
-    case = f"c{n_clients}/d{duration:g}" + ("/chaos_drop" if chaos_drop
-                                            else "")
+    if burst:
+        n_clients, duration = SERVE_BURST, 0.0
+        arrivals, prompts, outs = burst_workload()
+        overrides = SERVE_BURST_OVERRIDES
+        case = f"c{n_clients}/burst"
+    else:
+        arrivals, prompts, outs = make_workload(n_clients, duration, SEED)
+        overrides = server_overrides(n_clients)
+        case = f"c{n_clients}/d{duration:g}"
     attrs = {}
     if chaos_drop:
         attrs = {"chaos_drop": chaos_drop, "chaos_seed": SEED + 1}
+        case += "/chaos_drop"
     cl = LocalCluster(2, device=DEVICE, attrs=attrs, fabric_depth=1 << 15)
     try:
         plane = ServePlane(cl)
         model = SyntheticModel(seed=SEED, device=DEVICE)
-        server = ContinuousBatcher(plane, model,
-                                   **server_overrides(n_clients))
+        server = ContinuousBatcher(plane, model, **overrides)
         client = TokenClient(plane, model, drain_workers=2)
         bursts = _DecodeBursts(server)
         occ = _Occupancy(server.slots)
-        arrivals, prompts, outs = make_workload(n_clients, duration, SEED)
         launches0, dense0 = stage_copy_rows.launches, stage_copy.launches
         with _StackCount(torch) as stack, _SyncCount(torch) as syncs:
             bursts.stack = stack
@@ -1279,7 +1376,7 @@ def serve_cell(torch, card, n_clients, duration, chaos_drop=0.0):
         counters = server.counters()
         rec = {"case": case, "backend": "sim", "card": card,
                "clients": n_clients, "duration_s": duration,
-               "chaos_drop": chaos_drop,
+               "closed_loop_burst": burst, "chaos_drop": chaos_drop,
                **_exactly_once(case, report, n_clients),
                **_serve_metrics(report, wall),
                "slot_occupancy_mean": occ.result()["mean"],
@@ -1294,6 +1391,7 @@ def serve_cell(torch, card, n_clients, duration, chaos_drop=0.0):
         # one gather a fused decode doorbell and no stack in one; the only
         # stacks on the tick are those of unfused 2- and 3-row bursts
         if launches != b["launches_wanted"] or dense \
+                or (burst and not b["fused_decode_doorbells"]) \
                 or b["torch_stack_calls_fused"] \
                 or stack.calls != b["torch_stack_calls_unfused"]:
             raise AssertionError(f"{case}: {launches} gather launches for "
@@ -1314,20 +1412,21 @@ def serve_cell(torch, card, n_clients, duration, chaos_drop=0.0):
         cl.close()
 
 
-def serve_xproc_case(card):
-    """The cross-process cell: two ranks of ``chip_smoke.py
-    --serve-rank`` through the port's SPMD launcher on ``shm``, rank 0
-    the client and rank 1 the server, both on the one card."""
+def serve_xproc_case(card, cell: str = "traffic"):
+    """A cross-process cell (``serve_workload(cell)``): two ranks of
+    ``chip_smoke.py --serve-rank`` through the port's SPMD launcher on
+    ``shm``, rank 0 the client and rank 1 the server, both on the one
+    card."""
     import shutil
     import tempfile
     from repro_torch.launch import spmd
     outdir = tempfile.mkdtemp(prefix="chip-smoke-serve-")
-    n_clients, duration = SERVE_XPROC
+    n_clients, duration, _, _ = serve_workload(cell)
     t0 = time.perf_counter()
     try:
         code = spmd.launch([sys.executable, os.path.abspath(__file__),
-                            "--serve-rank", outdir], 2, backend="shm",
-                           timeout=SERVE_CHILD_TIMEOUT,
+                            "--serve-rank", outdir, "--serve-cell", cell],
+                           2, backend="shm", timeout=SERVE_CHILD_TIMEOUT,
                            env={"PYTHONPATH": _src_path()})
         frags = {}
         for r in range(2):
@@ -1341,9 +1440,11 @@ def serve_xproc_case(card):
         raise AssertionError(f"the two-process serve cell exited {code} "
                              f"with {len(frags)} rank reports: {frags}")
     client, server = frags[0], frags[1]
-    case = f"c{n_clients}/d{duration:g}/xproc/shm"
+    case = (f"c{n_clients}/burst" if cell == "burst"
+            else f"c{n_clients}/d{duration:g}") + "/xproc/shm"
     rec = {"case": case, "backend": "shm", "card": card,
            "clients": n_clients, "duration_s": duration,
+           "closed_loop_burst": cell == "burst",
            **_exactly_once(case, client["report"], n_clients),
            **client["metrics"],
            "slot_occupancy_mean": server["occupancy"]["mean"],
@@ -1364,12 +1465,13 @@ def serve_xproc_case(card):
     return rec
 
 
-def serve_rank(outdir) -> int:
-    """One rank of the two-process serve cell (rank 0 the client, rank 1
+def serve_rank(outdir, cell: str) -> int:
+    """One rank of a two-process serve cell (rank 0 the client, rank 1
     the server, over ``shm``): writes its fragment to ``outdir``.  The
-    server gates one gather a fused decode doorbell and one copy to the
-    host a CUDA frame; the client sends the end-of-traffic message only
-    after draining every expected token."""
+    server gates one gather a fused decode doorbell (and, in the burst
+    cell, at least one fused decode doorbell) and one copy to the host a
+    CUDA frame; the client sends the end-of-traffic message only after
+    draining every expected token."""
     import torch
     from repro_torch.core import ProcessCluster
     from repro_torch.kernels.doorbell import stage_copy, stage_copy_rows
@@ -1377,18 +1479,17 @@ def serve_rank(outdir) -> int:
     from repro_torch.serving import (ContinuousBatcher, ServePlane,
                                      SyntheticModel, TokenClient)
     ctx = bootstrap()
-    n_clients, duration = SERVE_XPROC
+    n_clients, duration, workload, overrides = serve_workload(cell)
     cl = ProcessCluster(ctx.n_ranks, ctx.rank, fabric_depth=1 << 15,
                         session=os.path.join(ctx.session, "serve"),
                         device=DEVICE)
     plane = ServePlane(cl, client_rank=0, server_rank=1)
     model = SyntheticModel(seed=SEED, device=DEVICE)
     if ctx.rank == 1:
-        warm_tick(torch)             # before the client starts its clock
+        serve_gather_cases(torch)    # before the client starts its clock
     ctx.barrier(timeout=60)
     if ctx.rank == 1:
-        server = ContinuousBatcher(plane, model,
-                                   **server_overrides(n_clients))
+        server = ContinuousBatcher(plane, model, **overrides)
         bursts = _DecodeBursts(server)
         occ = _Occupancy(server.slots)
         launches0, dense0 = stage_copy_rows.launches, stage_copy.launches
@@ -1414,6 +1515,7 @@ def serve_rank(outdir) -> int:
         # one gather and no stack a fused decode doorbell; every CUDA
         # frame (a burst or a lone row) crosses to the host once
         if out["kernel_launches"] != out["launches_wanted"] \
+                or (cell == "burst" and not out["fused_decode_doorbells"]) \
                 or out["dense_stage_copy_launches"] or not cuda \
                 or out["torch_stack_calls_fused"] \
                 or stack.calls != out["torch_stack_calls_unfused"] \
@@ -1421,7 +1523,7 @@ def serve_rank(outdir) -> int:
             raise AssertionError(f"serve rank 1: {out}")
     else:
         client = TokenClient(plane, model, drain_workers=2)
-        arrivals, prompts, outs = make_workload(n_clients, duration, SEED)
+        arrivals, prompts, outs = workload
         t0 = time.perf_counter()
         for i in range(n_clients):
             while time.perf_counter() - t0 < arrivals[i]:
@@ -1530,17 +1632,30 @@ def mirrors_case(torch):
 def kmer_case(torch, n_ranks):
     """``run_kmer_count`` on a card-bound cluster at ``configs/paper.py``'s
     quick sizes and the reference benchmark's seed
-    (``benchmarks/kmer.py``), exact by its rule: every k-mer that occurs
-    twice or more is counted exactly; the Bloom filter's false positives
-    may add k-mers counted once, which are reported."""
+    (``benchmarks/kmer.py``), exact twice over: the histogram and the
+    message counts equal the port's run on the CPU (which
+    ``tests/test_torch_kmer.py::test_quick_size_histogram_matches_reference``
+    holds equal to the reference package's at this size), and every k-mer
+    that occurs twice or more is counted as ``reference_count`` counts it;
+    the Bloom filter's false positives, k-mers counted once, are
+    reported."""
     from repro_torch.apps.kmer import (generate_reads, reference_count,
                                        run_kmer_count)
     from repro_torch.configs.paper import PAPER
     reads = generate_reads(PAPER.kmer_reads // 4, PAPER.kmer_read_len,
                            seed=KMER_SEED)
-    hist, stats = run_kmer_count(reads, PAPER.kmer_k, n_ranks,
-                                 agg_bytes=PAPER.kmer_agg_bytes,
-                                 device=DEVICE)
+    runs = {dev: run_kmer_count(reads, PAPER.kmer_k, n_ranks,
+                                agg_bytes=PAPER.kmer_agg_bytes, device=dev)
+            for dev in (DEVICE, "cpu")}
+    (hist, stats), (cpu_hist, cpu_stats) = runs[DEVICE], runs["cpu"]
+    counts = (stats.messages, stats.bytes_sent, stats.aggregation_flushes)
+    cpu_counts = (cpu_stats.messages, cpu_stats.bytes_sent,
+                  cpu_stats.aggregation_flushes)
+    if hist != cpu_hist or counts != cpu_counts:
+        raise AssertionError(f"k-mer counts on {n_ranks} ranks differ "
+                             f"between the card and the CPU: "
+                             f"{len(hist)} vs {len(cpu_hist)} k-mers, "
+                             f"{counts} vs {cpu_counts}")
     oracle = reference_count(reads, PAPER.kmer_k)
     missing = sum(1 for k in oracle if hist.get(k, 0) != oracle[k])
     extra = {k: n for k, n in hist.items() if k not in oracle}
@@ -1550,26 +1665,31 @@ def kmer_case(torch, n_ranks):
                              f"extra {extra}")
     return {"case": f"kmer_ranks{n_ranks}", "reads": len(reads),
             "k": PAPER.kmer_k, "repeated_kmers": len(oracle),
-            "exact": True, "bloom_false_positives": len(extra),
+            "exact": True, "equal_to_cpu_run": True,
+            "bloom_false_positives": len(extra),
             "messages": stats.messages, "bytes_sent": stats.bytes_sent,
             "aggregation_flushes": stats.aggregation_flushes,
             "elapsed_s": stats.elapsed_s}
 
 
 def serve_phase(torch, card):
-    """a) the sim cells; b) the chaos cell; c) the two-process shm cell;
+    """a) the sim cells; b) the chaos cells, the reference's traffic and
+    the closed-loop burst; c) the two-process shm cells, the same two;
     d) the functional mirrors across devices; e) the k-mer app."""
     out = {"cells": []}
     t0 = time.perf_counter()
     for n, dur in SERVE_CELLS:
         out["cells"].append(serve_cell(torch, card, n, dur))
     n, dur, drop = SERVE_CHAOS
-    out["cells"].append(serve_cell(torch, card, n, dur, chaos_drop=drop))
-    if not out["cells"][-1]["retransmits"]:
-        raise AssertionError("the chaos serve cell retransmitted nothing: "
-                             "the faults did not fire")
+    for burst in (False, True):
+        out["cells"].append(serve_cell(torch, card, n, dur, chaos_drop=drop,
+                                       burst=burst))
+        if not out["cells"][-1]["retransmits"]:
+            raise AssertionError(f"{out['cells'][-1]['case']} retransmitted "
+                                 "nothing: the faults did not fire")
     out["sim_s"] = time.perf_counter() - t0
-    out["cells"].append(serve_xproc_case(card))
+    out["cells"] += [serve_xproc_case(card, cell)
+                     for cell in ("traffic", "burst")]
     out["mirrors"] = mirrors_case(torch)
     out["kmer"] = [kmer_case(torch, r) for r in (2, 4)]
     return out
@@ -2747,6 +2867,9 @@ def main(argv=None) -> int:
                     help="run as one rank of phase 16's two-process serve "
                          "cell (the SPMD launcher starts it), reporting to "
                          "DIR")
+    ap.add_argument("--serve-cell", choices=("traffic", "burst"),
+                    default="traffic",
+                    help="the two-process serve cell --serve-rank runs")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2756,7 +2879,7 @@ def main(argv=None) -> int:
     if args.spmd_rank:
         return spmd_rank(args.spmd_rank)
     if args.serve_rank:
-        return serve_rank(args.serve_rank)
+        return serve_rank(args.serve_rank, args.serve_cell)
     from repro_torch.kernels import _build
     from repro_torch.kernels.doorbell import (stage_copy, stage_copy_push,
                                               stage_copy_rows)
@@ -2943,14 +3066,19 @@ def main(argv=None) -> int:
                              f"the push {stage_copy_push.launches} times "
                              "(want only the gather)")
 
-    # 16. serving on the comm core: counts set to 0 just before, read
-    # just after (after one warm-up tick)
-    warm_tick(torch)
+    # 16. serving on the comm core: B1 at the serve plane's shapes against
+    # its plain version, then counts set to 0 just before the path, read
+    # just after
+    gather = serve_gather_cases(torch)
+    record("serve_plane_gather", cases=gather,
+           max_abs_err=max(c["max_abs_err"] for c in gather))
+    cases += gather
     _zero_counts(counters)
     t0 = time.perf_counter()
     serve = serve_phase(torch, card)
     v_launches = stage_copy_rows.launches
-    v_ranks = serve["cells"][-1]["kernel_launches"]
+    v_ranks = sum(c["kernel_launches"] for c in serve["cells"]
+                  if c["backend"] == "shm")
     for cell in serve["cells"]:
         record("serve_plane", **cell)
     record("serve_plane_mirrors_kmer", seconds=time.perf_counter() - t0,

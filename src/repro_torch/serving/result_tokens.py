@@ -29,16 +29,17 @@ gather, steered by the host lists ``pack`` was given.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
-from ..core.runtime import resolve_device
-
 #: columns of the packed array
 TOKEN_COL, VALID_COL, LENGTH_COL, RID_COL, DONE_COL = range(5)
 N_COLS = 5
+#: the default column ranges
+TOKENS_IDX, VALID_IDX, LENGTH_IDX = ((c, c + 1) for c in (
+    TOKEN_COL, VALID_COL, LENGTH_COL))
 
 #: one wire row: [rid, seq, token, done] as int32 -> 16 bytes, uniform
 ROW_WORDS = 4
@@ -75,49 +76,50 @@ class SlotData:
 class ResultTokens:
     """The packed per-step result array with named column ranges.
 
-    ``data`` may be a tensor (it stays on its device) or host data
-    (numpy, lists: it goes to ``device``, the card unless the caller asks
-    for the CPU)."""
+    The constructor takes host data (numpy, lists), as the reference's
+    does: the array is a CPU tensor.  :meth:`pack` builds it on the decode
+    step's device."""
 
     def __init__(self, data,
-                 tokens_idx: Tuple[int, int] = (TOKEN_COL, TOKEN_COL + 1),
-                 valid_idx: Tuple[int, int] = (VALID_COL, VALID_COL + 1),
-                 length_idx: Tuple[int, int] = (LENGTH_COL, LENGTH_COL + 1),
-                 *, device=None):
-        shape = tuple(data.shape) if isinstance(data, torch.Tensor) \
-            else np.shape(data)
-        if len(shape) != 2 or shape[1] != N_COLS:
+                 tokens_idx: Tuple[int, int] = TOKENS_IDX,
+                 valid_idx: Tuple[int, int] = VALID_IDX,
+                 length_idx: Tuple[int, int] = LENGTH_IDX):
+        host = np.asarray(data)
+        if host.ndim != 2 or host.shape[1] != N_COLS:
             raise ValueError(f"ResultTokens expects (n_slots, {N_COLS}) "
-                             f"int32, got {shape}")
-        if isinstance(data, torch.Tensor):
-            data = data.to(torch.int32).contiguous()
-        else:
-            data = to_device(np.asarray(data, np.int32),
-                             resolve_device(device))
+                             f"int32, got {host.shape}")
+        host = host.astype(np.int32)
+        slots = np.flatnonzero(host[:, VALID_COL])
+        self._init(torch.from_numpy(host), list(map(int, slots)),
+                   list(map(int, host[slots, RID_COL])),
+                   torch.from_numpy(slots[:, None] * N_COLS
+                                    + np.asarray(_WIRE_COLS)),
+                   tokens_idx, valid_idx, length_idx)
+
+    def _init(self, data: torch.Tensor, slots: List[int], rids: List[int],
+              wire_index: torch.Tensor,
+              tokens_idx: Tuple[int, int] = TOKENS_IDX,
+              valid_idx: Tuple[int, int] = VALID_IDX,
+              length_idx: Tuple[int, int] = LENGTH_IDX) -> None:
         self.data = data
         self.tokens_idx = tokens_idx
         self.valid_idx = valid_idx
         self.length_idx = length_idx
-        # the valid slots (ascending) and their rids, as host lists, when
-        # pack() built the array: wire_rows then reads nothing back
-        self._slots: Optional[List[int]] = None
-        self._rids: Optional[List[int]] = None
-        self._wire_index: Optional[torch.Tensor] = None
+        # the valid slots (ascending), their rids and the wire image's
+        # gather index: host data, so wire_rows reads nothing back
+        self._slots, self._rids, self._wire_index = slots, rids, wire_index
 
     @classmethod
     def pack(cls, slots: List[int], rids: List[int], tokens,
-             lengths: List[int], dones: List[int], n_slots: int,
-             *, device=None) -> "ResultTokens":
+             lengths: List[int], dones: List[int],
+             n_slots: int) -> "ResultTokens":
         """Build the packed array from the decode step's per-slot results
-        (inactive slots stay zero / invalid).  ``tokens`` may be a tensor
-        (the decode step's, on its device: the array is built there, and
-        the tokens never leave it) or host ints (the array goes to
-        ``device``).  Everything else is host data: it crosses to the
-        device in one copy that does not block the host."""
-        if isinstance(tokens, torch.Tensor):
-            dev = tokens.device
-        else:
-            dev = resolve_device(device)
+        (inactive slots stay zero / invalid) on the device of ``tokens``
+        (the decode step's tensor; host ints make a CPU tensor).  The
+        tokens never leave that device; everything else is host data and
+        crosses to it in one copy that does not block the host."""
+        tokens = torch.as_tensor(tokens)
+        dev = tokens.device
         order = sorted(range(len(slots)), key=slots.__getitem__)
         # one host row per valid slot, in ascending slot order (the order
         # active_slots gives): the packed columns, the slot, where the
@@ -132,18 +134,15 @@ class ResultTokens:
             host[i, _SLOT] = slots[j]
             host[i, _SOURCE] = j
             host[i, _WIRE] = np.asarray(_WIRE_COLS) + slots[j] * N_COLS
-        if not isinstance(tokens, torch.Tensor):
-            host[:, TOKEN_COL] = [tokens[j] for j in order]
         rows = to_device(host, dev)
         values = rows[:, :N_COLS].to(torch.int32)
-        if isinstance(tokens, torch.Tensor) and len(order):
+        if order:
             values[:, TOKEN_COL] = tokens.reshape(-1)[rows[:, _SOURCE]]
         data = torch.zeros((n_slots, N_COLS), dtype=torch.int32, device=dev)
         data[rows[:, _SLOT]] = values
-        out = cls(data)
-        out._rids = [rids[j] for j in order]
-        out._slots = [slots[j] for j in order]
-        out._wire_index = rows[:, _WIRE]
+        out = cls.__new__(cls)
+        out._init(data, [slots[j] for j in order], [rids[j] for j in order],
+                  rows[:, _WIRE])
         return out
 
     @property
@@ -157,11 +156,8 @@ class ResultTokens:
                         lengths=row[self.length_idx[0]:self.length_idx[1]])
 
     def active_slots(self) -> np.ndarray:
-        """The valid slots, ascending (host data; an array that ``pack``
-        did not build is read back once)."""
-        if self._slots is not None:
-            return np.asarray(self._slots, np.int64)
-        return np.flatnonzero(self.data[:, VALID_COL].cpu().numpy())
+        """The valid slots, ascending (host data)."""
+        return np.asarray(self._slots, np.int64)
 
     def wire_rows(self) -> List[Tuple[int, torch.Tensor]]:
         """Slice the packed array into per-client uniform wire rows:
@@ -170,15 +166,7 @@ class ResultTokens:
 
         The ``(n_active, 4)`` wire image ``[rid, seq, token, done]`` is
         built on the array's device by one gather, and each row is a
-        16-byte uint8 view of it.  The rids come from the host lists
-        ``pack`` was given; an array built otherwise is read back once."""
-        if self._slots is None:
-            host = self.data.cpu().numpy()
-            self._slots = list(map(int, np.flatnonzero(host[:, VALID_COL])))
-            self._rids = [int(host[s, RID_COL]) for s in self._slots]
-            self._wire_index = to_device(
-                np.asarray(self._slots, np.int64)[:, None] * N_COLS
-                + np.asarray(_WIRE_COLS), self.data.device)
+        16-byte uint8 view of it.  The rids and slots are host lists."""
         if not self._slots:
             return []
         wire = torch.take(self.data, self._wire_index)

@@ -66,10 +66,10 @@ SRC = os.path.abspath(os.path.join(HERE, "..", "src"))
 
 class TestResultTokens:
     def test_pack_and_slot_views(self):
-        args = dict(slots=[0, 2], rids=[7, 9], tokens=[11, 13],
-                    lengths=[1, 4], dones=[0, 1], n_slots=4)
-        rt = ResultTokens.pack(**args, device=CPU)
-        ref = RResultTokens.pack(**args)
+        args = dict(slots=[0, 2], rids=[7, 9], lengths=[1, 4],
+                    dones=[0, 1], n_slots=4)
+        rt = ResultTokens.pack(**args, tokens=torch.tensor([11, 13]))
+        ref = RResultTokens.pack(**args, tokens=[11, 13])
         assert rt.data.dtype == torch.int32 and rt.data.device.type == "cpu"
         assert np.array_equal(rt.data.numpy(), ref.data)
         assert rt.n_slots == ref.n_slots == 4
@@ -85,8 +85,7 @@ class TestResultTokens:
         if tokens_as == "tensor":
             tokens = torch.tensor(tokens, dtype=torch.int32)
         rt = ResultTokens.pack(slots=[1, 3], rids=[5, 6], tokens=tokens,
-                               lengths=[3, 1], dones=[1, 0], n_slots=4,
-                               device=CPU)
+                               lengths=[3, 1], dones=[1, 0], n_slots=4)
         ref = RResultTokens.pack(slots=[1, 3], rids=[5, 6],
                                  tokens=[100, 200], lengths=[3, 1],
                                  dones=[1, 0], n_slots=4)
@@ -122,7 +121,7 @@ class TestResultTokens:
         got = [(rid, row.numpy().tobytes()) for rid, row in rt.wire_rows()]
         want = [(rid, row.tobytes()) for rid, row in ref.wire_rows()]
         assert got == want
-        raw = ResultTokens(rt.data.clone())
+        raw = ResultTokens(rt.data.numpy())
         assert [(rid, row.numpy().tobytes())
                 for rid, row in raw.wire_rows()] == want
 

@@ -362,14 +362,17 @@ class _DecodeBursts:
                    if k >= self.fused_min)
 
 
-def test_serve_plane_stages_decode_bursts_on_the_card(cuda):
-    """A small continuous-batching run on a card-bound cluster: every
-    fused decode doorbell is one gather launch with no ``torch.stack``,
-    no dense stage copy runs, no host sync happens on the server's tick,
-    and every stream is exact."""
+def _burst_serve(cuda, attrs=None):
+    """24 streams into 8 slots on a card-bound cluster, closed loop (a
+    server tick after each submit), so that decode bursts fuse: every
+    fused decode doorbell must be one gather launch with no
+    ``torch.stack``, no dense stage copy may run, the server's tick may
+    not sync the host, and every stream must be exact.  Returns the
+    cluster's retransmit count."""
+    import time
     from repro_torch.serving import (ContinuousBatcher, ServePlane,
                                      SyntheticModel, TokenClient)
-    cl = LocalCluster(2, device=cuda)
+    cl = LocalCluster(2, device=cuda, attrs=attrs)
     try:
         plane = ServePlane(cl)
         model = SyntheticModel(seed=3, device=cuda)
@@ -379,6 +382,7 @@ def test_serve_plane_stages_decode_bursts_on_the_card(cuda):
         bursts = _DecodeBursts(server)
         rng = np.random.default_rng(0)
         before = (db.stage_copy_rows.launches, db.stage_copy.launches)
+        deadline = time.monotonic() + 60
         torch.cuda.set_sync_debug_mode("error")
         try:
             for rid in range(1, 25):
@@ -388,22 +392,42 @@ def test_serve_plane_stages_decode_bursts_on_the_card(cuda):
                                       rid=rid)
                 assert st.is_done()
                 server.step()
-            server.run_until_idle()
+            while not (server.completed >= 24 and server.idle):
+                server.step()
+                assert time.monotonic() < deadline, server.counters()
         finally:
             torch.cuda.set_sync_debug_mode(0)
         while client.drain.drained < client.expected_tokens:
             client.pump()
+            assert time.monotonic() < deadline, "tokens never drained"
         report = client.collect()
         launches = db.stage_copy_rows.launches - before[0]
         assert db.stage_copy.launches == before[1]
-        assert bursts.fused and launches == bursts.launches()
+        assert bursts.fused and launches == bursts.launches() \
+            == len(bursts.fused)
         assert bursts.fused_stacks() == 0
         assert report["completed"] == 24
         for key in ("lost", "duplicated", "mismatched", "out_of_order",
                     "bad_done", "unexpected"):
             assert report[key] == 0, report
+        return sum(rt.rel.counters()["retransmits"] for rt in cl.runtimes
+                   if rt.rel is not None)
     finally:
         cl.close()
+
+
+def test_serve_plane_stages_decode_bursts_on_the_card(cuda):
+    """A small continuous-batching run on a card-bound cluster: one
+    gather a fused decode doorbell, no stack, no host sync, exact
+    streams."""
+    _burst_serve(cuda)
+
+
+def test_serve_plane_stages_decode_bursts_under_chaos(cuda):
+    """The same run with 5% of the frames dropped and the reliability
+    plane on: the fused decode doorbells still take one gather each, and
+    every stream still arrives exactly once."""
+    assert _burst_serve(cuda, {"chaos_drop": 0.05, "chaos_seed": 1}) > 0
 
 
 def test_wire_rows_on_the_card_equal_the_cpu_ones(cuda):

@@ -68,3 +68,28 @@ def test_cluster_defaults_to_the_card(reads):
     else:
         with pytest.raises(FatalError, match="device='cpu'"):
             kmer.run_kmer_count(reads[:4], K, 2)
+
+
+@pytest.mark.parametrize("n_ranks", [2, 4])
+def test_quick_size_histogram_matches_reference(n_ranks):
+    """At ``configs/paper.py``'s quick size (``kmer_reads // 4`` reads)
+    and the reference benchmark's seed 3, both packages give the same
+    histogram and counts, the Bloom filter's false positives included:
+    the k-mers counted once beyond ``reference_count`` are the
+    reference's own, and every repeated k-mer is exact."""
+    from repro_torch.configs.paper import PAPER
+    reads = kmer.generate_reads(PAPER.kmer_reads // 4, PAPER.kmer_read_len,
+                                seed=3)
+    assert reads == ref.generate_reads(PAPER.kmer_reads // 4,
+                                       PAPER.kmer_read_len, seed=3)
+    hist, stats = kmer.run_kmer_count(reads, PAPER.kmer_k, n_ranks,
+                                      agg_bytes=PAPER.kmer_agg_bytes,
+                                      device="cpu")
+    rhist, rstats = ref.run_kmer_count(reads, PAPER.kmer_k, n_ranks,
+                                       agg_bytes=PAPER.kmer_agg_bytes)
+    assert hist == rhist
+    assert (stats.messages, stats.bytes_sent, stats.aggregation_flushes) \
+        == (rstats.messages, rstats.bytes_sent, rstats.aggregation_flushes)
+    oracle = ref.reference_count(reads, PAPER.kmer_k)
+    assert all(hist.get(k) == n for k, n in oracle.items())
+    assert all(n == 1 for k, n in hist.items() if k not in oracle)
