@@ -3,7 +3,8 @@
 message path (over the sim, shm and socket transports, under chaos and
 across two processes), gemma3-1b serving, olmoe-1b-7b (MoE) serving,
 mamba2-370m (SSM) serving and hymba-1.5b (hybrid) serving at full width,
-and serving on the comm core (the reference's serve traffic).
+serving on the comm core (the reference's serve traffic), and the
+in-graph collectives with tensor-parallel serving on rank threads.
 
     python3 chip_smoke.py            # from the repository root; one card
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown
@@ -166,10 +167,28 @@ The phases:
    mirrors on CUDA and CPU tensors, bitwise equal, with no host sync on
    the card; e) ``apps/kmer.py`` on a card-bound cluster at
    ``configs/paper.py``'s quick sizes, ranks 2 and 4, equal to its run
-   on the CPU and exact on every repeated k-mer.
+   on the CPU and exact on every repeated k-mer;
+17. the in-graph collectives and tensor-parallel serving, on rank
+   threads of ``LocalCluster(P, device="cuda")`` (``LciAxis`` through
+   ``spmd_map``): a) every collective in every ``CommMode`` at P = 4
+   with CUDA tensors at gemma3-1b's TP boundary of a 4 x 2048 prefill
+   (the all-gather matmul of x (512, 4, 1152) with w (1152, 1728), the
+   matmul reduce-scatter of (2048, 4, 1728) with (1728, 1152), the
+   reduce-scatter, all-reduce and all-gather at those sizes) and
+   olmoe-1b-7b's dispatch all-to-all (64 experts, capacity 160, d 2048),
+   the barrier and the tree pair, float32 and bf16, ``wire_bf16`` off
+   and on: the gathers, the all-to-all and the tree pair bitwise equal to
+   the CPU call, every mode against the plain single-rank oracle, no
+   host copy, host syncs counted (:func:`collectives_phase`); b) gemma3-1b
+   at full width at tp = 2 (:func:`tp_gemma_phase`: f32 decode against
+   tp = 1, bf16 prefill with B2 and B3 counted per rank); c) olmoe-1b-7b,
+   mamba2-370m and hymba-1.5b at 2 layers, full width, tp = 2, forward
+   against tp = 1 (:func:`tp_small_phase`); d) ``tp2d_decode.py``'s
+   configs, classic, tp2d and ``joint_kv``, on a (2 x 2) mesh
+   (:func:`tp2d_phase`).
 
-The launch counts are set to 0 just before phases 4, 7, 10, 13, 14, 15
-and 16 (after its kernel check) and read just after; the serving phases
+The launch counts are set to 0 just before phases 4, 7, 10, 13, 14, 15,
+16 (after its kernel check), 17a and 17b and read just after; the serving phases
 also record B3's launches by (rows, d) a prefill call and a decode
 step.  Every phase raises on failure;
 nothing is caught.  Each phase
@@ -2832,6 +2851,545 @@ def _rms_shapes(served) -> dict:
                 served["decode"]["rmsnorm_launches_by_shape_per_step"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the in-graph collectives and tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+COLL_P = 4              # rank threads of phase 17a
+COLL_REPS = 5           # timed calls a (collective, mode, dtype), median
+#: gemma3-1b's TP boundary at a prefill of 4 x 2048 tokens, P = 4
+GEMMA_S, GEMMA_B, GEMMA_D, GEMMA_FF = 2048, 4, 1152, 6912
+#: olmoe-1b-7b's dispatch: 64 experts, capacity(1024 local tokens), d 2048
+OLMOE_E, OLMOE_D = 64, 2048
+TP_DECODE_S, TP_DECODE_B = 32, 2
+TP_PREFILL = (2048, 4)
+TP_SMALL_LAYERS = 2
+TP_SMALL_PREFILL = (512, 2)
+
+
+def _bf16_tol(ref, p: int) -> float:
+    """bf16 inputs or ``wire_bf16``: each of up to P - 1 hops, or the
+    final rounding, may round the accumulator to bf16 on the other side
+    of a tie (one bf16 ulp, 2**-7 relative): P * 2**-7 * max|ref|."""
+    return p * 2.0 ** -7 * float(ref.abs().max())
+
+
+def _coll_cases(torch, p):
+    """(name, fn(comm, *local), in_specs, out_spec, full inputs) of phase
+    17a, float32 on the CPU (cast and moved per run)."""
+    from repro_torch.core import collectives as C
+    from repro_torch.distributed import P
+    from repro_torch.models.moe import capacity
+    from repro_torch.configs import get_config
+    g = torch.Generator().manual_seed(SEED + 17)
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    s, b, d, ff = GEMMA_S, GEMMA_B, GEMMA_D, GEMMA_FF
+    cap = capacity((1024 // p) * 4, get_config("olmoe-1b-7b"))
+    x = normal(s, b, d)
+    xr = normal(p * s, b, d)            # a different (s, b, d) a rank
+    w_in = normal(d, ff // p * p, scale=d ** -0.5)
+    h = normal(s, b, ff)
+    w_out = normal(ff, d, scale=ff ** -0.5)
+    disp = normal(p * OLMOE_E, cap, OLMOE_D)
+    v = normal(p, 8, 128)
+
+    def stack(t):
+        return t[None]
+    return [
+        ("all_gather", lambda c, x: stack(C.all_gather(x, c.model_axis,
+                                                       c.cfg)),
+         (P("x"),), P("x"), (x,), "exact"),
+        ("all_gather_matmul", lambda c, x, w: stack(C.all_gather_matmul(
+            x, w, c.model_axis, c.cfg)), (P("x"), P(None, "x")), P("x"),
+         (x, w_in), "agmm"),
+        ("matmul_reduce_scatter", lambda c, h, w: stack(
+            C.matmul_reduce_scatter(h, w, c.model_axis, c.cfg)),
+         (P(None, None, "x"), P("x")), P("x"), (h, w_out), "reduce"),
+        ("reduce_scatter", lambda c, x: stack(C.reduce_scatter(
+            x, c.model_axis, c.cfg)), (P("x"),), P("x"), (xr,), "reduce"),
+        ("all_reduce", lambda c, x: stack(C.all_reduce(x, c.model_axis,
+                                                       c.cfg)),
+         (P("x"),), P("x"), (xr,), "reduce"),
+        ("all_to_all", lambda c, y: stack(C.all_to_all(
+            y, c.model_axis, split_axis=0, concat_axis=1, config=c.cfg)),
+         (P("x"),), P("x"), (disp,), "exact"),
+        ("barrier_tree", lambda c, v: torch.stack([
+            C.tree_broadcast(v[0], c.model_axis, root=p - 1),
+            C.tree_reduce(v[0], c.model_axis, root=1),
+            C.dissemination_barrier(c.model_axis).float().expand_as(v[0])
+        ])[None], (P("x"),), P("x"), (v,), "tree"),
+    ]
+
+
+def _coll_oracle(torch, name, args, p):
+    """The plain single-rank result of a case (float32 on the card)."""
+    if name == "all_gather":
+        return torch.stack([args[0]] * p)
+    if name == "all_gather_matmul":
+        x, w = (a.float() for a in args)
+        return torch.stack([torch.matmul(x, w[:, r * (w.shape[1] // p):
+                                               (r + 1) * (w.shape[1] // p)])
+                            for r in range(p)])
+    if name == "matmul_reduce_scatter":
+        full = torch.matmul(args[0].float(), args[1].float())
+        return torch.stack(torch.chunk(full, p, 0))
+    if name in ("reduce_scatter", "all_reduce"):
+        total = sum(torch.chunk(args[0].float(), p, 0))
+        if name == "all_reduce":
+            return torch.stack([total] * p)
+        return torch.stack(torch.chunk(total, p, 0))
+    return None
+
+
+def collectives_phase(torch):
+    """17a: every collective in every mode at P = 4 rank threads on
+    ``LocalCluster(4, device="cuda")`` (``LciAxis`` through ``spmd_map``)
+    with CUDA tensors, in float32 and bf16, ``wire_bf16`` off and on in
+    the LCI modes; the gathers, the all-to-all and the tree pair bitwise
+    equal to the same call on CPU tensors; each mode against the plain
+    single-rank oracle (and so against BSP) at ``collectives_check.py``'s
+    float32 tolerances (1e-4 the all-gather matmul, 1e-3 the reduces),
+    and at :func:`_bf16_tol` in bf16 and under ``wire_bf16``; no payload
+    byte through the host (``to_host`` / ``to_card`` copies unchanged);
+    per mode the wall ms (median of 5), bytes and messages by protocol,
+    B1 launches, and the host syncs of the first call (and where they
+    were asked for) over its ring steps."""
+    from repro_torch.core.modes import CommConfig, CommMode
+    from repro_torch.core.transport.wire import to_card, to_host
+    from repro_torch.distributed import Mesh, spmd_map
+    from repro_torch.kernels.doorbell import stage_copy_rows
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p = COLL_P
+    cases = _coll_cases(torch, p)
+    out = []
+    host0 = (to_host.copies, to_card.copies)
+    b1_0 = stage_copy_rows.launches
+    with Mesh((p,), ("x",), device=DEVICE) as mesh, \
+            Mesh((p,), ("x",), device="cpu") as cpu_mesh:
+        for name, fn, specs, ospec, args, kind in cases:
+            for dt in ("float32", "bfloat16"):
+                tdt = getattr(torch, dt)
+                dev_args = [a.to(DEVICE, tdt) for a in args]
+                oracle = _coll_oracle(torch, name, dev_args, p)
+                cpu_ref = None
+                if kind in ("exact", "tree"):
+                    cpu_ref = spmd_map(fn, cpu_mesh, specs, ospec,
+                                       model_axis="x", config=CommConfig(
+                                           mode=CommMode.LCI_DEDICATED))(
+                        *[a.to(tdt) for a in args])
+                for mode in CommMode:
+                    for wire in ((False,) if mode == CommMode.BSP
+                                 else (False, True)):
+                        if wire and kind != "reduce":
+                            continue
+                        cfg = CommConfig(mode=mode, wire_bf16=wire)
+                        f = spmd_map(fn, mesh, specs, ospec, config=cfg,
+                                     model_axis="x")
+                        tot0 = mesh.protocol_totals()
+                        calls0 = sum(_axis_calls(mesh))
+                        b1 = stage_copy_rows.launches
+                        torch.cuda.synchronize()
+                        with _SyncCount(torch) as syncs:
+                            got = f(*dev_args)
+                        torch.cuda.synchronize()
+                        tot1 = mesh.protocol_totals()
+                        steps = sum(_axis_calls(mesh)) - calls0
+                        b1 = stage_copy_rows.launches - b1
+                        times = []
+                        for _ in range(COLL_REPS):
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            f(*dev_args)
+                            torch.cuda.synchronize()
+                            times.append(time.perf_counter() - t0)
+                        rec = {"case": name, "dtype": dt, "mode": mode.value,
+                               "wire_bf16": wire, "ranks": p,
+                               "shape": [list(a.shape) for a in args],
+                               "ms": statistics.median(times) * 1e3,
+                               "messages": steps,
+                               "host_syncs": syncs.calls,
+                               "host_sync_sites": syncs.where,
+                               "host_syncs_per_ring_step":
+                                   syncs.calls / max(steps, 1),
+                               "b1_launches": b1,
+                               **{k: tot1[k] - tot0[k] for k in tot1}}
+                        if cpu_ref is not None:
+                            same = torch.equal(got.cpu(), cpu_ref)
+                            rec["bitwise_vs_cpu"] = same
+                            if not same:
+                                raise AssertionError(
+                                    f"17a {name} {dt} {mode.value}: CUDA "
+                                    "result differs from the CPU call")
+                        if oracle is not None:
+                            err = float((got.float() - oracle).abs().max())
+                            if dt == "bfloat16" or wire:
+                                tol = _bf16_tol(oracle, p)
+                            else:
+                                tol = 1e-4 if kind == "agmm" else 1e-3
+                            rec.update(max_abs_err=err, tol=tol)
+                            if not err <= tol:
+                                raise AssertionError(
+                                    f"17a {name} {dt} {mode.value} wire="
+                                    f"{wire}: |err| {err} > {tol}")
+                        out.append(rec)
+    host = (to_host.copies - host0[0], to_card.copies - host0[1])
+    if host != (0, 0):
+        raise AssertionError(f"17a: payload bytes crossed the host "
+                             f"(to_host, to_card copies {host})")
+    return {"cases": out, "host_copies": list(host),
+            "b1_launches": stage_copy_rows.launches - b1_0}
+
+
+def _axis_calls(mesh):
+    """Messages posted so far by every rank (the runtimes' protocol
+    counts): a ring step is one message a rank."""
+    return [rt.stats.total_msgs for rt in mesh.cluster.local_runtimes()]
+
+
+class _PerRank:
+    """While installed, counts B2 and B3 calls by rank thread (the model
+    code's ``flash_attention`` and ``rmsnorm`` entries)."""
+
+    def __enter__(self):
+        import threading
+        import repro_torch.models.blocks as blocks
+        import repro_torch.models.layers as layers
+        self.mods = ((blocks, "flash_attention", "flash"),
+                     (layers, "rmsnorm", "rms"))
+        self.real = [getattr(m, n) for m, n, _ in self.mods]
+        self.counts = {}
+
+        def wrap(fn, key):
+            def counted(*a, **kw):
+                who = threading.current_thread().name
+                c = self.counts.setdefault(who, {"flash": 0, "rms": 0})
+                c[key] += 1
+                return fn(*a, **kw)
+            return counted
+        for (m, n, key), fn in zip(self.mods, self.real):
+            setattr(m, n, wrap(fn, key))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n, _), fn in zip(self.mods, self.real):
+            setattr(m, n, fn)
+
+
+def _tp_specs(specs):
+    if isinstance(specs, dict):
+        return {k: _tp_specs(v) for k, v in specs.items()}
+    return specs.pspec()
+
+
+def _tp_decode(torch, cfg, params, specs, tokens, mesh, mode):
+    """Teacher-forced decode on the mesh's model axis; (tokens, ms a
+    step)."""
+    from repro_torch.core.modes import CommConfig
+    from repro_torch.distributed import P, spmd_map
+    from repro_torch.serving import cache_pspecs, init_cache, \
+        make_serve_step
+    S, B = tokens.shape
+
+    def rank(comm, params, cache, tokens):
+        step = make_serve_step(cfg, comm)
+        preds = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(S):
+            nxt, cache = step(params, cache, tokens[i])
+            preds.append(nxt)
+        torch.cuda.synchronize()
+        return torch.stack(preds), torch.tensor(
+            [(time.perf_counter() - t0) / S * 1e3])
+    cache = init_cache(cfg, S, B, device=DEVICE)
+    got, ms = spmd_map(rank, mesh, (_tp_specs(specs),
+                                    cache_pspecs(cfg, batch=B), P()),
+                       (P(), P("model")), config=CommConfig(mode=mode))(
+        params, cache, tokens)
+    return got, float(ms.max())
+
+
+def _local_decode(torch, cfg, params, tokens):
+    from repro_torch.serving import init_cache, make_serve_step
+    step = make_serve_step(cfg)
+    cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], device=DEVICE)
+    preds = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(tokens.shape[0]):
+        nxt, cache = step(params, cache, tokens[i])
+        preds.append(nxt)
+    torch.cuda.synchronize()
+    return torch.stack(preds), (time.perf_counter() - t0) / \
+        tokens.shape[0] * 1e3
+
+
+def _tp_forward(torch, cfg, params, specs, tokens, mesh, mode, reps=1):
+    """``forward`` on the mesh, tokens sequence-sharded over model;
+    (hidden states (s, b, d), aux, ms of the last call)."""
+    from repro_torch.core.modes import CommConfig
+    from repro_torch.distributed import P, spmd_map
+    from repro_torch.models.registry import build_model
+
+    def rank(comm, params, tokens):
+        model = build_model(cfg, device=DEVICE)
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, aux = model.forward(params, {"tokens": tokens}, comm)
+            torch.cuda.synchronize()
+        return x, {k: v.reshape(1) for k, v in aux.items()}, torch.tensor(
+            [(time.perf_counter() - t0) * 1e3])
+    x, aux, ms = spmd_map(rank, mesh, (_tp_specs(specs), P("model")),
+                          (P(), P("model"), P("model")),
+                          config=CommConfig(mode=mode))(params, tokens)
+    return x, {k: float(v[0]) for k, v in aux.items()}, float(ms.max())
+
+
+def tp_gemma_phase(torch):
+    """17b: gemma3-1b at full width (26 layers, d 1152, vocab 262144) at
+    tp = 2 on two rank threads, with ``tp_target`` 2 so that its 4 heads
+    shard and its one kv head does not (Plan A with the kv projection
+    replicated, each rank keeping the kv head its q heads map to).
+
+    Decode: float32, teacher-forced ``make_serve_step`` over 32 positions
+    of batch 2, in LCI_DEDICATED and in BSP, against the tp = 1 run on the
+    same weights: agreement > 0.95 (``tp2d_decode.py``'s gate).  Prefill:
+    bf16, 4 x 2048 tokens, ``make_prefill_step`` in both modes; per rank
+    exactly 26 flash-attention launches (one a layer, on its two q heads,
+    all "tc") and 105 RMSNorm launches (norm1, q_norm, k_norm, norm2 a
+    layer and the final norm), as at tp = 1."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.modes import CommMode
+    from repro_torch.distributed import Mesh, P, spmd_map
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import make_prefill_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"config": "gemma3-1b", "tp": 2, "tp_target": 2}
+    base = dataclasses.replace(get_config("gemma3-1b"), tp_target=2)
+    cfg = dataclasses.replace(base, dtype=torch.float32)
+    params, specs = build_model(cfg, device=DEVICE).init(SEED)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    tokens = torch.randint(0, cfg.vocab, (TP_DECODE_S, TP_DECODE_B),
+                           generator=g, device=DEVICE, dtype=torch.int32)
+    oracle, ms1 = _local_decode(torch, cfg, params, tokens)
+    out["decode"] = {"dtype": "float32", "positions": TP_DECODE_S,
+                     "batch": TP_DECODE_B, "tp1_ms_per_step": ms1}
+    with Mesh((2,), ("model",), device=DEVICE) as mesh:
+        for mode in (CommMode.LCI_DEDICATED, CommMode.BSP):
+            got, ms = _tp_decode(torch, cfg, params, specs, tokens, mesh,
+                                 mode)
+            agree = float((got == oracle).float().mean())
+            out["decode"][mode.value] = {"agreement_vs_tp1": agree,
+                                         "ms_per_step": ms}
+            if agree <= 0.95:
+                raise AssertionError(f"17b gemma3-1b tp=2 {mode.value}: "
+                                     f"decode agrees with tp=1 on {agree}")
+        del params
+        torch.cuda.empty_cache()
+        cfg = base                                     # bf16
+        params, specs = build_model(cfg, device=DEVICE).init(SEED)
+        s, b = TP_PREFILL
+        tokens = torch.randint(0, cfg.vocab, (s, b), generator=g,
+                               device=DEVICE, dtype=torch.int32)
+        prefill_rec = {"dtype": "bfloat16", "batch": b, "seq": s}
+        for mode in (CommMode.LCI_DEDICATED, CommMode.BSP):
+            from repro_torch.core.modes import CommConfig
+
+            def rank(comm, params, tokens):
+                step = make_prefill_step(cfg, comm)
+                times = []
+                for _ in range(PREFILL_CALLS + 1):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    tok, last = step(params, {"tokens": tokens})
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                return tok, torch.tensor([statistics.median(times[1:])
+                                          * 1e3])
+            tc0 = flash_attention_bhsd.launches_by_variant["tc"]
+            with _PerRank() as per:
+                tok, ms = spmd_map(rank, mesh, (_tp_specs(specs),
+                                                P("model")),
+                                   (P(), P("model")),
+                                   config=CommConfig(mode=mode))(params,
+                                                                 tokens)
+            calls = PREFILL_CALLS + 1
+            per_rank = {k: {n: c // calls for n, c in v.items()}
+                        for k, v in per.counts.items()}
+            tc = flash_attention_bhsd.launches_by_variant["tc"] - tc0
+            want = {"flash": 26, "rms": 105}
+            if len(per_rank) != 2 or any(v != want
+                                         for v in per_rank.values()) or \
+                    any(c % calls for v in per.counts.values()
+                        for c in v.values()):
+                raise AssertionError(f"17b prefill {mode.value}: launches "
+                                     f"per rank and call {per_rank} "
+                                     f"(want {want})")
+            if tc != 2 * 26 * calls:
+                raise AssertionError(f"17b prefill {mode.value}: {tc} "
+                                     "tensor-core flash launches (want "
+                                     f"{2 * 26 * calls})")
+            if not ((tok >= 0) & (tok < cfg.vocab)).all():
+                raise AssertionError("17b prefill: tokens out of range")
+            prefill_rec[mode.value] = {
+                "ms": float(ms.max()), "launches_per_rank_call": per_rank,
+                "flash_tc_launches": tc}
+        out["prefill"] = prefill_rec
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase 17c's configs: the path each exercises at tp = 2
+TP_SMALL = {"olmoe-1b-7b": "B4 on the local experts after the all-to-all",
+            "mamba2-370m": "B5 on the local SSD heads",
+            "hymba-1.5b": "Plan B attention and the replicated SSM"}
+
+
+def tp_small_phase(torch):
+    """17c: olmoe-1b-7b, mamba2-370m and hymba-1.5b at full width, 2
+    layers, tp = 2, float32: ``forward`` on 2 x 512 tokens in
+    LCI_DEDICATED against tp = 1 on the same weights, gated as phases 9
+    and 12 gate decode against forward: the greedy tokens of every
+    position agree on more than 0.95 (olmoe at the capacity factor E / k,
+    where no expert overflows at either width); the kernels' launches on
+    the path are recorded and must be nonzero."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.modes import CommMode
+    from repro_torch.distributed import Mesh, local_comm
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
+    from repro_torch.models.layers import greedy_sample, lm_head_logits
+    from repro_torch.models.registry import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    s, b = TP_SMALL_PREFILL
+    with Mesh((2,), ("model",), device=DEVICE) as mesh:
+        for arch, what in TP_SMALL.items():
+            cfg = dataclasses.replace(get_config(arch),
+                                      n_layers=TP_SMALL_LAYERS,
+                                      dtype=torch.float32)
+            if cfg.family == "moe":
+                cfg = dataclasses.replace(
+                    cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+            params, specs = build_model(cfg, device=DEVICE).init(SEED)
+            g = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+            tokens = torch.randint(0, cfg.vocab, (s, b), generator=g,
+                                   device=DEVICE, dtype=torch.int32)
+            x1, aux1 = build_model(cfg, device=DEVICE).forward(
+                params, {"tokens": tokens})
+            c0 = (flash_attention_bhsd.launches, rmsnorm.launches,
+                  moe_gmm.launches, ssd_scan_bhsp.launches)
+            x2, aux2, ms = _tp_forward(torch, cfg, params, specs, tokens,
+                                       mesh, CommMode.LCI_DEDICATED)
+            launches = dict(zip(("flash", "rms", "moe_gmm", "ssd_scan"), (
+                b_ - a_ for a_, b_ in zip(c0, (
+                    flash_attention_bhsd.launches, rmsnorm.launches,
+                    moe_gmm.launches, ssd_scan_bhsp.launches)))))
+            head = params.get("lm_head", params["emb"])
+            comm = local_comm()
+            t1 = greedy_sample(lm_head_logits(x1, head, comm,
+                                              real_vocab=cfg.vocab), comm)
+            t2 = greedy_sample(lm_head_logits(x2, head, comm,
+                                              real_vocab=cfg.vocab), comm)
+            agree = float((t1 == t2).float().mean())
+            err = float((x1 - x2).abs().max())
+            out[arch] = {"path": what, "layers": cfg.n_layers, "seq": s,
+                         "batch": b, "dtype": "float32",
+                         "token_agreement_vs_tp1": agree,
+                         "max_abs_hidden_diff": err, "forward_ms": ms,
+                         "launches": launches,
+                         "dropped_frac": aux2["dropped_frac"]}
+            need = {"olmoe-1b-7b": ("flash", "rms", "moe_gmm"),
+                    "mamba2-370m": ("rms", "ssd_scan"),
+                    "hymba-1.5b": ("flash", "rms", "ssd_scan")}[arch]
+            if agree <= 0.95 or not torch.isfinite(x2).all() or \
+                    any(launches[k] == 0 for k in need):
+                raise AssertionError(f"17c {arch} tp=2: {out[arch]}")
+            del params, x1, x2
+            torch.cuda.empty_cache()
+    return out
+
+
+#: tp2d_decode.py's configs (float32) and the dense one at batch 1
+TP2D = {
+    "dense": (dict(family="dense", n_layers=2, d_model=64, n_heads=4,
+                   n_kv_heads=4, d_ff=128, vocab=256, tp_target=4), 4),
+    "gqa-par": (dict(family="dense", n_layers=2, d_model=64, n_heads=8,
+                     n_kv_heads=2, d_ff=128, vocab=256, head_dim=16,
+                     norm="layernorm", parallel_block=True,
+                     tie_embeddings=True, tp_target=4), 4),
+    "ssm": (dict(family="ssm", n_layers=2, d_model=64, n_heads=0,
+                 n_kv_heads=0, d_ff=0, vocab=256, ssm_state=16,
+                 ssm_headdim=16, ssm_chunk=8, tp_target=4), 4),
+    "moe": (dict(family="moe", n_layers=2, d_model=64, n_heads=4,
+                 n_kv_heads=4, d_ff=96, vocab=256, n_experts=8, top_k=2,
+                 tp_target=4, capacity_factor=8.0, shared_expert_ff=64), 4),
+    "dense-joint-kv": (dict(family="dense", n_layers=2, d_model=64,
+                            n_heads=4, n_kv_heads=4, d_ff=128, vocab=256,
+                            tp_target=4), 1),
+}
+
+
+def tp2d_phase(torch):
+    """17d: ``tp2d_decode.py``'s four configs on a (data 2 x model 2) mesh
+    of four rank threads on the card, classic and tp2d decode (and the
+    dense config at batch 1: ``joint_kv``), 16 teacher-forced positions,
+    each against the local (tp = 1) decode: agreement > 0.95."""
+    from repro_torch.core.modes import CommConfig, CommMode
+    from repro_torch.distributed import Mesh, P, spmd_map
+    from repro_torch.models.common import ModelConfig
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import cache_pspecs, init_cache, \
+        make_serve_step
+    S = 16
+    out = {}
+    with Mesh((2, 2), ("data", "model"), device=DEVICE) as mesh:
+        for name, (fields, batch) in TP2D.items():
+            cfg = ModelConfig(name=name, dtype=torch.float32, **fields)
+            params, specs = build_model(cfg, device=DEVICE).init(SEED)
+            g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+            tokens = torch.randint(0, cfg.vocab, (S, batch), generator=g,
+                                   device=DEVICE, dtype=torch.int32)
+            oracle, _ = _local_decode(torch, cfg, params, tokens)
+            rec = {}
+            for tp2d in (False, True):
+                tok_spec = P(None, "data") if (batch > 1 and not tp2d) \
+                    else P()
+
+                def rank(comm, params, cache, tokens, tp2d=tp2d):
+                    step = make_serve_step(cfg, comm, joint_kv=batch == 1,
+                                           tp2d=tp2d)
+                    preds = []
+                    for i in range(S):
+                        nxt, cache = step(params, cache, tokens[i])
+                        preds.append(nxt)
+                    return torch.stack(preds)
+                cache = init_cache(cfg, S, batch, device=DEVICE)
+                got = spmd_map(rank, mesh, (
+                    _tp_specs(specs), cache_pspecs(cfg, batch=batch,
+                                                   tp2d=tp2d), tok_spec),
+                    tok_spec, config=CommConfig(
+                        mode=CommMode.LCI_DEDICATED))(params, cache, tokens)
+                agree = float((got == oracle).float().mean())
+                rec["tp2d" if tp2d else "classic"] = agree
+                if agree <= 0.95:
+                    raise AssertionError(f"17d {name} tp2d={tp2d}: "
+                                         f"agreement {agree}")
+            rec.update(batch=batch, joint_kv=batch == 1)
+            out[name] = rec
+    return out
+
+
 def _zero_counts(counters):
     """Every launch count to 0, B2's and B4's counts by variant and B3's
     by shape too."""
@@ -3092,6 +3650,39 @@ def main(argv=None) -> int:
                              f"push {stage_copy_push.launches} times (want "
                              "only the gather)")
 
+    # 17. the in-graph collectives (counts set to 0 just before, read
+    # just after), then tensor-parallel serving: counts set to 0 just
+    # before 17b-d, read just after
+    t17 = time.perf_counter()
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    coll = collectives_phase(torch)
+    c_launches = stage_copy_rows.launches
+    record("collectives", seconds=time.perf_counter() - t0, **coll)
+    if stage_copy.launches or stage_copy_push.launches:
+        raise AssertionError("the collectives launched the dense stage copy "
+                             "or the push")
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    tp_gemma = tp_gemma_phase(torch)
+    record("tp_gemma3", seconds=time.perf_counter() - t0, **tp_gemma)
+    t0 = time.perf_counter()
+    tp_small = tp_small_phase(torch)
+    record("tp_small", seconds=time.perf_counter() - t0, **tp_small)
+    t0 = time.perf_counter()
+    tp2d = tp2d_phase(torch)
+    record("tp2d_joint_kv", seconds=time.perf_counter() - t0, **tp2d)
+    tp_launches = {"flash_attention": flash_attention_bhsd.launches,
+                   "rmsnorm": rmsnorm.launches, "moe_gmm": moe_gmm.launches,
+                   "ssd_scan": ssd_scan_bhsp.launches,
+                   "doorbell": stage_copy_rows.launches}
+    record("phase17", seconds=time.perf_counter() - t17,
+           launches=tp_launches)
+    if min(tp_launches[k] for k in ("flash_attention", "rmsnorm",
+                                    "moe_gmm", "ssd_scan")) == 0:
+        raise AssertionError(f"the tensor-parallel paths launched a kernel "
+                             f"no time: {tp_launches}")
+
     # the kernels line: headline numbers at each main path's shape
     head = next(c for c in cases if c["case"] == "rows_f32_64x16384_bf160")
     fhead = next(c for c in flash
@@ -3110,13 +3701,16 @@ def main(argv=None) -> int:
         "name": "doorbell.stage_copy_rows", "route": "cuda",
         "source": SOURCE, "replaces": REPLACES,
         "launches": launches + t_launches + p_launches + v_launches
-        + v_ranks,
+        + v_ranks + c_launches + tp_launches["doorbell"],
         "launches_by_path": {"message path (phase 4)": launches,
                              "transports (phase 15)": t_launches,
                              "two processes (phase 15)": p_launches,
                              "serve plane (phase 16)": v_launches,
                              "serve plane, server rank (phase 16)":
-                                 v_ranks},
+                                 v_ranks,
+                             "collectives (phase 17a)": c_launches,
+                             "tensor parallel (phase 17b-d)":
+                                 tp_launches["doorbell"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": "bytes",
@@ -3130,9 +3724,13 @@ def main(argv=None) -> int:
             "plain_call_ms", "bound_ms", "bound_share") if k in c}
             for c in cases]}, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_REPLACES, "launches": n_flash + m_flash + y_flash,
+        "replaces": FLASH_REPLACES,
+        "launches": n_flash + m_flash + y_flash
+        + tp_launches["flash_attention"],
         "launches_by_path": {"gemma3-1b": n_flash, "olmoe-1b-7b": m_flash,
-                             "mamba2-370m": 0, "hymba-1.5b": y_flash},
+                             "mamba2-370m": 0, "hymba-1.5b": y_flash,
+                             "tensor parallel (phase 17)":
+                                 tp_launches["flash_attention"]},
         "max_abs_err": max(c["max_abs_err"] for c in flash),
         "ms": fhead["kernel_ms"], "plain_ms": fhead["plain_ms"],
         "bound_ms": fhead["bound_ms"], "bound_by": fhead["bound_by"],
@@ -3148,9 +3746,12 @@ def main(argv=None) -> int:
                                    "library_causal_form", "achieved_tflops",
                                    "bound_share"))}, {
         "name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
-        "replaces": RMS_REPLACES, "launches": n_rms + m_rms + s_rms + y_rms,
+        "replaces": RMS_REPLACES,
+        "launches": n_rms + m_rms + s_rms + y_rms + tp_launches["rmsnorm"],
         "launches_by_path": {"gemma3-1b": n_rms, "olmoe-1b-7b": m_rms,
-                             "mamba2-370m": s_rms, "hymba-1.5b": y_rms},
+                             "mamba2-370m": s_rms, "hymba-1.5b": y_rms,
+                             "tensor parallel (phase 17)":
+                                 tp_launches["rmsnorm"]},
         "max_abs_err": max(c["max_abs_err"] for c in rms),
         "ms": rhead["kernel_ms"], "plain_ms": rhead["plain_ms"],
         "bound_ms": rhead["bound_ms"], "bound_by": "bytes",
@@ -3159,7 +3760,10 @@ def main(argv=None) -> int:
         "cases": _summary([c for c in rms if "kernel_ms" in c],
                           timed + ("copy_ms", "bound_share"))}, {
         "name": "moe_gmm", "route": "cuda", "source": MOE_SOURCE,
-        "replaces": MOE_REPLACES, "launches": n_moe,
+        "replaces": MOE_REPLACES, "launches": n_moe + tp_launches["moe_gmm"],
+        "launches_by_path": {"olmoe-1b-7b": n_moe,
+                             "tensor parallel (phase 17)":
+                                 tp_launches["moe_gmm"]},
         "max_abs_err": max(c["max_abs_err"] for c in moe),
         "ms": mhead["kernel_ms"], "plain_ms": mhead["plain_ms"],
         "bound_ms": mhead["bound_ms"], "bound_by": mhead["bound_by"],
@@ -3172,8 +3776,11 @@ def main(argv=None) -> int:
         "cases": _summary([c for c in moe if "kernel_ms" in c],
                           timed + ("variant", "kernel_no_rows_ms"))}, {
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
-        "replaces": SSD_REPLACES, "launches": s_ssd + y_ssd,
-        "launches_by_path": {"mamba2-370m": s_ssd, "hymba-1.5b": y_ssd},
+        "replaces": SSD_REPLACES,
+        "launches": s_ssd + y_ssd + tp_launches["ssd_scan"],
+        "launches_by_path": {"mamba2-370m": s_ssd, "hymba-1.5b": y_ssd,
+                             "tensor parallel (phase 17)":
+                                 tp_launches["ssd_scan"]},
         "max_abs_err": max(c["max_abs_err"] for c in ssd),
         "ms": shead["kernel_ms"], "plain_ms": shead["plain_ms"],
         "bound_ms": shead["bound_ms"], "bound_by": shead["bound_by"],

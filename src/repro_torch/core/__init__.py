@@ -10,13 +10,16 @@ Ported so far: the host runtime's fused-doorbell message path over the
 ``sim``, ``shm`` and ``socket`` transports, the binary codec (the
 reference's frames, byte for byte), the chaos and reliability planes,
 ``ProcessCluster``, and the functional ``Ring`` / ``SyncState`` /
-``MatchTable`` mirrors (plain functions on tensors).  Still to port
-(ROADMAP A4): the in-graph collectives.
+``MatchTable`` mirrors (plain functions on tensors), and the in-graph
+collectives (:mod:`.collectives`) on bound rank axes (:mod:`.axis`: over
+the comm core's rank threads or ``torch.distributed``).
 """
 from .attrs import (REGISTRY, AttrError, AttrResource, AttrSpec,
                     ResolvedAttrs, get_spec, parse_attr_args, register_attr,
                     registry_table, resolve, resolve_one,
                     resolved_from_values)
+from . import collectives
+from .axis import Axis, DistAxis, LciAxis
 from .backlog import (BacklogQueue, Ring, init_ring, ring_pop, ring_push,
                       ring_size)
 from .channels import Channel, Device, make_channels
@@ -92,6 +95,8 @@ __all__ = [
     # pluggable transport backends (DESIGN.md §14)
     "Transport", "ProcessCluster", "backend_class", "decode_msg",
     "encode_msg", "make_transport", "msg_weight", "register_backend",
+    # in-graph collectives on bound rank axes
+    "collectives", "Axis", "DistAxis", "LciAxis",
     # modes & protocol
     "CommConfig", "CommMode", "parse_mode", "Protocol", "ProtocolStats",
     "select_protocol", "off", "OffBuilder",

@@ -14,8 +14,8 @@ means the same thing to both packages:
 * ``LCI_SHARED``     — asynchronous posting on a single shared channel.
 * ``LCI_DEDICATED``  — ``n_channels`` independent streams.
 
-The collectives that read these modes are not ported yet (ROADMAP.md
-A7); the host runtime reads ``n_channels`` for its pool lanes.
+The in-graph collectives (:mod:`.collectives`) read these modes; the
+host runtime reads ``n_channels`` for its pool lanes.
 """
 from __future__ import annotations
 

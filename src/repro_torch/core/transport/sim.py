@@ -50,6 +50,9 @@ class Fabric(Transport):
         # depth bound, so _extra holds sum(count - 1) per stream.  Same
         # approximate-under-races contract as the depth bound itself.
         self._extra: Dict[Tuple[int, int], int] = {}
+        #: called with the destination rank after every accepted push
+        #: (rank threads that sleep until traffic lands set it)
+        self.on_push = None
 
     def _q(self, dst: int, device_index: int) -> collections.deque:
         return self._queues.setdefault((dst, device_index),
@@ -65,6 +68,8 @@ class Fabric(Transport):
             msg.ready_at = time.perf_counter() + self.latency
         q.append(msg)
         self._pushes.fetch_add(1)
+        if self.on_push is not None:
+            self.on_push(msg.dst)
         return True
 
     def push_burst(self, msgs: Sequence[WireMsg]) -> int:
@@ -93,6 +98,8 @@ class Fabric(Transport):
                 m.ready_at = ready
         q.extend(accepted)
         self._pushes.fetch_add(n)
+        if self.on_push is not None:
+            self.on_push(dst)
         return n
 
     def push_packed(self, msg: WireMsg) -> int:
@@ -123,6 +130,8 @@ class Fabric(Transport):
         if n > 1:
             self._extra[key] = self._extra.get(key, 0) + n - 1
         self._pushes.fetch_add(n)
+        if self.on_push is not None:
+            self.on_push(msg.dst)
         return n
 
     def ready(self, dst: int, device_index: int) -> bool:

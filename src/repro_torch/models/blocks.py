@@ -1,12 +1,19 @@
 """Transformer blocks: TP plans, attention ops, MLP weights.
 
-The mirror of :mod:`repro.models.blocks` at tp = 1.  The TP plan
-(:func:`tp_plan`) keeps the reference's decisions so the parameter
-layout and a later multi-rank slice agree; with one rank both plans
-compute the same thing (q, k and v for the whole local sequence, all
-heads), which is what :func:`attention_op` does.  K and V are projected
-with their own matmuls (the reference concatenates ``[wk | wv]`` and
-splits; the columns are the same dot products).
+The mirror of :mod:`repro.models.blocks`.  The tensor-parallel plans:
+
+* Plan A (``shard_heads``) — q heads sharded over the model axis; entered
+  with ``ag_matmul`` (full sequence x local heads), left with
+  ``matmul_rs``.  KV is sharded too when ``n_kv % tp == 0``; otherwise
+  every rank projects all kv heads, gathers them over the sequence and
+  keeps the kv-head range its global q heads map to.
+* Plan B (heads replicated) — q for the local sequence rows only, K/V
+  projected locally and all-gathered over the sequence.
+
+With one rank both plans compute the same thing (q, k and v for the
+whole local sequence, all heads): there K and V are projected with their
+own matmuls (the reference concatenates ``[wk | wv]`` and splits; the
+columns are the same dot products).
 """
 from __future__ import annotations
 
@@ -116,10 +123,74 @@ def attention_op(x: torch.Tensor, p: Dict[str, torch.Tensor],
                  q_offset: int, causal: bool = True, prefix: str = ""
                  ) -> torch.Tensor:
     """x: (s_local, b, d) pre-normed; returns (s_local, b, d)
-    un-residual.  One flash-attention launch on CUDA."""
-    if comm.tp != 1:
-        raise NotImplementedError("attention_op: tp > 1 is not ported "
-                                  "(ROADMAP A4)")
+    un-residual.  One flash-attention launch on CUDA, on the rank's
+    local heads."""
+    if comm.tp == 1:
+        return _attention_tp1(x, p, cfg, comm, plan, window=window,
+                              q_offset=q_offset, causal=causal,
+                              prefix=prefix)
+    dh = cfg.resolved_head_dim
+    wq = comm.weight(p[prefix + "wq"], fsdp_axis=0)
+    # concat of LOCAL shards: the layout is [K_local | V_local]
+    wkv = torch.cat([comm.weight(p[prefix + "wk"], fsdp_axis=0),
+                     comm.weight(p[prefix + "wv"], fsdp_axis=0)], dim=1)
+    wo = comm.weight(p[prefix + "wo"], fsdp_axis=1)
+    nq_l, nkv_l = plan.q_local(cfg), plan.kv_local(cfg)
+
+    if plan.shard_heads:
+        # Plan A: full-sequence q for the local head shard
+        q = comm.ag_matmul(x, wq)                       # (s, b, nq_l*dh)
+        if plan.shard_kv:
+            kv = comm.ag_matmul(x, wkv)                 # (s, b, 2*nkv_l*dh)
+            k, v = torch.chunk(kv.reshape(*kv.shape[:-1], 2 * nkv_l, dh),
+                               2, dim=-2)
+        else:
+            # replicated KV projection: every rank computes ALL kv heads,
+            # then keeps the contiguous kv-head range its GLOBAL q heads
+            # map to (GQA grouping is global, not local)
+            kv = comm.ag_seq(torch.matmul(x, wkv))
+            kv = kv.reshape(*kv.shape[:-1], 2, nkv_l, dh)
+            g_ratio = cfg.n_heads // cfg.n_kv_heads
+            if nq_l >= g_ratio:
+                assert nq_l % g_ratio == 0, (nq_l, g_ratio)
+                cnt = nq_l // g_ratio
+            else:
+                assert g_ratio % nq_l == 0, (nq_l, g_ratio)
+                cnt = 1
+            start = (comm.model_index() * nq_l) // g_ratio
+            kv = kv[..., start:start + cnt, :]
+            k, v = kv[..., 0, :, :], kv[..., 1, :, :]
+        q = q.reshape(q.shape[0], *q.shape[1:-1], nq_l, dh)
+        q_off_attn = 0                                  # q covers full seq
+    else:
+        # Plan B: local-sequence q over all heads; KV gathered
+        q = torch.matmul(x, wq)                         # (s_l, b, nq*dh)
+        kv = comm.ag_seq(torch.matmul(x, wkv))
+        q = q.reshape(*q.shape[:-1], nq_l, dh)
+        k, v = torch.chunk(kv.reshape(*kv.shape[:-1], 2 * nkv_l, dh), 2,
+                           dim=-2)
+        q_off_attn = q_offset
+
+    if cfg.qk_norm:
+        q = rms_norm(q, p[prefix + "q_norm"])
+        k = rms_norm(k, p[prefix + "k_norm"])
+    q_pos = q_off_attn + torch.arange(q.shape[0], dtype=torch.int32,
+                                      device=x.device)
+    k_pos = torch.arange(k.shape[0], dtype=torch.int32, device=x.device)
+    q = apply_rope(q, q_pos, cfg.rope_theta)
+    k = apply_rope(k, k_pos, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=causal, window=window,
+                        q_offset=q_off_attn)
+    o = o.reshape(*o.shape[:-2], nq_l * dh)
+    if plan.shard_heads:
+        return comm.matmul_rs(o, wo)                    # (s_l, b, d)
+    return torch.matmul(o, wo)                          # local rows
+
+
+def _attention_tp1(x, p, cfg, comm, plan, *, window, q_offset, causal,
+                   prefix):
+    """One rank: q, k and v for the whole local sequence, all heads (both
+    plans compute that there)."""
     dh = cfg.resolved_head_dim
     s, b = x.shape[:2]
     nq, nkv = plan.q_local(cfg), plan.kv_local(cfg)

@@ -3,9 +3,9 @@
 The mirror of :mod:`repro.models.common`: one :class:`ModelConfig` covers
 all ten architectures (family-specific fields are zero/empty when
 unused), and :class:`ParamSpec` records per parameter which logical axis
-is tensor-parallel and which is FSDP.  The port runs at tp = dp = 1, so
-the specs are metadata only; they keep the reference's layout decisions
-so a later multi-rank slice reads them unchanged.
+is tensor-parallel and which is FSDP, with the reference's layout
+decisions; ``ParamSpec.pspec`` turns it into the partition spec
+``spmd_map`` cuts a full param by.
 
 ``dtype`` is a ``torch.dtype`` (default ``torch.bfloat16``).  The
 :class:`ParamFactory` draws from an explicit ``torch.Generator`` with the
@@ -158,6 +158,26 @@ class ParamSpec:
     tp_axis: Optional[int] = None
     fsdp_axis: Optional[int] = None
     stacked: bool = True
+
+    def pspec(self, *, model_axis="model", data_axis="data",
+              stacked: Optional[bool] = None, ndim: Optional[int] = None):
+        """The :class:`~repro_torch.distributed.spmd_map.PartitionSpec`
+        ``spmd_map`` cuts this param by (the reference's
+        ``ParamSpec.pspec``, read the same way)."""
+        from ..distributed.spmd_map import PartitionSpec as P
+        st = self.stacked if stacked is None else stacked
+        off = 1 if st else 0
+        set_axes = [a for a in (self.tp_axis, self.fsdp_axis)
+                    if a is not None]
+        if not set_axes:
+            return P()                       # fully replicated, any rank
+        n = ndim if ndim is not None else 1 + max(set_axes)
+        dims: list = [None] * (n + off)
+        if self.tp_axis is not None:
+            dims[self.tp_axis + off] = model_axis
+        if self.fsdp_axis is not None:
+            dims[self.fsdp_axis + off] = data_axis
+        return P(*dims)
 
 
 def truncated_normal_init(gen: torch.Generator, shape, scale: float, dtype,

@@ -162,7 +162,13 @@ def lm_head_logits(x: torch.Tensor, emb: torch.Tensor, comm, *,
 def greedy_sample(logits_local: torch.Tensor, comm) -> torch.Tensor:
     """Vocab-parallel argmax: (..., V_local) -> (...,) int32 global ids;
     ties go to the lowest id (``torch.argmax`` returns the first
-    maximum)."""
+    maximum; across ranks the lowest rank holding the maximum wins)."""
     v_local = logits_local.shape[-1]
     best = torch.argmax(logits_local, dim=-1)
-    return (comm.model_index() * v_local + best).to(torch.int32)
+    gid = (comm.model_index() * v_local + best).to(torch.int32)
+    if comm.tp == 1:
+        return gid
+    local_val = torch.gather(logits_local, -1, best[..., None])[..., 0]
+    mine = local_val >= comm.pmax_model(local_val)
+    cand = torch.where(mine, gid, torch.full_like(gid, 2 ** 31 - 1))
+    return -comm.pmax_model(-cand)                   # the global minimum

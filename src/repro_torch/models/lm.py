@@ -9,8 +9,10 @@ the hybrid family (attention and the SSM mixer side by side on the same
 normed input, their outputs RMS-normed and averaged, then an MLP).  The
 layer stack is a Python loop over the stacked ``(L, ...)`` parameters
 (the reference's ``lax.scan``); there is no autograd here, so no remat.
-The vlm and audio families, the loss and remat are not ported yet
-(ROADMAP.md).
+At tp > 1 every block runs the reference's tensor-parallel schedule
+through the :class:`Comm` (sequence-sharded activations, the ring
+collectives at the TP boundaries).  The vlm and audio families, the loss
+and remat are not ported yet (ROADMAP.md).
 
 Batch convention (seq-major local view):
     tokens  (s_local, b)   int
@@ -25,8 +27,8 @@ from ..distributed.comm import Comm
 from .blocks import TPPlan, init_attention, init_mlp, swa_attention_op, \
     tp_plan
 from .common import ModelConfig, ParamFactory
-from .layers import (apply_norm, embed_tokens, gated_activation, mlp_block,
-                     rms_norm)
+from .layers import (apply_norm, embed_tokens, gated_activation, mlp_activation,
+                     mlp_block, rms_norm)
 from .moe import init_moe, moe_block
 from .ssm import init_ssm, ssm_op
 
@@ -108,14 +110,30 @@ def init_params(cfg: ModelConfig, gen: torch.Generator
 # ---------------------------------------------------------------------------
 
 def _mlp_op(x, lp, cfg, comm, prefix: str = "") -> torch.Tensor:
-    """The MLP at tp = 1: gate and up are separate matmuls (the reference
-    concatenates ``[w_gate | w_up]`` and splits the product)."""
+    """The MLP.  With one rank, or with the MLP replicated over the model
+    axis (``tp_mlp`` off), local matmuls with gate and up separate (the
+    reference concatenates ``[w_gate | w_up]`` and splits the product);
+    at tp > 1 the concatenated local shards enter through ``ag_matmul``
+    and leave through ``matmul_rs``, as in the reference."""
     w_out = comm.weight(lp[prefix + "w_out"], fsdp_axis=1)
+    if comm.tp > 1 and cfg.tp_mlp:
+        if cfg.mlp in ("swiglu", "geglu"):
+            w_in = torch.cat([comm.weight(lp[prefix + "w_gate"],
+                                          fsdp_axis=0),
+                              comm.weight(lp[prefix + "w_up"],
+                                          fsdp_axis=0)], dim=1)
+        else:
+            w_in = comm.weight(lp[prefix + "w_in"], fsdp_axis=0)
+        return mlp_block(x, w_in, w_out, cfg.mlp, comm)
     if cfg.mlp in ("swiglu", "geglu"):
         gate = torch.matmul(x, comm.weight(lp[prefix + "w_gate"],
                                            fsdp_axis=0))
         up = torch.matmul(x, comm.weight(lp[prefix + "w_up"], fsdp_axis=0))
         h = gated_activation(cfg.mlp, gate, up)
+        return torch.matmul(h, w_out)
+    if comm.tp > 1:                     # replicated MLP: no collective
+        h = mlp_activation(cfg.mlp, torch.matmul(
+            x, comm.weight(lp[prefix + "w_in"], fsdp_axis=0)))
         return torch.matmul(h, w_out)
     return mlp_block(x, comm.weight(lp[prefix + "w_in"], fsdp_axis=0),
                      w_out, cfg.mlp, comm)

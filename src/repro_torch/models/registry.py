@@ -3,7 +3,8 @@
 :func:`build_model` binds a config to a device (``cuda`` unless the caller
 asks for ``cpu``); :func:`params_from_numpy` carries the JAX package's
 params across as a numpy tree (``jax.tree_util.tree_map(np.asarray,
-params)``) into the port's dict, keys and stacked shapes unchanged.
+params)``) into the port's dict, keys and stacked shapes unchanged, or
+into one rank's shards of it (``specs=``, ``mesh=``, ``rank=``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from ..core.runtime import resolve_device
 from ..distributed.comm import Comm, local_comm
+from ..distributed.spmd_map import shard
 from . import lm
 from .common import ModelConfig
 
@@ -54,17 +56,24 @@ def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], device=None
-                      ) -> Dict[str, Any]:
+def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], device=None,
+                      *, specs: Optional[Dict[str, Any]] = None,
+                      mesh=None, rank: int = 0) -> Dict[str, Any]:
     """The JAX package's params, as a nested dict of numpy arrays, ->
     the port's params on ``device``: same keys, shapes and dtypes
     (bfloat16 arrives as ``ml_dtypes.bfloat16`` and is carried by its
-    bits)."""
+    bits).  With ``specs`` (the :class:`ParamSpec` tree) and a ``mesh``,
+    each array is first cut to rank ``rank``'s shard by its spec's
+    ``pspec()`` — the full tree from the reference becomes one rank's."""
     lm.require_ported(cfg, "params_from_numpy")
     dev = resolve_device(device)
 
-    def conv(node):
+    def conv(node, spec):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return _to_tensor(np.asarray(node), dev)
-    return conv(tree)
+            return {k: conv(v, None if spec is None else spec[k])
+                    for k, v in node.items()}
+        arr = np.asarray(node)
+        if spec is not None and mesh is not None:
+            arr = shard(arr, spec.pspec(), mesh, rank)
+        return _to_tensor(arr, dev)
+    return conv(tree, specs)

@@ -1,6 +1,6 @@
 """Mamba2 SSD (state-space duality, arXiv:2405.21060) on the port.
 
-The mirror of :mod:`repro.models.ssm` at tp = 1.  Per head the layer
+The mirror of :mod:`repro.models.ssm`.  Per head the layer
 computes the linear recurrence
 
     h_t = a_t · h_{t-1} + dt_t · (B_t ⊗ x_t),      y_t = C_t · h_t + D · x_t
@@ -229,12 +229,12 @@ def gate_norm_out(y, z, p, comm, prefix: str = "ssm_"):
 
 def ssm_op(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
            comm, plan, *, prefix: str = "ssm_") -> torch.Tensor:
-    """x: (s, bs, d) pre-normed -> (s, bs, d).  At tp = 1 (the reference's
-    sharded and replicated paths compute the same thing there): one
-    SSD-scan and one RMSNorm launch on CUDA."""
+    """x: (s_local, bs, d) pre-normed -> (s_local, bs, d).  At tp = 1 (the
+    reference's sharded and replicated paths compute the same thing
+    there): one SSD-scan and one RMSNorm launch on CUDA.  At tp > 1 the
+    reference's two paths (:func:`_ssm_op_tp`)."""
     if comm.tp != 1:
-        raise NotImplementedError("ssm_op: tp > 1 is not ported "
-                                  "(ROADMAP A4)")
+        return _ssm_op_tp(x, p, cfg, comm, plan, prefix)
     s, bs, _ = x.shape
     h, g, n = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
     z, xs, dt_raw, b, c = ssm_in_proj(x, p, comm, prefix)
@@ -247,3 +247,55 @@ def ssm_op(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
                     chunk=cfg.ssm_chunk)
     return gate_norm_out(y.reshape(s, bs, cfg.ssm_d_inner), z, p, comm,
                          prefix)
+
+
+def _ssm_op_tp(x, p, cfg: ModelConfig, comm, plan, prefix: str):
+    """The mixer at tp > 1.  Sharded heads: the fused ``[z|x|dt]``
+    projection enters through ``ag_matmul``, B/C are projected locally
+    and gathered over the sequence, the scan runs on the local heads over
+    the whole sequence (one SSD-scan launch on CUDA), the gated RMSNorm's
+    sum of squares is psum'd over the model axis (the statistic spans the
+    whole d_inner), and the out-projection leaves through ``matmul_rs``.
+    Replicated heads (hymba's 50): everything is gathered, the scan runs
+    on every rank, the gated norm is the RMSNorm kernel, and only the
+    local rows are projected out."""
+    def w(name, fsdp_axis=0):
+        return comm.weight(p[prefix + name], fsdp_axis=fsdp_axis)
+
+    s_l, bs, _ = x.shape
+    di, h = cfg.ssm_d_inner, cfg.ssm_heads
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    shard = plan.shard_ssm_heads
+    h_l = h // comm.tp if shard else h
+    di_l = di // comm.tp if shard else di
+    fused = torch.cat([w("w_z"), w("w_x"), w("w_dt")], dim=1)
+    if shard:
+        zxdt = comm.ag_matmul(x, fused)                  # (s, bs, ...)
+    else:
+        zxdt = comm.ag_seq(torch.matmul(x, fused))
+    bc = comm.ag_seq(torch.matmul(x, w("w_bc")))
+    z, xs, dt_raw = torch.split(zxdt, [di_l, di_l, zxdt.shape[-1] - 2 * di_l],
+                                dim=-1)
+    b, c = torch.chunk(bc, 2, dim=-1)
+    s = zxdt.shape[0]
+
+    xs = _causal_conv(xs, p[prefix + "conv_w"])
+    xs = F.silu(xs.float()).to(x.dtype)
+    dt = softplus_dt(dt_raw, p[prefix + "dt_bias"])
+    y, _ = ssd_scan(xs.reshape(s, bs, h_l, cfg.ssm_headdim), dt,
+                    p[prefix + "a_log"], b.reshape(s, bs, g, n),
+                    c.reshape(s, bs, g, n), p[prefix + "d_skip"],
+                    chunk=cfg.ssm_chunk)
+    y = y.reshape(s, bs, di_l)
+    y = y * F.silu(z.float()).to(y.dtype)
+    if not shard:
+        y = rms_norm(y, p[prefix + "norm_w"])
+        start = comm.model_index() * s_l
+        return torch.matmul(y[start:start + s_l], w("w_out", 1))
+    # the gated RMSNorm over the WHOLE d_inner: the sum of squares is
+    # psum'd over the model axis
+    yf = y.float()
+    ssq = comm.psum_model((yf * yf).sum(dim=-1, keepdim=True))
+    yf = yf * torch.rsqrt(ssq / di + 1e-6)
+    y = (yf * p[prefix + "norm_w"].float()).to(y.dtype)
+    return comm.matmul_rs(y, w("w_out", 1))

@@ -2,12 +2,11 @@
 and hybrid families, the paged KV allocator, the continuous-batching
 scheduler, and serving on the comm core (``ContinuousBatcher``,
 ``ServePlane``, ``TokenClient``) with each tick's tokens on the engine's
-device.
-
-Still to port: ``cache_pspecs``, which waits for the multi-rank ``Comm``
-(ROADMAP A4)."""
-from .engine import DecodeCache, init_cache, make_prefill_step, \
-    make_serve_step
+device.  On a mesh (``spmd_map``) the engine runs the reference's
+tensor-parallel, ``joint_kv`` and ``tp2d`` decode, the cache cut by
+``cache_pspecs``."""
+from .engine import DecodeCache, cache_pspecs, init_cache, \
+    make_prefill_step, make_serve_step
 from .kv_cache import PagedKVAllocator
 from .scheduler import Request, ResultDrain, ServeScheduler, ServeTransport
 from .result_tokens import (ResultTokens, SlotData, decode_token_row,
@@ -17,7 +16,7 @@ from .batching import (ContinuousBatcher, ServePlane, SyntheticModel,
                        TokenClient)
 
 __all__ = ["DecodeCache", "init_cache", "make_serve_step",
-           "make_prefill_step", "PagedKVAllocator", "Request",
+           "make_prefill_step", "cache_pspecs", "PagedKVAllocator", "Request",
            "ResultDrain", "ServeScheduler", "ServeTransport",
            "ResultTokens", "SlotData", "encode_token_row",
            "decode_token_row", "SERVING_ATTRS", "SlotAllocator",

@@ -1,15 +1,29 @@
 """Serving engine: prefill and single-token decode, dense, moe, ssm and
 hybrid (port).
 
-The mirror of :mod:`repro.serving.engine` at tp = dp = 1.
+The mirror of :mod:`repro.serving.engine`.
 
-Cache layout (the reference's global view)::
+Cache layout (the reference's global view; a rank holds its shard, cut by
+:func:`cache_pspecs`)::
 
-    k/v        (L, S, B, n_kv, dh)     cfg.dtype (every family but ssm)
-    ssm_state  (L, B, H, N, P)         float32   (ssm, hybrid)
-    conv_tail  (L, K-1, B, d_inner)    cfg.dtype (ssm, hybrid)
+    k/v        (L, S, B, n_kv, dh)     cfg.dtype (every family but ssm);
+                                       seq over ``model`` (and over
+                                       ``data`` too when B == 1:
+                                       ``joint_kv``), batch over ``data``
+    ssm_state  (L, B, H, N, P)         float32   (ssm, hybrid); heads
+                                       over ``model``, batch over ``data``
+    conv_tail  (L, K-1, B, d_inner)    cfg.dtype (ssm, hybrid); channels
+                                       with the heads
 
-all on the model's device.  Differences from the reference, by design:
+all on the model's device.  At tp = dp = 1 the step is the single-rank
+path below; on a mesh it is the reference's multi-rank decode
+(:func:`_serve_step_mesh`): local head shards, tiny gathers to full
+heads, the cache write on the owning sequence shard, flash-decode
+partials combined over the KV-sharding axes, the row-parallel exit.
+``tp2d=True`` is the reference's 2D-TP serving: weights stay in their
+(data x model) shards and the activation is sliced along the contraction
+dim per data rank instead (:func:`_wmul`).  Differences from the
+reference, by design:
 
 * The decode step writes the new K/V rows, the SSM state and the conv
   tail into the cache **in place** (the reference returns an updated
@@ -17,8 +31,8 @@ all on the model's device.  Differences from the reference, by design:
   ``length + 1``.
 * ``DecodeCache.length`` is a host int, so no decode step reads anything
   back from the card until the sampled tokens are wanted.
-* ``tp2d``, ``joint_kv`` and the vlm and audio families raise "not
-  ported" (ROADMAP.md); so do the cross-attention caches.
+* The vlm and audio families raise "not ported" (ROADMAP.md); so do
+  the cross-attention caches.
 
 Per decode step the RMSNorm kernel runs 4 times a layer (norm1, q_norm,
 k_norm, norm2 on gemma3 and olmoe) plus once for the final norm; the
@@ -49,11 +63,14 @@ from ..core.runtime import resolve_device
 from ..distributed.comm import Comm, local_comm
 from ..models import lm as lm_mod
 from ..models.attention import combine_decode_partials, decode_attention
+from ..distributed.comm import _axes
+from ..distributed.spmd_map import PartitionSpec as P
 from ..models.blocks import TPPlan, layer_window, tp_plan
-from ..models.common import ModelConfig
-from ..models.layers import (apply_norm, apply_rope, gated_activation,
-                             greedy_sample, lm_head_logits,
-                             mlp_activation, rms_norm, vocab_rows)
+from ..models.common import ModelConfig, shard_decisions
+from ..models.layers import (NEG_INF, apply_norm, apply_rope,
+                             gated_activation, greedy_sample,
+                             lm_head_logits, mlp_activation, rms_norm,
+                             vocab_rows)
 from ..models.moe import moe_block
 from ..models.ssm import (gate_norm_out, softplus_dt, ssd_decode_step,
                           ssm_in_proj)
@@ -93,6 +110,29 @@ def init_cache(cfg: ModelConfig, seq_len: int, batch: int, *,
             (cfg.n_layers, cfg.ssm_conv_kernel - 1, batch, cfg.ssm_d_inner),
             dtype=cfg.dtype, device=dev)
     return c
+
+
+def cache_pspecs(cfg: ModelConfig, *, batch: int, model_axis="model",
+                 data_axis="data", tp2d: bool = False) -> DecodeCache:
+    """PartitionSpecs for the cache (``spmd_map`` cuts it by them): seq
+    over model (+ data when B == 1, where the batch is replicated over
+    data and the data axis becomes extra sequence parallelism for the
+    KV), batch over data otherwise; the SSM state's heads and the conv
+    tail's channels over model when the SSM heads are sharded.
+    ``tp2d`` keeps the reference's signature (the layout is the same)."""
+    daxes = (data_axis,) if isinstance(data_axis, str) else tuple(data_axis)
+    joint = batch == 1
+    seq_axes = ((model_axis,) + daxes) if joint else (model_axis,)
+    batch_spec = None if joint else daxes
+    ssm_head = model_axis if shard_decisions(cfg)["ssm"] else None
+    attn = cfg.family != "ssm"
+    ssm = cfg.family in ("ssm", "hybrid")
+    return DecodeCache(
+        k=P(None, seq_axes, batch_spec, None, None) if attn else None,
+        v=P(None, seq_axes, batch_spec, None, None) if attn else None,
+        ssm_state=P(None, batch_spec, ssm_head, None, None) if ssm else None,
+        conv_tail=P(None, None, batch_spec, ssm_head) if ssm else None,
+        length=None)
 
 
 # ---------------------------------------------------------------------------
@@ -183,13 +223,15 @@ def make_serve_step(cfg: ModelConfig, comm: Optional[Comm] = None, *,
     tokens: (b,) ints (a tensor or numpy) — the tokens decoded at
     position ``cache.length``; returns the greedily sampled next tokens,
     (b,) int32 on the model's device, and the cache with ``length + 1``
-    (its K/V, SSM-state and conv-tail tensors updated in place)."""
+    (its K/V, SSM-state and conv-tail tensors updated in place).
+    ``joint_kv``: the KV sequence dim is sharded over data AND model (B
+    == 1 long-context shapes); ``tp2d``: 2D-TP serving."""
     lm_mod.require_ported(cfg, "make_serve_step")
-    if joint_kv or tp2d:
-        raise NotImplementedError("make_serve_step: joint_kv and tp2d "
-                                  "serving are not ported (ROADMAP A4)")
     comm = comm or local_comm()
     plan = tp_plan(cfg, comm.tp)
+    if comm.tp > 1 or comm.dp > 1 or joint_kv or tp2d:
+        return _serve_step_mesh(cfg, comm, plan, joint_kv=joint_kv,
+                                tp2d=tp2d)
     final_kind = lm_mod.final_norm_kind(cfg)
 
     @torch.no_grad()
@@ -233,6 +275,298 @@ def make_serve_step(cfg: ModelConfig, comm: Optional[Comm] = None, *,
         head = comm.weight(params.get("lm_head", params["emb"]),
                            fsdp_axis=1)
         logits = lm_head_logits(x, head, comm, real_vocab=cfg.vocab)
+        return greedy_sample(logits, comm), dataclasses.replace(
+            cache, length=pos + 1)
+
+    return serve_step
+
+
+# ---------------------------------------------------------------------------
+# serve_step on a mesh (tp > 1, dp > 1, joint_kv, tp2d)
+# ---------------------------------------------------------------------------
+
+def _wmul(x, w, *, fsdp_axis: int, comm: Comm, tp2d: bool) -> torch.Tensor:
+    """``x @ w`` with w's FSDP dim either gathered (classic) or stationary.
+
+    tp2d and fsdp_axis == 0 (the contraction dim data-sharded): slice the
+    activation's last dim to this data rank's rows, partial product, psum
+    over data.  tp2d and fsdp_axis == 1 (the output dim data-sharded):
+    local product, then all-gather the (tiny) output columns over data."""
+    if not tp2d or not comm.fsdp:
+        return torch.matmul(x, comm.weight(w, fsdp_axis=fsdp_axis))
+    if fsdp_axis == 0:
+        k_l = w.shape[0]
+        start = comm.data_index() * k_l
+        return comm.psum_data(torch.matmul(x[..., start:start + k_l], w))
+    y = torch.matmul(x, w)
+    return comm.ag_data(y, axis=y.ndim - 1)
+
+
+def _row_parallel_out(x_loc, w, *, comm: Comm, tp2d: bool,
+                      shard_model: bool) -> torch.Tensor:
+    """Row-parallel exit (wo / w_out): model psum and (tp2d) the data
+    column gather, the narrow shard reduced first."""
+    if not tp2d or not comm.fsdp:
+        y = torch.matmul(x_loc, comm.weight(w, fsdp_axis=1))
+        return comm.psum_model(y) if shard_model else y
+    part = torch.matmul(x_loc, w)                 # (..., d/dp)
+    if shard_model:
+        part = comm.psum_model(part)
+    return comm.ag_data(part, axis=part.ndim - 1)
+
+
+def _kv_axes(comm: Comm, *, joint: bool) -> tuple:
+    """The axes the KV sequence dim is sharded over (model [+ data for
+    B == 1]), outermost first."""
+    axes = _axes(comm.model_axis)
+    if joint:
+        axes = _axes(comm.data_axis) + axes
+    return axes
+
+
+def _axes_index(axes) -> int:
+    idx = 0
+    for a in axes:
+        idx = idx * a.size + a.index
+    return idx
+
+
+def _psum_axes(x, axes):
+    for a in axes:
+        x = a.psum(x)
+    return x
+
+
+def _pmax_axes(x, axes):
+    for a in axes:
+        x = a.pmax(x)
+    return x
+
+
+def _batch_rows(comm: Comm, b_full: int):
+    """This data rank's batch rows (start, count) when the batch is
+    sliced over data (tp2d), else None."""
+    dp = comm.dp
+    if dp > 1 and b_full % dp == 0:
+        b_l = b_full // dp
+        return comm.data_index() * b_l, b_l
+    return None
+
+
+def _mesh_attn_layer(x, lp, cfg: ModelConfig, comm: Comm, plan: TPPlan,
+                     k_cache, v_cache, pos: int, window: int, *,
+                     joint_kv: bool, tp2d: bool, defer_out: bool = False):
+    """One attention layer for a single token on a mesh.  x (b, d)
+    replicated over model; k/v_cache (S_loc, b_loc, nkv, dh), the local
+    sequence shard, written in place at ``pos`` by its owner."""
+    dh = cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    q = _wmul(x, lp["wq"], fsdp_axis=0, comm=comm, tp2d=tp2d)
+    if plan.shard_heads:
+        q = comm.ag_seq(q.T, axis=0).T             # (b, nq*dh)
+    q = q.reshape(-1, nq, dh)
+    k_new = _wmul(x, lp["wk"], fsdp_axis=0, comm=comm, tp2d=tp2d)
+    v_new = _wmul(x, lp["wv"], fsdp_axis=0, comm=comm, tp2d=tp2d)
+    if plan.shard_kv:
+        k_new = comm.ag_seq(k_new.T, axis=0).T
+        v_new = comm.ag_seq(v_new.T, axis=0).T
+    k_new = k_new.reshape(-1, nkv, dh)
+    v_new = v_new.reshape(-1, nkv, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"])
+        k_new = rms_norm(k_new, lp["k_norm"])
+    # tp2d: x and q are batch-replicated over data (the weight-stationary
+    # layout), but the attention runs batch-SHARDED against the classic
+    # (seq/model, batch/data) cache and the rows rejoin before the
+    # out-projection
+    rows = _batch_rows(comm, x.shape[0]) if tp2d and not joint_kv else None
+    if rows is not None:
+        q = q[rows[0]:rows[0] + rows[1]]
+        k_new = k_new[rows[0]:rows[0] + rows[1]]
+        v_new = v_new[rows[0]:rows[0] + rows[1]]
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q[None], posv, cfg.rope_theta)[0]
+    k_new = apply_rope(k_new[None], posv, cfg.rope_theta)[0]
+
+    # the cache write on the owning sequence shard
+    axes = _kv_axes(comm, joint=joint_kv and rows is None)
+    shard_len = k_cache.shape[0]
+    my_start = _axes_index(axes) * shard_len
+    rel = pos - my_start
+    if 0 <= rel < shard_len:
+        k_cache[rel] = k_new.to(k_cache.dtype)
+        v_cache[rel] = v_new.to(v_cache.dtype)
+    num, m, l = decode_attention(q, k_cache, v_cache, valid_len=pos + 1,
+                                 kv_offset=my_start, window=window,
+                                 q_pos=pos)
+    m_g = _pmax_axes(m, axes)
+    corr = torch.exp(m - m_g)
+    l_g = _psum_axes(l * corr, axes)
+    num_g = _psum_axes(num * corr[..., None], axes)
+    attn = num_g / torch.clamp(l_g, min=1e-37)[..., None]
+    attn = attn.reshape(-1, nq * dh).to(x.dtype)
+    if rows is not None:
+        attn = comm.ag_data(attn, axis=0)          # (b, nq*dh)
+    if plan.shard_heads:
+        nq_l = plan.q_local(cfg)
+        start = comm.model_index() * (nq_l * dh)
+        attn = attn[:, start:start + nq_l * dh]
+    if defer_out:
+        return torch.matmul(attn, lp["wo"])
+    return _row_parallel_out(attn, lp["wo"], comm=comm, tp2d=tp2d,
+                             shard_model=plan.shard_heads)
+
+
+def _mesh_mlp(x, lp, cfg: ModelConfig, comm: Comm, prefix: str = "",
+              tp2d: bool = False, defer_out: bool = False) -> torch.Tensor:
+    def w(name):
+        return lp[prefix + name]
+
+    if cfg.mlp in ("swiglu", "geglu"):
+        h = torch.cat([_wmul(x, w("w_gate"), fsdp_axis=0, comm=comm,
+                             tp2d=tp2d),
+                       _wmul(x, w("w_up"), fsdp_axis=0, comm=comm,
+                             tp2d=tp2d)], dim=-1)
+    else:
+        h = _wmul(x, w("w_in"), fsdp_axis=0, comm=comm, tp2d=tp2d)
+    h = mlp_activation(cfg.mlp, h)
+    if defer_out:
+        return torch.matmul(h, w("w_out"))
+    return _row_parallel_out(h, w("w_out"), comm=comm, tp2d=tp2d,
+                             shard_model=True)
+
+
+def _mesh_ssm(x, lp, cfg: ModelConfig, comm: Comm, plan: TPPlan, state,
+              conv_tail, prefix: str = "ssm_", tp2d: bool = False):
+    """The SSM mixer for one token on a mesh.  x (b, d); state (b_loc,
+    H_loc, N, P) and conv_tail (K-1, b_loc, di_loc), the local shards,
+    updated in place."""
+    def w(name):
+        return lp[prefix + name]
+
+    di, h = cfg.ssm_d_inner, cfg.ssm_heads
+    tp = comm.tp if plan.shard_ssm_heads else 1
+    di_l, h_l = di // tp, h // tp
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    zxdt = torch.cat([_wmul(x, w(k), fsdp_axis=0, comm=comm, tp2d=tp2d)
+                      for k in ("w_z", "w_x", "w_dt")], dim=-1)
+    bc = _wmul(x, w("w_bc"), fsdp_axis=0, comm=comm, tp2d=tp2d)
+    # tp2d: the recurrent state and conv caches are batch-sharded over
+    # data: this rank's batch rows for the recurrence, rejoined after
+    rows = _batch_rows(comm, x.shape[0]) if tp2d else None
+    if rows is not None:
+        zxdt = zxdt[rows[0]:rows[0] + rows[1]]
+        bc = bc[rows[0]:rows[0] + rows[1]]
+    z, xs, dt_raw = torch.split(zxdt, [di_l, di_l, zxdt.shape[-1] - 2 * di_l],
+                                dim=-1)
+    b_t, c_t = torch.chunk(bc, 2, dim=-1)
+    window = torch.cat([conv_tail, xs[None]], dim=0)    # (K, b, di_l)
+    xs_c = torch.einsum("kbc,kc->bc", window.float(),
+                        w("conv_w").float()).to(x.dtype)
+    conv_tail.copy_(window[1:])
+    xs_c = F.silu(xs_c.float()).to(x.dtype)
+    dt = softplus_dt(dt_raw, w("dt_bias"))
+    h_new, y = ssd_decode_step(
+        state, xs_c.reshape(-1, h_l, cfg.ssm_headdim), dt, w("a_log"),
+        b_t.reshape(-1, g, n), c_t.reshape(-1, g, n), w("d_skip"))
+    state.copy_(h_new)
+    y = y.reshape(-1, di_l)
+    y = y * F.silu(z.float()).to(y.dtype)
+    yf = y.float()
+    ssq = (yf * yf).sum(dim=-1, keepdim=True)
+    denom = di_l
+    if plan.shard_ssm_heads:
+        ssq = comm.psum_model(ssq)
+        denom = di
+    yf = yf * torch.rsqrt(ssq / denom + 1e-6)
+    y = (yf * w("norm_w").float()).to(x.dtype)
+    if rows is not None:
+        y = comm.ag_data(y, axis=0)              # rejoin rows pre-out-proj
+    return _row_parallel_out(y, w("w_out"), comm=comm, tp2d=tp2d,
+                             shard_model=plan.shard_ssm_heads)
+
+
+def _serve_step_mesh(cfg: ModelConfig, comm: Comm, plan: TPPlan, *,
+                     joint_kv: bool, tp2d: bool):
+    """The reference's serve step on a mesh, run by each rank on its
+    shards (``spmd_map``): tokens (b,) as the reference's specs hand them
+    to the rank (batch over data in the classic layout, replicated under
+    tp2d and for B == 1); returns the next tokens and the cache (its
+    local shards updated in place) with ``length + 1``."""
+    final_kind = lm_mod.final_norm_kind(cfg)
+    scale = cfg.name.startswith("gemma")
+
+    @torch.no_grad()
+    def serve_step(params, cache: DecodeCache, tokens):
+        pos = cache.length
+        emb = (params["emb"] if tp2d
+               else comm.weight(params["emb"], fsdp_axis=1))
+        tokens = torch.as_tensor(tokens, device=emb.device)
+        rows = comm.psum_model(vocab_rows(tokens, emb, comm.model_index()))
+        if tp2d:
+            rows = comm.ag_data(rows, axis=1)
+        if scale:
+            rows = rows * math.sqrt(rows.shape[-1])
+        x = rows.to(emb.dtype)
+        for idx in range(cfg.n_layers):
+            lp = lm_mod.layer_params(params, idx)
+            h = apply_norm(cfg.norm, x, lp.get("norm1"))
+            if cfg.family == "ssm":
+                x = x + _mesh_ssm(h, lp, cfg, comm, plan,
+                                  cache.ssm_state[idx],
+                                  cache.conv_tail[idx], tp2d=tp2d)
+                continue
+            window = layer_window(cfg, idx) if cfg.sliding_window else 0
+            parallel_2d = tp2d and cfg.parallel_block
+            a_out = _mesh_attn_layer(h, lp, cfg, comm, plan, cache.k[idx],
+                                     cache.v[idx], pos, window,
+                                     joint_kv=joint_kv, tp2d=tp2d,
+                                     defer_out=parallel_2d)
+            if cfg.family == "hybrid":
+                s_out = _mesh_ssm(h, lp, cfg, comm, plan,
+                                  cache.ssm_state[idx],
+                                  cache.conv_tail[idx], tp2d=tp2d)
+                x = x + 0.5 * (rms_norm(a_out, lp["mix_norm_a"])
+                               + rms_norm(s_out, lp["mix_norm_s"]))
+                h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
+                x = x + _mesh_mlp(h2, lp, cfg, comm, tp2d=tp2d)
+            elif parallel_2d:
+                # attention and MLP write the same residual: one psum over
+                # model and one column gather for both partials
+                pm = _mesh_mlp(h, lp, cfg, comm, tp2d=True, defer_out=True)
+                combined = comm.psum_model(a_out + pm)
+                x = x + comm.ag_data(combined, axis=combined.ndim - 1)
+            elif cfg.parallel_block:
+                x = x + a_out + _mesh_mlp(h, lp, cfg, comm)
+            else:
+                x = x + a_out
+                h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
+                if cfg.family == "moe":
+                    # the experts keep the gather path (dispatch owns the
+                    # a2a); the shared MLP rides tp2d
+                    mo = moe_block(h2[None], lp, cfg, comm)[0][0]
+                    if cfg.shared_expert_ff:
+                        mo = mo + _mesh_mlp(h2, lp, cfg, comm,
+                                            prefix="shared_", tp2d=tp2d)
+                    x = x + mo
+                else:
+                    x = x + _mesh_mlp(h2, lp, cfg, comm, tp2d=tp2d)
+        x = apply_norm(final_kind, x, params["final_norm"])
+        head = params.get("lm_head", params["emb"])
+        if tp2d:
+            # the head's d columns stay data-sharded: slice x, partial
+            # logits, psum over data
+            d_l = head.shape[1]
+            start = comm.data_index() * d_l
+            logits = comm.psum_data(torch.matmul(
+                x[:, start:start + d_l].float(), head.float().T))
+            v_local = head.shape[0]
+            gid = comm.model_index() * v_local + torch.arange(
+                v_local, device=x.device)
+            logits = logits.masked_fill(gid >= cfg.vocab, NEG_INF)
+        else:
+            logits = lm_head_logits(x, comm.weight(head, fsdp_axis=1),
+                                    comm, real_vocab=cfg.vocab)
         return greedy_sample(logits, comm), dataclasses.replace(
             cache, length=pos + 1)
 

@@ -1083,3 +1083,138 @@ def test_ssd_scan_refuses_what_it_does_not_take(cuda):
                                                            device=cuda))
     with pytest.raises(ValueError):
         ssd_scan_bhsp(x, dt, a_log.cpu(), b, c, d)
+
+
+# ---------------------------------------------------------------------------
+# the in-graph collectives and tensor parallelism on rank threads
+# ---------------------------------------------------------------------------
+
+def _coll_fns():
+    from repro_torch.core import collectives as C
+    from repro_torch.distributed import P
+    return [
+        ("all_gather", lambda c, x: C.all_gather(x, c.model_axis,
+                                                 c.cfg)[None], (P("x"),)),
+        ("all_gather_matmul", lambda c, x, w: C.all_gather_matmul(
+            x, w, c.model_axis, c.cfg)[None], (P("x"), P())),
+        ("matmul_reduce_scatter", lambda c, x, w: C.matmul_reduce_scatter(
+            x, w, c.model_axis, c.cfg)[None], (P(None, None, "x"), P("x"))),
+        ("reduce_scatter", lambda c, x: C.reduce_scatter(
+            x, c.model_axis, c.cfg)[None], (P(),)),
+        ("all_reduce", lambda c, x: C.all_reduce(x, c.model_axis,
+                                                 c.cfg)[None], (P(),)),
+        ("all_to_all", lambda c, x: C.all_to_all(
+            x[:, :, :8], c.model_axis, split_axis=1, concat_axis=0,
+            config=c.cfg)[None], (P("x"),)),
+        ("tree_pair", lambda c, x: torch.stack([
+            C.tree_broadcast(x, c.model_axis, root=1),
+            C.tree_reduce(x, c.model_axis, root=2)])[None], (P("x"),)),
+    ]
+
+
+@pytest.mark.parametrize("mode", ["bsp", "lci_shared", "lci_dedicated"])
+@pytest.mark.parametrize("p", [2, 3, 4])
+def test_collectives_on_cuda_tensors_equal_cpu(cuda, p, mode):
+    """Every collective on CUDA tensors through ``LocalCluster(P,
+    device="cuda")`` rank threads: the gathers, the all-to-all and the
+    tree pair bitwise equal to the same call on CPU tensors, the reduces
+    at 1e-4 (cuBLAS and the CPU sum the matmuls in other orders), and no
+    payload byte through the host; pieces above 64 KiB go by
+    rendezvous."""
+    from repro_torch.core.modes import CommConfig
+    from repro_torch.distributed import Mesh, P, spmd_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(p)
+    x = torch.from_numpy(rng.standard_normal(
+        (p * 8, 4 * p, 16 * p)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((16 * p, 24)) /
+                          np.sqrt(16 * p)).astype(np.float32))
+    big = torch.from_numpy(rng.standard_normal(
+        (p * 64, 2, 256)).astype(np.float32))          # 128 KiB pieces
+    cfg = CommConfig(mode=mode)
+    host0 = (to_host.copies, to_card.copies)
+    with Mesh((p,), ("x",), device=cuda) as gpu, \
+            Mesh((p,), ("x",), device="cpu") as cpu:
+        for name, fn, specs in _coll_fns():
+            args = (x, w)[:len(specs)]
+            want = spmd_map(fn, cpu, specs, P("x"), config=cfg,
+                            model_axis="x")(*args)
+            got = spmd_map(fn, gpu, specs, P("x"), config=cfg,
+                           model_axis="x")(*[a.to(cuda) for a in args])
+            if name in ("all_gather", "all_to_all", "tree_pair"):
+                assert torch.equal(got.cpu(), want), name
+            else:
+                np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                           atol=1e-4, rtol=1e-4,
+                                           err_msg=name)
+        fn = _coll_fns()[0][1]
+        got = spmd_map(fn, gpu, (P("x"),), P("x"), config=cfg,
+                       model_axis="x")(big.to(cuda))
+        assert torch.equal(got.cpu()[0], big)
+        assert gpu.protocol_totals()["zerocopy_msgs"] > 0
+    assert (to_host.copies, to_card.copies) == host0
+
+
+@pytest.mark.parametrize("mode", ["bsp", "lci_dedicated"])
+def test_gemma3_two_layers_tp2_on_card(cuda, mode):
+    """gemma3-1b's config cut to 2 layers (full width) at tp = 2 on two
+    rank threads (``tp_target`` 2: its 4 heads shard, its kv head does
+    not): float32 forward tokens equal tp = 1's on more than 0.95 of the
+    positions, and teacher-forced decode agrees with tp = 1 on more than
+    0.95; one flash-attention launch a layer and rank."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.modes import CommConfig
+    from repro_torch.distributed import Mesh, P, local_comm, spmd_map
+    from repro_torch.models.layers import greedy_sample, lm_head_logits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=2,
+                              tp_target=2, dtype=torch.float32)
+    params, specs = build_model(cfg, device=cuda).init(0)
+    pspecs = _pspecs(specs)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (64, 2), generator=g, device=cuda,
+                           dtype=torch.int32)
+    comm = local_comm()
+    x1, _ = build_model(cfg, device=cuda).forward(params, {"tokens": tokens})
+
+    def fwd(c, params, tokens):
+        return build_model(cfg, device=cuda).forward(
+            params, {"tokens": tokens}, c)[0]
+    n0 = flash_attention_bhsd.launches
+    with Mesh((2,), ("model",), device=cuda) as mesh:
+        x2 = spmd_map(fwd, mesh, (pspecs, P("model")), P(),
+                      config=CommConfig(mode=mode))(params, tokens)
+        assert flash_attention_bhsd.launches - n0 == 2 * cfg.n_layers
+        head = params["emb"]
+        t1, t2 = (greedy_sample(lm_head_logits(x, head, comm,
+                                               real_vocab=cfg.vocab), comm)
+                  for x in (x1, x2))
+        assert (t1 == t2).float().mean() > 0.95
+
+        def dec(c, params, cache, tokens):
+            step = make_serve_step(cfg, c)
+            out = []
+            for i in range(tokens.shape[0]):
+                nxt, cache = step(params, cache, tokens[i])
+                out.append(nxt)
+            return torch.stack(out)
+        from repro_torch.serving import cache_pspecs
+        short = tokens[:16]
+        cache = init_cache(cfg, 16, 2, device=cuda)
+        got = spmd_map(dec, mesh, (pspecs, cache_pspecs(cfg, batch=2), P()),
+                       P(), config=CommConfig(mode=mode))(params, cache,
+                                                          short)
+    step = make_serve_step(cfg)
+    cache = init_cache(cfg, 16, 2, device=cuda)
+    want = []
+    for i in range(16):
+        nxt, cache = step(params, cache, short[i])
+        want.append(nxt)
+    assert (got == torch.stack(want)).float().mean() > 0.95
+
+
+def _pspecs(specs):
+    if isinstance(specs, dict):
+        return {k: _pspecs(v) for k, v in specs.items()}
+    return specs.pspec()

@@ -108,7 +108,10 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.kernels.flash_attention, repro_torch.models, "
             "repro_torch.models.registry, repro_torch.configs, "
             "repro_torch.serving, repro_torch.serving.batching, "
-            "repro_torch.apps.kmer, repro_torch.launch.serve; "
+            "repro_torch.apps.kmer, repro_torch.launch.serve, "
+            "repro_torch.core.axis, repro_torch.core.collectives, "
+            "repro_torch.distributed, repro_torch.distributed.comm, "
+            "repro_torch.distributed.spmd_map; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes')); print(bad)")
     env = dict(os.environ, PYTHONPATH=SRC)
@@ -132,10 +135,10 @@ def test_serving_exports_the_batching_surface():
         assert hasattr(serving, name), name
 
 
-#: the reference's public names the port does not export yet, and why:
-#: both wait for the in-graph collectives and the multi-rank ``Comm``
-NOT_PORTED = {"repro.core": {"collectives"},
-              "repro.serving": {"cache_pspecs"}}
+#: the reference's public names the port does not export yet: none of
+#: these packages' (the in-graph collectives and ``cache_pspecs`` are
+#: ported)
+NOT_PORTED = {"repro.core": set(), "repro.serving": set()}
 
 
 @pytest.mark.parametrize("name", sorted(NOT_PORTED))

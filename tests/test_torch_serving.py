@@ -137,11 +137,21 @@ def test_unported_paths_raise():
     for arch in ("llama-3.2-vision-90b", "whisper-tiny"):   # vlm, audio
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(get_smoke(arch), device="cpu")
-    pcfg = carried_model(MODEL_CASES["dense"], "float32")[2]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_serve_step(pcfg, tp2d=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_serve_step(pcfg, joint_kv=True)
+    # tp2d and joint_kv are ported: at one rank each decodes exactly the
+    # plain step's tokens (their mesh runs: tests/test_torch_tp.py)
+    _, _, pcfg, pparams = carried_model(MODEL_CASES["dense"], "float32")
+    tok = torch.from_numpy(np.random.default_rng(4).integers(
+        0, pcfg.vocab, size=(6, 2)).astype(np.int32))
+    runs = []
+    for kw in ({}, {"tp2d": True}, {"joint_kv": True}):
+        step = make_serve_step(pcfg, **kw)
+        cache = init_cache(pcfg, 6, 2, device="cpu")
+        preds = []
+        for i in range(6):
+            nxt, cache = step(pparams, cache, tok[i])
+            preds.append(nxt)
+        runs.append(torch.stack(preds))
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
 
 
 # ---------------------------------------------------------------------------
