@@ -181,11 +181,15 @@ The phases:
    the CPU call, every mode against the plain single-rank oracle, no
    host copy, host syncs counted (:func:`collectives_phase`); b) gemma3-1b
    at full width at tp = 2 (:func:`tp_gemma_phase`: f32 decode against
-   tp = 1, bf16 prefill with B2 and B3 counted per rank); c) olmoe-1b-7b,
-   mamba2-370m and hymba-1.5b at 2 layers, full width, tp = 2, forward
-   against tp = 1 (:func:`tp_small_phase`); d) ``tp2d_decode.py``'s
-   configs, classic, tp2d and ``joint_kv``, on a (2 x 2) mesh
-   (:func:`tp2d_phase`).
+   tp = 1, bf16 prefill with B2 and B3 counted per rank thread where
+   they launch, its last hidden state and tokens against tp = 1's);
+   c) olmoe-1b-7b, mamba2-370m and hymba-1.5b at 2 layers, full width,
+   tp = 2, forward against tp = 1 (:func:`tp_small_phase`);
+   d) ``tp2d_decode.py``'s configs, classic, tp2d and ``joint_kv``, on a
+   (2 x 2) mesh (:func:`tp2d_phase`).  Every kernel call of a-d is kept
+   by signature (:class:`_PathCalls`), and after the counts are read each
+   kernel is held against its plain version at every one
+   (:func:`path_kernel_checks`: B4 and B1 on the path's own operands).
 
 The launch counts are set to 0 just before phases 4, 7, 10, 13, 14, 15,
 16 (after its kernel check), 17a and 17b and read just after; the serving phases
@@ -3049,33 +3053,136 @@ def _axis_calls(mesh):
     return [rt.stats.total_msgs for rt in mesh.cluster.local_runtimes()]
 
 
-class _PerRank:
-    """While installed, counts B2 and B3 calls by rank thread (the model
-    code's ``flash_attention`` and ``rmsnorm`` entries)."""
+class _PathCalls:
+    """While installed, keeps one call of each kernel at each signature
+    (shapes, dtypes, options) that the path gives it, where the port's
+    code calls the wrapper: B2's and B5's seq-major wrappers, B3 and B4 at
+    the model code's imports, B1's gather where the fabric stages a
+    doorbell's rows (``fabric._stage_rows``).
+    B1's rows and B4's activations and row counts are cloned, as the
+    checks rerun the kernel on them; the others keep their shapes.  Every
+    call goes on to the real wrapper once, so launch counts are those of
+    the path."""
 
     def __enter__(self):
-        import threading
-        import repro_torch.models.blocks as blocks
-        import repro_torch.models.layers as layers
-        self.mods = ((blocks, "flash_attention", "flash"),
-                     (layers, "rmsnorm", "rms"))
-        self.real = [getattr(m, n) for m, n, _ in self.mods]
-        self.counts = {}
+        import importlib
 
-        def wrap(fn, key):
-            def counted(*a, **kw):
-                who = threading.current_thread().name
-                c = self.counts.setdefault(who, {"flash": 0, "rms": 0})
-                c[key] += 1
+        import repro_torch.models.attention as attention
+        import repro_torch.models.layers as layers
+        import repro_torch.models.moe as moe
+        import repro_torch.models.ssm as ssm
+        # (``repro_torch.core.progress`` the name is a function: by path)
+        fabric = importlib.import_module("repro_torch.core.progress.fabric")
+        self.sites = ((attention, "_flash_kernel", "flash"),
+                      (layers, "rmsnorm", "rmsnorm"),
+                      (moe, "moe_gmm", "moe_gmm"),
+                      (ssm, "ssd_scan_kernel", "ssd_scan"),
+                      (fabric, "_stage_rows", "doorbell"))
+        self.real = [getattr(m, n) for m, n, _ in self.sites]
+        self.calls = {k: {} for _, _, k in self.sites}
+        keep = {"flash": self._flash, "rmsnorm": self._rmsnorm,
+                "moe_gmm": self._moe_gmm, "ssd_scan": self._ssd_scan,
+                "doorbell": self._doorbell}
+
+        def wrap(fn, kind):
+            def kept(*a, **kw):
+                first = a[0][0] if kind == "doorbell" else a[0]
+                if first.is_cuda:
+                    key, val = keep[kind](*a, **kw)
+                    self.calls[kind].setdefault(key, val)
                 return fn(*a, **kw)
-            return counted
-        for (m, n, key), fn in zip(self.mods, self.real):
-            setattr(m, n, wrap(fn, key))
+            return kept
+        for (m, n, kind), fn in zip(self.sites, self.real):
+            setattr(m, n, wrap(fn, kind))
         return self
 
     def __exit__(self, *exc):
-        for (m, n, _), fn in zip(self.mods, self.real):
+        for (m, n, _), fn in zip(self.sites, self.real):
             setattr(m, n, fn)
+
+    @staticmethod
+    def _flash(q, k, v, *, causal=True, window=0, q_offset=0):
+        key = (tuple(q.shape), tuple(k.shape), str(q.dtype), causal,
+               window, q_offset)
+        return key, key
+
+    @staticmethod
+    def _rmsnorm(x, w=None, *, eps=1e-6):
+        d = x.shape[-1]
+        key = (x.numel() // d, d, str(x.dtype), w is not None, eps)
+        return key, key
+
+    @staticmethod
+    def _moe_gmm(x, w1, w2, *, act="swiglu", block_c=128, rows=None):
+        key = (tuple(x.shape), tuple(w1.shape), tuple(w2.shape),
+               str(x.dtype), act, rows is None)
+        return key, (x.clone(), w1, w2, act,
+                     None if rows is None else rows.clone())
+
+    @staticmethod
+    def _ssd_scan(x, dt, a_log, b, c, d_skip, *, chunk=128, h0=None):
+        key = (tuple(x.shape), tuple(b.shape), str(x.dtype), chunk,
+               h0 is not None)
+        return key, key
+
+    @staticmethod
+    def _doorbell(rows, wire_bf16, uniform=False):
+        key = (len(rows), tuple(rows[0].shape), str(rows[0].dtype),
+               wire_bf16)
+        return key, ([r.clone() for r in rows], wire_bf16)
+
+
+def path_kernel_checks(torch, calls) -> dict:
+    """Each kernel held against its plain version at every signature
+    :class:`_PathCalls` kept, through the earlier phases' cases (their
+    tolerances; untimed): B2, B3 and B5 on fresh draws at the path's
+    shapes and options, B4 on the path's own activations, weights and
+    row counts, B1 on the path's own rows byte for byte.  Returns the
+    cases by kernel."""
+    from repro_torch.kernels.doorbell import (stage_copy_rows,
+                                              stage_copy_rows_ref)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    dt = {"torch.float32": torch.float32, "torch.bfloat16": torch.bfloat16}
+    out = {k: [] for k in calls}
+    for (qs, ks, dn, causal, window, qo) in calls["flash"]:
+        sq, b, hq, dh = qs
+        label = (f"tp_path_{sq}x{b}x{hq}x{ks[2]}x{dh}_w{window}_o{qo}_"
+                 f"{dn.split('.')[1]}")
+        out["flash"].append(flash_case(
+            torch, label, b, hq, ks[2], sq, ks[0], dh, causal, window, qo,
+            dt[dn], g, time_it=False))
+    for (rows, d, dn, with_w, eps) in calls["rmsnorm"]:
+        if eps != 1e-6:
+            raise AssertionError(f"the path normed with eps {eps}, which "
+                                 "rmsnorm_case does not take")
+        out["rmsnorm"].append(rmsnorm_case(
+            torch, f"tp_path_{dn.split('.')[1]}_{rows}x{d}", rows, d,
+            dt[dn], g, with_w=with_w, time_it=False))
+    for x, w1, w2, act, rows in calls["moe_gmm"].values():
+        e, c, d = x.shape
+        out["moe_gmm"].append(moe_gmm_case(
+            torch, f"tp_path_{e}x{c}x{d}_f{w2.shape[1]}_{act}_"
+            f"{str(x.dtype).split('.')[1]}", e, c, d, w2.shape[1], act,
+            x.dtype, g, operands=(x, w1, w2), rows=rows, time_it=False))
+    for (xs, bs_, dn, chunk, h0) in calls["ssd_scan"]:
+        s, bs, h, p = xs
+        out["ssd_scan"].append(ssd_case(
+            torch, f"tp_path_{bs}x{h}x{s}x{p}_g{bs_[2]}_n{bs_[3]}_"
+            f"{dn.split('.')[1]}", bs, h, s, p, bs_[2], bs_[3], dt[dn], g,
+            chunk=chunk, with_h0=h0, time_it=False))
+    for (k, shape, dn, wire), (rows, _) in calls["doorbell"].items():
+        label = (f"tp_path_rows_{k}x{'x'.join(map(str, shape))}_"
+                 f"{dn.split('.')[1]}_bf16{int(wire)}")
+        got = stage_copy_rows(rows, wire_bf16=wire)
+        ref = stage_copy_rows_ref(rows, wire_bf16=wire)
+        torch.cuda.synchronize()
+        out["doorbell"].append({
+            "case": label, "wrapper": "stage_copy_rows", "ok": True,
+            "shape": [k, *shape], "dtype": dn.split(".")[1],
+            "wire_bf16": wire, "byte_exact": True,
+            "max_abs_err": compare(label, got, ref, rows[0].dtype,
+                                   wire and rows[0].dtype == torch.float32)})
+    return out
 
 
 def _tp_specs(specs):
@@ -3159,14 +3266,21 @@ def tp_gemma_phase(torch):
     of batch 2, in LCI_DEDICATED and in BSP, against the tp = 1 run on the
     same weights: agreement > 0.95 (``tp2d_decode.py``'s gate).  Prefill:
     bf16, 4 x 2048 tokens, ``make_prefill_step`` in both modes; per rank
-    exactly 26 flash-attention launches (one a layer, on its two q heads,
-    all "tc") and 105 RMSNorm launches (norm1, q_norm, k_norm, norm2 a
-    layer and the final norm), as at tp = 1."""
+    thread, counted where the wrappers launch, exactly 26 flash-attention
+    launches (one a layer, on its two q heads, all "tc") and 105 RMSNorm
+    launches (norm1, q_norm, k_norm, norm2 a layer and the final norm), as
+    at tp = 1, and none on another thread.  Its last hidden state is held
+    against tp = 1's on the same weights: its distance from the float32
+    tp = 1 run (the bf16 weights cast up) at most twice tp = 1's bf16
+    distance, norm-wise; its tokens the argmax of its own logits, and
+    tp = 1's wherever tp = 1's logit of them is more than twice the two
+    runs' largest logit difference below tp = 1's top one."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core.modes import CommMode
     from repro_torch.distributed import Mesh, P, spmd_map
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.models.registry import build_model
     from repro_torch.serving import make_prefill_step
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3197,7 +3311,19 @@ def tp_gemma_phase(torch):
         s, b = TP_PREFILL
         tokens = torch.randint(0, cfg.vocab, (s, b), generator=g,
                                device=DEVICE, dtype=torch.int32)
-        prefill_rec = {"dtype": "bfloat16", "batch": b, "seq": s}
+        # tp = 1 on the same weights, in bf16 and in float32 (the bf16
+        # weights cast up exactly): the float32 run is the yardstick of
+        # what bf16 rounding alone moves
+        tok1, last1 = make_prefill_step(cfg)(params, {"tokens": tokens})
+        cfg32 = dataclasses.replace(base, dtype=torch.float32)
+        _, last32 = make_prefill_step(cfg32)(_float_tree(params),
+                                             {"tokens": tokens})
+        torch.cuda.empty_cache()
+        head = params.get("lm_head", params["emb"]).float()
+        e1 = _rel_err(last1, last32)
+        prefill_rec = {"dtype": "bfloat16", "batch": b, "seq": s,
+                       "tp1_tokens": tok1.tolist(),
+                       "tp1_rel_err_vs_float32": e1}
         for mode in (CommMode.LCI_DEDICATED, CommMode.BSP):
             from repro_torch.core.modes import CommConfig
 
@@ -3210,40 +3336,86 @@ def tp_gemma_phase(torch):
                     tok, last = step(params, {"tokens": tokens})
                     torch.cuda.synchronize()
                     times.append(time.perf_counter() - t0)
-                return tok, torch.tensor([statistics.median(times[1:])
-                                          * 1e3])
+                return tok, last, torch.tensor(
+                    [statistics.median(times[1:]) * 1e3])
+            before = [dict(f.launches_by_thread)
+                      for f in (flash_attention_bhsd, rmsnorm)]
             tc0 = flash_attention_bhsd.launches_by_variant["tc"]
-            with _PerRank() as per:
-                tok, ms = spmd_map(rank, mesh, (_tp_specs(specs),
-                                                P("model")),
-                                   (P(), P("model")),
-                                   config=CommConfig(mode=mode))(params,
-                                                                 tokens)
+            tok, last, ms = spmd_map(rank, mesh, (_tp_specs(specs),
+                                                  P("model")),
+                                     (P(), P(), P("model")),
+                                     config=CommConfig(mode=mode))(params,
+                                                                   tokens)
             calls = PREFILL_CALLS + 1
-            per_rank = {k: {n: c // calls for n, c in v.items()}
-                        for k, v in per.counts.items()}
+            by = [{t: n - b0.get(t, 0) for t, n in f.launches_by_thread.items()
+                   if n != b0.get(t, 0)}
+                  for f, b0 in zip((flash_attention_bhsd, rmsnorm), before)]
+            per_rank = {t: {"flash": by[0].get(t, 0) / calls,
+                            "rms": by[1].get(t, 0) / calls}
+                        for t in ("spmd-rank0", "spmd-rank1")}
             tc = flash_attention_bhsd.launches_by_variant["tc"] - tc0
-            want = {"flash": 26, "rms": 105}
-            if len(per_rank) != 2 or any(v != want
-                                         for v in per_rank.values()) or \
-                    any(c % calls for v in per.counts.values()
-                        for c in v.values()):
+            want = {"flash": cfg.n_layers, "rms": 4 * cfg.n_layers + 1}
+            elsewhere = sorted((set(by[0]) | set(by[1])) - set(per_rank))
+            if any(v != want for v in per_rank.values()) or elsewhere:
                 raise AssertionError(f"17b prefill {mode.value}: launches "
-                                     f"per rank and call {per_rank} "
-                                     f"(want {want})")
-            if tc != 2 * 26 * calls:
+                                     f"per rank and call {per_rank} (want "
+                                     f"{want}), launches on threads "
+                                     f"{elsewhere} too")
+            if tc != 2 * cfg.n_layers * calls:
                 raise AssertionError(f"17b prefill {mode.value}: {tc} "
                                      "tensor-core flash launches (want "
-                                     f"{2 * 26 * calls})")
-            if not ((tok >= 0) & (tok < cfg.vocab)).all():
-                raise AssertionError("17b prefill: tokens out of range")
+                                     f"{2 * cfg.n_layers * calls})")
+            # the last position's hidden state against tp = 1: no further
+            # from the float32 result than twice tp = 1's bf16 distance
+            e2 = _rel_err(last, last32)
+            d21 = _rel_err(last, last1)
+            if not torch.isfinite(last.float()).all() or not e2 <= 2 * e1:
+                raise AssertionError(f"17b prefill {mode.value}: hidden "
+                                     f"state {e2} from float32 (tp = 1: "
+                                     f"{e1}; limit {2 * e1})")
+            # the tokens: the greedy tokens of tp = 2's own hidden state
+            # (the vocab-parallel argmax), and tp = 1's wherever the two
+            # runs' logits separate tp = 1's top two
+            if tok.shape != (b,) or not ((tok >= 0) &
+                                         (tok < cfg.vocab)).all():
+                raise AssertionError(f"17b prefill {mode.value}: tokens "
+                                     f"{tok.tolist()} out of range")
+            lg1 = torch.matmul(last1.float(), head.T)[:, :cfg.vocab]
+            lg2 = torch.matmul(last.float(), head.T)[:, :cfg.vocab]
+            spread = float((lg2 - lg1).abs().max())
+            rows = torch.arange(b, device=DEVICE)
+            own = lg2[rows, tok.long()] >= lg2.max(-1).values - 1e-4 * \
+                lg2.abs().max(-1).values
+            near = lg1[rows, tok.long()] >= lg1[rows, tok1.long()] - \
+                2 * spread
+            if not own.all() or not near.all():
+                raise AssertionError(f"17b prefill {mode.value}: tokens "
+                                     f"{tok.tolist()} (tp = 1: "
+                                     f"{tok1.tolist()}; logits spread "
+                                     f"{spread})")
             prefill_rec[mode.value] = {
                 "ms": float(ms.max()), "launches_per_rank_call": per_rank,
-                "flash_tc_launches": tc}
+                "flash_tc_launches": tc, "tokens": tok.tolist(),
+                "tokens_equal_tp1": int((tok == tok1).sum()),
+                "rel_err_vs_float32": e2, "rel_err_vs_tp1": d21,
+                "logits_max_abs_diff_vs_tp1": spread}
         out["prefill"] = prefill_rec
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def _float_tree(tree):
+    """The params tree with every floating tensor cast to float32."""
+    if isinstance(tree, dict):
+        return {k: _float_tree(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def _rel_err(x, ref) -> float:
+    """‖x - ref‖ / ‖ref‖ over every element, in float64."""
+    x, ref = x.double(), ref.double()
+    return float((x - ref).norm() / ref.norm())
 
 
 #: phase 17c's configs: the path each exercises at tp = 2
@@ -3391,10 +3563,11 @@ def tp2d_phase(torch):
 
 
 def _zero_counts(counters):
-    """Every launch count to 0, B2's and B4's counts by variant and B3's
-    by shape too."""
+    """Every launch count to 0, by thread too, B2's and B4's counts by
+    variant and B3's by shape."""
     for c in counters:
         c.launches = 0
+        c.launches_by_thread = {}
         if hasattr(c, "launches_by_variant"):
             c.launches_by_variant = dict.fromkeys(c.launches_by_variant, 0)
         if hasattr(c, "launches_by_shape"):
@@ -3652,36 +3825,60 @@ def main(argv=None) -> int:
 
     # 17. the in-graph collectives (counts set to 0 just before, read
     # just after), then tensor-parallel serving: counts set to 0 just
-    # before 17b-d, read just after
+    # before 17b-d, read just after; every kernel call of 17a-d is kept
+    # by signature, and each kernel is held against its plain version at
+    # each one after the counts are read
     t17 = time.perf_counter()
-    _zero_counts(counters)
-    t0 = time.perf_counter()
-    coll = collectives_phase(torch)
-    c_launches = stage_copy_rows.launches
-    record("collectives", seconds=time.perf_counter() - t0, **coll)
-    if stage_copy.launches or stage_copy_push.launches:
-        raise AssertionError("the collectives launched the dense stage copy "
-                             "or the push")
-    _zero_counts(counters)
-    t0 = time.perf_counter()
-    tp_gemma = tp_gemma_phase(torch)
-    record("tp_gemma3", seconds=time.perf_counter() - t0, **tp_gemma)
-    t0 = time.perf_counter()
-    tp_small = tp_small_phase(torch)
-    record("tp_small", seconds=time.perf_counter() - t0, **tp_small)
-    t0 = time.perf_counter()
-    tp2d = tp2d_phase(torch)
-    record("tp2d_joint_kv", seconds=time.perf_counter() - t0, **tp2d)
-    tp_launches = {"flash_attention": flash_attention_bhsd.launches,
-                   "rmsnorm": rmsnorm.launches, "moe_gmm": moe_gmm.launches,
-                   "ssd_scan": ssd_scan_bhsp.launches,
-                   "doorbell": stage_copy_rows.launches}
-    record("phase17", seconds=time.perf_counter() - t17,
-           launches=tp_launches)
+    with _PathCalls() as path:
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        coll = collectives_phase(torch)
+        c_launches = stage_copy_rows.launches
+        record("collectives", seconds=time.perf_counter() - t0, **coll)
+        if stage_copy.launches or stage_copy_push.launches:
+            raise AssertionError("the collectives launched the dense stage "
+                                 "copy or the push")
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        tp_gemma = tp_gemma_phase(torch)
+        record("tp_gemma3", seconds=time.perf_counter() - t0, **tp_gemma)
+        t0 = time.perf_counter()
+        tp_small = tp_small_phase(torch)
+        record("tp_small", seconds=time.perf_counter() - t0, **tp_small)
+        t0 = time.perf_counter()
+        tp2d = tp2d_phase(torch)
+        record("tp2d_joint_kv", seconds=time.perf_counter() - t0, **tp2d)
+        tp_launches = {"flash_attention": flash_attention_bhsd.launches,
+                       "rmsnorm": rmsnorm.launches,
+                       "moe_gmm": moe_gmm.launches,
+                       "ssd_scan": ssd_scan_bhsp.launches,
+                       "doorbell": stage_copy_rows.launches}
     if min(tp_launches[k] for k in ("flash_attention", "rmsnorm",
                                     "moe_gmm", "ssd_scan")) == 0:
         raise AssertionError(f"the tensor-parallel paths launched a kernel "
                              f"no time: {tp_launches}")
+    t0 = time.perf_counter()
+    checks = path_kernel_checks(torch, path.calls)
+    missing = [k for k, n in (("flash", tp_launches["flash_attention"]),
+                              ("rmsnorm", tp_launches["rmsnorm"]),
+                              ("moe_gmm", tp_launches["moe_gmm"]),
+                              ("ssd_scan", tp_launches["ssd_scan"]),
+                              ("doorbell", c_launches
+                               + tp_launches["doorbell"]))
+               if n and not checks[k]]
+    if missing:
+        raise AssertionError(f"phase 17 launched {missing} at no signature "
+                             "that was kept")
+    record("phase17_kernel_checks", seconds=time.perf_counter() - t0,
+           signatures={k: len(v) for k, v in checks.items()},
+           cases=checks)
+    record("phase17", seconds=time.perf_counter() - t17,
+           launches=tp_launches)
+    flash += checks["flash"]
+    rms += checks["rmsnorm"]
+    moe += checks["moe_gmm"]
+    ssd += checks["ssd_scan"]
+    cases += checks["doorbell"]
 
     # the kernels line: headline numbers at each main path's shape
     head = next(c for c in cases if c["case"] == "rows_f32_64x16384_bf160")

@@ -409,20 +409,22 @@ class _DistPending:
 class DistAxis(Axis):
     """An axis over ``torch.distributed``: ``ranks`` are the group's
     global ranks in axis order, ``group`` its process group (None: the
-    default group).  Over gloo on the CPU it is tested; over NCCL across
-    several GPUs it is unverified (one H100 cannot hold two ranks of an
-    NCCL communicator)."""
+    default group), ``device`` where its tokens live (default ``cuda``,
+    the process' current card; ``"cpu"`` for gloo).  Over gloo on the CPU
+    it is tested; over NCCL across several GPUs it is unverified (one
+    H100 cannot hold two ranks of an NCCL communicator)."""
 
     def __init__(self, ranks: Sequence[int], group=None, *,
                  name: str = "axis", device=None):
         import torch.distributed as dist
+        from .runtime import resolve_device
         self.dist = dist
         self.ranks = list(ranks)
         self.size = len(self.ranks)
         self.index = self.ranks.index(dist.get_rank())
         self.group = group
         self.name = name
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
 
     def ppermute_start(self, x: torch.Tensor, perm: Perm, *,
                        channel: Optional[int] = None):

@@ -30,6 +30,7 @@ from ..core import collectives as C
 from ..core.axis import Axis
 from ..core.modes import CommConfig, CommMode
 from ..core.progress import EndpointSpec
+from ..core.runtime import resolve_device
 
 AxisSpec = Union[Axis, Tuple[Axis, ...], None]
 
@@ -239,11 +240,15 @@ class Comm:
         return _tree_map(lambda v: self.psum_all(v) / n, x)
 
     # -- barrier (paper §6 primitive) ----------------------------------------
-    def barrier(self) -> torch.Tensor:
+    def barrier(self, device=None) -> torch.Tensor:
+        """The dissemination barrier over the model axis, then each data
+        axis; the token lies on the axes' device, or on ``device``
+        (default ``cuda``) when no axis is bound."""
         ax = self._one_model_axis()
         bound = _axes(self.model_axis) + _axes(self.data_axis)
         tok = torch.ones((), dtype=torch.int32,
-                         device=bound[0].device if bound else None)
+                         device=bound[0].device if bound
+                         else resolve_device(device))
         if ax is not None:
             tok = C.dissemination_barrier(ax)
         for a in _axes(self.data_axis):

@@ -73,21 +73,18 @@ class Mesh:
 
     ``substrate="lci"``: one :class:`LocalCluster` of ``prod(shape)``
     ranks bound to ``device`` (default ``cuda``), each rank with a shared
-    endpoint (one device) and a dedicated one (``dedicated_devices``
-    devices, one per ring direction), allocated symmetrically.  The
+    endpoint (one device) and a dedicated one (two devices, one per ring
+    direction), allocated symmetrically.  The
     cluster's protocol thresholds are the library's, except that
     rendezvous starts where eager ends (``rdv_threshold`` =
     ``eager_max_bytes``): a collective's pieces are eager up to 64 KiB and
     go by rendezvous above, never through the packet-sized buffer copy.
 
     ``substrate="dist"``: ``prod(shape)`` spawned processes joined by
-    ``torch.distributed`` (``backend`` gloo on the CPU, nccl on cards)."""
+    ``torch.distributed`` (gloo on the CPU, nccl on cards)."""
 
     def __init__(self, shape: Sequence[int], names: Sequence[str], *,
-                 substrate: str = "lci", device=None,
-                 dedicated_devices: int = 2,
-                 attrs: Optional[Dict[str, Any]] = None,
-                 backend: Optional[str] = None):
+                 substrate: str = "lci", device=None):
         if len(shape) != len(names):
             raise ValueError(f"mesh shape {shape} and names {names} differ "
                              "in length")
@@ -103,13 +100,10 @@ class Mesh:
                                                for n in self.shape]))
         self.groups = mesh_groups(self.shape, self.names)
         self.cluster = None
-        self.backend = backend or ("nccl" if self.device.type == "cuda"
-                                   else "gloo")
+        self.backend = "nccl" if self.device.type == "cuda" else "gloo"
         if substrate == "lci":
-            layer = {"rdv_threshold": CommConfig().inject_max_bytes}
-            layer.update(attrs or {})
-            self.cluster = LocalCluster(self.size, device=self.device,
-                                        attrs=layer)
+            self.cluster = LocalCluster(self.size, device=self.device, attrs={
+                "rdv_threshold": CommConfig().inject_max_bytes})
             # a rank with nothing to progress sleeps on its bell until the
             # fabric lands a message for it; the rank threads take turns
             # on the baton
@@ -119,7 +113,7 @@ class Mesh:
             self.shared = self.cluster.alloc_endpoint(
                 1, progress="shared", name="collectives")
             self.dedicated = self.cluster.alloc_endpoint(
-                dedicated_devices, progress="dedicated",
+                2, progress="dedicated",
                 name="collectives_dedicated")
 
     def close(self) -> None:
@@ -160,9 +154,10 @@ class Mesh:
 def dist_axes(shape: Sequence[int], names: Sequence[str], *,
               device=None) -> Dict[str, DistAxis]:
     """This process' bound axes over an initialized ``torch.distributed``
-    world of ``prod(shape)`` ranks (row-major).  Every rank must call it:
-    it creates one process group per row and column of the mesh, in the
-    same order everywhere."""
+    world of ``prod(shape)`` ranks (row-major), on ``device`` (default
+    ``cuda``, the process' current card; ``"cpu"`` for gloo).  Every rank
+    must call it: it creates one process group per row and column of the
+    mesh, in the same order everywhere."""
     import torch.distributed as dist
     me = dist.get_rank()
     out = {}
@@ -298,7 +293,7 @@ def _gather_outputs(parts: List, spec, mesh: Mesh):
 # ---------------------------------------------------------------------------
 
 def _comm_for(axes: Dict[str, Any], config: CommConfig, model_axis,
-              data_axis, fsdp: bool, endpoint) -> Comm:
+              data_axis) -> Comm:
     def pick(spec):
         if spec is None:
             return None
@@ -307,19 +302,19 @@ def _comm_for(axes: Dict[str, Any], config: CommConfig, model_axis,
         got = tuple(axes[a] for a in spec if a in axes)
         return got or None
     return Comm(config, model_axis=pick(model_axis),
-                data_axis=pick(data_axis), fsdp=fsdp, endpoint=endpoint)
+                data_axis=pick(data_axis))
 
 
 def spmd_map(fn: Callable, mesh: Mesh, in_specs: Sequence, out_specs, *,
              config: Optional[CommConfig] = None, model_axis="model",
-             data_axis="data", fsdp: bool = True, endpoint=None
-             ) -> Callable:
+             data_axis="data") -> Callable:
     """``f(*args)`` runs ``fn(comm, *local_args)`` once per rank of
     ``mesh`` and returns the outputs put together by ``out_specs``.
 
     ``model_axis`` / ``data_axis`` name the mesh axes the per-rank Comm
     binds (a tuple of names for a multi-axis data dim; an absent name
-    leaves that axis unbound)."""
+    leaves that axis unbound).  The Comm gathers FSDP-sharded weights;
+    ``fn`` picks another endpoint with ``comm.with_endpoint(...)``."""
     config = config or CommConfig()
 
     def run(*args):
@@ -328,17 +323,17 @@ def spmd_map(fn: Callable, mesh: Mesh, in_specs: Sequence, out_specs, *,
                    for r in range(mesh.size)]
         if mesh.substrate == "lci":
             outs = _run_threads(fn, mesh, locals_, config, model_axis,
-                                data_axis, fsdp, endpoint)
+                                data_axis)
         else:
             outs = _run_processes(fn, mesh, locals_, config, model_axis,
-                                  data_axis, fsdp, endpoint)
+                                  data_axis)
         return _gather_outputs(outs, out_specs, mesh)
 
     return run
 
 
-def _run_threads(fn, mesh: Mesh, locals_, config, model_axis, data_axis,
-                 fsdp, endpoint) -> List:
+def _run_threads(fn, mesh: Mesh, locals_, config, model_axis, data_axis
+                 ) -> List:
     abort = threading.Event()
     outs: List = [None] * mesh.size
     errors: List = []
@@ -349,7 +344,7 @@ def _run_threads(fn, mesh: Mesh, locals_, config, model_axis, data_axis,
                 torch.cuda.set_device(mesh.device)
             with mesh.baton:                 # the rank threads take turns
                 comm = _comm_for(mesh.lci_axes(r, abort), config,
-                                 model_axis, data_axis, fsdp, endpoint)
+                                 model_axis, data_axis)
                 outs[r] = fn(comm, *locals_[r])
         except BaseException as e:          # surfaced after the join
             errors.append((r, e))
@@ -380,15 +375,13 @@ def _free_port() -> int:
 
 
 def _dist_rank_main(rank, world, port, backend, shape, names, device, fn,
-                    args, config, model_axis, data_axis, fsdp, endpoint,
-                    queue):
+                    args, config, model_axis, data_axis, queue):
     import torch.distributed as dist
     try:
         dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                                 world_size=world, rank=rank)
         axes = dist_axes(shape, names, device=device)
-        comm = _comm_for(axes, config, model_axis, data_axis, fsdp,
-                         endpoint)
+        comm = _comm_for(axes, config, model_axis, data_axis)
         out = fn(comm, *args)
         # by value: a tensor sent through the queue would be shared
         # through this process, which exits first
@@ -401,8 +394,8 @@ def _dist_rank_main(rank, world, port, backend, shape, names, device, fn,
         queue.put((rank, None, repr(e)))
 
 
-def _run_processes(fn, mesh: Mesh, locals_, config, model_axis, data_axis,
-                   fsdp, endpoint) -> List:
+def _run_processes(fn, mesh: Mesh, locals_, config, model_axis, data_axis
+                   ) -> List:
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
@@ -413,7 +406,7 @@ def _run_processes(fn, mesh: Mesh, locals_, config, model_axis, data_axis,
         procs = [ctx.Process(target=_dist_rank_main, args=(
             r, mesh.size, port, mesh.backend, mesh.shape, mesh.names,
             str(mesh.device), fn, locals_[r], config, model_axis, data_axis,
-            fsdp, endpoint, queue), daemon=True)
+            queue), daemon=True)
             for r in range(mesh.size)]
         for p in procs:
             p.start()

@@ -7,8 +7,8 @@ There is no fallback: a build or launch failure is an exception.
 
 Each wrapper counts its launches in a plain integer attribute
 (``stage_copy.launches``, ``stage_copy_rows.launches``,
-``stage_copy_push.launches``) so that a run can show its main path went
-through the kernel.  The main path (a fused doorbell of CUDA tensors,
+``stage_copy_push.launches``, and by thread in ``.launches_by_thread``)
+so that a run can show its main path went through the kernel.  The main path (a fused doorbell of CUDA tensors,
 ``core/progress/fabric.py::pack_payloads``) calls
 :func:`stage_copy_rows`.
 """
@@ -23,7 +23,7 @@ from operator import attrgetter, or_
 import torch
 
 from ...core.packet_pool import SlotPool, pool_get_n
-from .. import _build
+from .. import _build, count_launch
 from .ref import (stage_copy_push_ref, stage_copy_ref, stage_copy_rows_ref,
                   wire_rows)
 
@@ -101,7 +101,7 @@ def stage_copy(payloads: torch.Tensor, *, wire_bf16: bool = False
         total = k * row_bytes
         _launch(payloads, out, None, 1, 1, k * e * payloads.element_size(),
                 total, total, cast)
-        stage_copy.launches += 1
+        count_launch(stage_copy)
     return out
 
 
@@ -160,7 +160,7 @@ def stage_copy_rows(rows, *, wire_bf16: bool = False,
     if rc != 0:
         raise RuntimeError(f"stage_copy_rows kernel launch failed: CUDA "
                            f"error {rc}")
-    stage_copy_rows.launches += -(-k // ROWS_PER_LAUNCH)
+    count_launch(stage_copy_rows, -(-k // ROWS_PER_LAUNCH))
     return out
 
 
@@ -200,10 +200,10 @@ def stage_copy_push(pool: SlotPool, buf: torch.Tensor, lane,
     if k and packet_bytes:
         _launch(payloads, buf, ids, n_packets, k,
                 e * payloads.element_size(), row_bytes, packet_bytes, cast)
-        stage_copy_push.launches += 1
+        count_launch(stage_copy_push)
     return pool, buf, ids, got, status
 
 
-stage_copy.launches = 0
-stage_copy_rows.launches = 0
-stage_copy_push.launches = 0
+for _fn in (stage_copy, stage_copy_rows, stage_copy_push):
+    _fn.launches = 0
+    _fn.launches_by_thread = {}

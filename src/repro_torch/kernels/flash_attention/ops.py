@@ -13,7 +13,7 @@ padded head dim is 64, 128 or 256, ``"simt"`` (float32 CUDA-core
 products) for everything else.  Both wrappers launch through one
 function, :func:`_attend`.  ``flash_attention_bhsd.launches`` counts
 their kernel launches, ``flash_attention_bhsd.launches_by_variant`` the
-same by variant, and :func:`variant_of` tells which variant a call took.
+same by variant (``.launches_by_thread`` by thread), and :func:`variant_of` tells which variant a call took.
 
 The kernel is instantiated for head dims 16/32/64/128/256; any other dh up
 to 256 is zero-padded to the next of them (zeros add nothing to q.k, and
@@ -33,7 +33,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .. import _build
+from .. import _build, count_launch
 from .ref import flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -181,7 +181,7 @@ def _launch(kind: str, q, k, v, out, *, causal: bool, window: int,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel ({kind}) launch failed: "
                            f"CUDA error {rc}")
-    flash_attention_bhsd.launches += 1
+    count_launch(flash_attention_bhsd)
     flash_attention_bhsd.launches_by_variant[kind] += 1
 
 
@@ -257,4 +257,5 @@ def variant_of(call):
 
 
 flash_attention_bhsd.launches = 0
+flash_attention_bhsd.launches_by_thread = {}
 flash_attention_bhsd.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -11,7 +11,7 @@ else.  Either runs as two launches inside one C call (the first product
 with the activation into a scratch ``h`` that this wrapper allocates,
 then the second product).  ``moe_gmm.launches`` counts wrapper calls
 that launched the kernel, ``moe_gmm.launches_by_variant`` the same by
-variant.
+variant and ``moe_gmm.launches_by_thread`` by thread.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from .. import _build
+from .. import _build, count_launch
 from .ref import ACTS, moe_gmm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -117,10 +117,11 @@ def moe_gmm(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"moe_gmm kernel ({kind}) launch failed: CUDA "
                            f"error {rc}")
-    moe_gmm.launches += 1
+    count_launch(moe_gmm)
     moe_gmm.launches_by_variant[kind] += 1
     return out
 
 
 moe_gmm.launches = 0
+moe_gmm.launches_by_thread = {}
 moe_gmm.launches_by_variant = dict.fromkeys(VARIANTS, 0)

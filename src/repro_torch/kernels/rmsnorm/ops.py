@@ -5,7 +5,7 @@ kernel (``csrc/rmsnorm.cu``) on the current stream, without
 synchronising, or raises; for a CPU tensor it takes the plain version in
 :mod:`.ref`.  There is no fallback.  ``rmsnorm.launches`` counts the
 kernel launches, ``rmsnorm.launches_by_shape`` the same launches by
-``(rows, d)``.
+``(rows, d)`` and ``rmsnorm.launches_by_thread`` by thread.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from .. import _build
+from .. import _build, count_launch
 from .ref import rmsnorm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -77,11 +77,12 @@ def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor] = None, *,
         if rc != 0:
             raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error "
                                f"{rc}")
-        rmsnorm.launches += 1
+        count_launch(rmsnorm)
         by = rmsnorm.launches_by_shape
         by[rows, d] = by.get((rows, d), 0) + 1
     return out
 
 
 rmsnorm.launches = 0
+rmsnorm.launches_by_thread = {}
 rmsnorm.launches_by_shape = {}

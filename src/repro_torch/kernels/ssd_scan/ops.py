@@ -16,7 +16,8 @@ transposing copy on either side.  "tc" reads the rows of x, B and C with
 16-byte ``cp.async``: a view whose rows are not contiguous and 16-byte
 aligned (:func:`rows_aligned`) is copied first and stays on "tc".
 ``ssd_scan_bhsp.launches`` counts the wrapper calls that launched a
-variant, ``ssd_scan_bhsp.launches_by_variant`` the same by variant.
+variant, ``ssd_scan_bhsp.launches_by_variant`` the same by variant and
+``ssd_scan_bhsp.launches_by_thread`` by thread.
 
 The kernel chooses its own chunk length; the ``chunk`` argument is the
 reference's tiling hint and changes only the rounding of the result.
@@ -28,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, count_launch
 from .ref import ssd_scan_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -188,7 +189,7 @@ def _launch(x, dt, a_log, b, c, d_skip, h0, y) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel ({kind}) launch failed: CUDA "
                            f"error {rc}")
-    ssd_scan_bhsp.launches += 1
+    count_launch(ssd_scan_bhsp)
     ssd_scan_bhsp.launches_by_variant[kind] += 1
     return h_final
 
@@ -242,4 +243,5 @@ def variant_of(call):
 
 
 ssd_scan_bhsp.launches = 0
+ssd_scan_bhsp.launches_by_thread = {}
 ssd_scan_bhsp.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -10,10 +10,8 @@ The mirror of :mod:`repro.models.blocks`.  The tensor-parallel plans:
 * Plan B (heads replicated) — q for the local sequence rows only, K/V
   projected locally and all-gathered over the sequence.
 
-With one rank both plans compute the same thing (q, k and v for the
-whole local sequence, all heads): there K and V are projected with their
-own matmuls (the reference concatenates ``[wk | wv]`` and splits; the
-columns are the same dot products).
+With one rank the collectives are identities and both plans compute q,
+k and v for the whole sequence over all heads.
 """
 from __future__ import annotations
 
@@ -124,11 +122,8 @@ def attention_op(x: torch.Tensor, p: Dict[str, torch.Tensor],
                  ) -> torch.Tensor:
     """x: (s_local, b, d) pre-normed; returns (s_local, b, d)
     un-residual.  One flash-attention launch on CUDA, on the rank's
-    local heads."""
-    if comm.tp == 1:
-        return _attention_tp1(x, p, cfg, comm, plan, window=window,
-                              q_offset=q_offset, causal=causal,
-                              prefix=prefix)
+    local heads.  K and V are projected by one matmul with the local
+    ``[wk | wv]`` shards, as the reference does."""
     dh = cfg.resolved_head_dim
     wq = comm.weight(p[prefix + "wq"], fsdp_axis=0)
     # concat of LOCAL shards: the layout is [K_local | V_local]
@@ -185,31 +180,6 @@ def attention_op(x: torch.Tensor, p: Dict[str, torch.Tensor],
     if plan.shard_heads:
         return comm.matmul_rs(o, wo)                    # (s_l, b, d)
     return torch.matmul(o, wo)                          # local rows
-
-
-def _attention_tp1(x, p, cfg, comm, plan, *, window, q_offset, causal,
-                   prefix):
-    """One rank: q, k and v for the whole local sequence, all heads (both
-    plans compute that there)."""
-    dh = cfg.resolved_head_dim
-    s, b = x.shape[:2]
-    nq, nkv = plan.q_local(cfg), plan.kv_local(cfg)
-    wq = comm.weight(p[prefix + "wq"], fsdp_axis=0)
-    wk = comm.weight(p[prefix + "wk"], fsdp_axis=0)
-    wv = comm.weight(p[prefix + "wv"], fsdp_axis=0)
-    wo = comm.weight(p[prefix + "wo"], fsdp_axis=1)
-    q = torch.matmul(x, wq).reshape(s, b, nq, dh)
-    k = torch.matmul(x, wk).reshape(s, b, nkv, dh)
-    v = torch.matmul(x, wv).reshape(s, b, nkv, dh)
-    if cfg.qk_norm:
-        q = rms_norm(q, p[prefix + "q_norm"])
-        k = rms_norm(k, p[prefix + "k_norm"])
-    pos = q_offset + torch.arange(s, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos - q_offset, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=causal, window=window,
-                        q_offset=q_offset)
-    return torch.matmul(o.reshape(s, b, nq * dh), wo)
 
 
 def layer_window(cfg: ModelConfig, layer_idx: int) -> int:

@@ -16,13 +16,12 @@ one token of it for serving (plain, as the reference has no kernel for
 it).  Layout is the reference's seq-major view: x (s, b, heads,
 headdim); B/C (s, b, groups, state).
 
-:func:`ssm_op` is the full mixer: in-projections (z, x, dt and B|C as
-separate matmuls; the reference concatenates [w_z | w_x | w_dt] and
-splits the product), the causal depthwise conv as the reference's
-shifted sum (not ``F.conv1d``, which runs float32 through cuDNN in
-TF32), SiLU, softplus, the scan, the SiLU gate, the gated RMSNorm over
-the whole d_inner (at tp = 1 exactly ``layers.rms_norm``, so the RMSNorm
-kernel) and the out-projection.
+:func:`ssm_op` is the full mixer: in-projections (the fused
+[w_z | w_x | w_dt] product, split, and B|C), the causal depthwise conv
+as the reference's shifted sum (not ``F.conv1d``, which runs float32
+through cuDNN in TF32), SiLU, softplus, the scan, the SiLU gate, the gated RMSNorm over
+the whole d_inner (where one rank holds it, exactly ``layers.rms_norm``,
+so the RMSNorm kernel) and the out-projection.
 """
 from __future__ import annotations
 
@@ -200,18 +199,6 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def ssm_in_proj(x, p, comm, prefix: str = "ssm_"):
-    """(z, x, dt_raw, b, c) of the mixer's in-projections, at tp = 1."""
-    def w(name, fsdp_axis=0):
-        return comm.weight(p[prefix + name], fsdp_axis=fsdp_axis)
-
-    z = torch.matmul(x, w("w_z"))
-    xs = torch.matmul(x, w("w_x"))
-    dt_raw = torch.matmul(x, w("w_dt"))
-    b, c = torch.chunk(torch.matmul(x, w("w_bc")), 2, dim=-1)
-    return z, xs, dt_raw, b, c
-
-
 def softplus_dt(dt_raw: torch.Tensor, dt_bias: torch.Tensor
                 ) -> torch.Tensor:
     """``softplus(dt_raw + dt_bias)`` in float32 (torch's threshold of 20
@@ -219,63 +206,42 @@ def softplus_dt(dt_raw: torch.Tensor, dt_bias: torch.Tensor
     return F.softplus(dt_raw.float() + dt_bias.float())
 
 
-def gate_norm_out(y, z, p, comm, prefix: str = "ssm_"):
-    """The SiLU gate, the gated RMSNorm over d_inner (one RMSNorm launch
-    on CUDA) and the out-projection."""
-    y = y * F.silu(z.float()).to(y.dtype)
-    y = rms_norm(y, p[prefix + "norm_w"])
-    return torch.matmul(y, comm.weight(p[prefix + "w_out"], fsdp_axis=1))
-
-
 def ssm_op(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
            comm, plan, *, prefix: str = "ssm_") -> torch.Tensor:
-    """x: (s_local, bs, d) pre-normed -> (s_local, bs, d).  At tp = 1 (the
-    reference's sharded and replicated paths compute the same thing
-    there): one SSD-scan and one RMSNorm launch on CUDA.  At tp > 1 the
-    reference's two paths (:func:`_ssm_op_tp`)."""
-    if comm.tp != 1:
-        return _ssm_op_tp(x, p, cfg, comm, plan, prefix)
-    s, bs, _ = x.shape
-    h, g, n = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
-    z, xs, dt_raw, b, c = ssm_in_proj(x, p, comm, prefix)
-    xs = _causal_conv(xs, p[prefix + "conv_w"])
-    xs = F.silu(xs.float()).to(x.dtype)
-    dt = softplus_dt(dt_raw, p[prefix + "dt_bias"])
-    y, _ = ssd_scan(xs.reshape(s, bs, h, cfg.ssm_headdim), dt,
-                    p[prefix + "a_log"], b.reshape(s, bs, g, n),
-                    c.reshape(s, bs, g, n), p[prefix + "d_skip"],
-                    chunk=cfg.ssm_chunk)
-    return gate_norm_out(y.reshape(s, bs, cfg.ssm_d_inner), z, p, comm,
-                         prefix)
-
-
-def _ssm_op_tp(x, p, cfg: ModelConfig, comm, plan, prefix: str):
-    """The mixer at tp > 1.  Sharded heads: the fused ``[z|x|dt]``
-    projection enters through ``ag_matmul``, B/C are projected locally
-    and gathered over the sequence, the scan runs on the local heads over
-    the whole sequence (one SSD-scan launch on CUDA), the gated RMSNorm's
-    sum of squares is psum'd over the model axis (the statistic spans the
-    whole d_inner), and the out-projection leaves through ``matmul_rs``.
-    Replicated heads (hymba's 50): everything is gathered, the scan runs
-    on every rank, the gated norm is the RMSNorm kernel, and only the
-    local rows are projected out."""
+    """x: (s_local, bs, d) pre-normed -> (s_local, bs, d).  Sharded heads:
+    the fused ``[z|x|dt]`` projection enters through ``ag_matmul``, B/C
+    are projected locally and gathered over the sequence, the scan runs
+    on the local heads over the whole sequence (one SSD-scan launch on
+    CUDA), the gated RMSNorm's sum of squares is psum'd over the model
+    axis (the statistic spans the whole d_inner), and the out-projection
+    leaves through ``matmul_rs``.  Replicated heads (hymba's 50):
+    everything is gathered, the scan runs on every rank, and only the
+    local rows are projected out.  Where a rank holds the whole d_inner
+    (one rank, or replicated heads) the gated norm is the RMSNorm kernel.
+    With one rank the collectives are identities."""
     def w(name, fsdp_axis=0):
         return comm.weight(p[prefix + name], fsdp_axis=fsdp_axis)
 
     s_l, bs, _ = x.shape
     di, h = cfg.ssm_d_inner, cfg.ssm_heads
     g, n = cfg.ssm_groups, cfg.ssm_state
-    shard = plan.shard_ssm_heads
-    h_l = h // comm.tp if shard else h
-    di_l = di // comm.tp if shard else di
-    fused = torch.cat([w("w_z"), w("w_x"), w("w_dt")], dim=1)
-    if shard:
+    tp = comm.tp if plan.shard_ssm_heads else 1
+    h_l, di_l = h // tp, di // tp
+    # the fused [z | x | dt] projection, its columns padded to a multiple
+    # of 64 so that the product's rows stay 16-byte aligned for the GEMM
+    # and the passes over its views (hymba's 2 * 3200 + 50 = 6450)
+    ws = [w("w_z"), w("w_x"), w("w_dt")]
+    pad = -(2 * di_l + h_l) % 64
+    if pad:
+        ws.append(ws[0].new_zeros(ws[0].shape[0], pad))
+    fused = torch.cat(ws, dim=1)
+    if plan.shard_ssm_heads:
         zxdt = comm.ag_matmul(x, fused)                  # (s, bs, ...)
     else:
         zxdt = comm.ag_seq(torch.matmul(x, fused))
     bc = comm.ag_seq(torch.matmul(x, w("w_bc")))
-    z, xs, dt_raw = torch.split(zxdt, [di_l, di_l, zxdt.shape[-1] - 2 * di_l],
-                                dim=-1)
+    z, xs, dt_raw = (zxdt[..., :di_l], zxdt[..., di_l:2 * di_l],
+                     zxdt[..., 2 * di_l:2 * di_l + h_l])
     b, c = torch.chunk(bc, 2, dim=-1)
     s = zxdt.shape[0]
 
@@ -288,14 +254,16 @@ def _ssm_op_tp(x, p, cfg: ModelConfig, comm, plan, prefix: str):
                     chunk=cfg.ssm_chunk)
     y = y.reshape(s, bs, di_l)
     y = y * F.silu(z.float()).to(y.dtype)
-    if not shard:
+    if tp == 1:
         y = rms_norm(y, p[prefix + "norm_w"])
-        start = comm.model_index() * s_l
-        return torch.matmul(y[start:start + s_l], w("w_out", 1))
-    # the gated RMSNorm over the WHOLE d_inner: the sum of squares is
-    # psum'd over the model axis
-    yf = y.float()
-    ssq = comm.psum_model((yf * yf).sum(dim=-1, keepdim=True))
-    yf = yf * torch.rsqrt(ssq / di + 1e-6)
-    y = (yf * p[prefix + "norm_w"].float()).to(y.dtype)
-    return comm.matmul_rs(y, w("w_out", 1))
+    else:
+        # the gated RMSNorm over the WHOLE d_inner: the sum of squares is
+        # psum'd over the model axis
+        yf = y.float()
+        ssq = comm.psum_model((yf * yf).sum(dim=-1, keepdim=True))
+        yf = yf * torch.rsqrt(ssq / di + 1e-6)
+        y = (yf * p[prefix + "norm_w"].float()).to(y.dtype)
+    if plan.shard_ssm_heads:
+        return comm.matmul_rs(y, w("w_out", 1))
+    start = comm.model_index() * s_l
+    return torch.matmul(y[start:start + s_l], w("w_out", 1))

@@ -15,11 +15,11 @@ Cache layout (the reference's global view; a rank holds its shard, cut by
     conv_tail  (L, K-1, B, d_inner)    cfg.dtype (ssm, hybrid); channels
                                        with the heads
 
-all on the model's device.  At tp = dp = 1 the step is the single-rank
-path below; on a mesh it is the reference's multi-rank decode
-(:func:`_serve_step_mesh`): local head shards, tiny gathers to full
-heads, the cache write on the owning sequence shard, flash-decode
-partials combined over the KV-sharding axes, the row-parallel exit.
+all on the model's device.  The decode step is the reference's, run by
+each rank on its shards: local head shards, tiny gathers to full heads,
+the cache write on the owning sequence shard, flash-decode partials
+combined over the KV-sharding axes, the row-parallel exit; with one rank
+every collective is an identity.
 ``tp2d=True`` is the reference's 2D-TP serving: weights stay in their
 (data x model) shards and the activation is sliced along the contraction
 dim per data rank instead (:func:`_wmul`).  Differences from the
@@ -60,11 +60,10 @@ import torch
 import torch.nn.functional as F
 
 from ..core.runtime import resolve_device
-from ..distributed.comm import Comm, local_comm
-from ..models import lm as lm_mod
-from ..models.attention import combine_decode_partials, decode_attention
-from ..distributed.comm import _axes
+from ..distributed.comm import Comm, _axes, local_comm
 from ..distributed.spmd_map import PartitionSpec as P
+from ..models import lm as lm_mod
+from ..models.attention import decode_attention
 from ..models.blocks import TPPlan, layer_window, tp_plan
 from ..models.common import ModelConfig, shard_decisions
 from ..models.layers import (NEG_INF, apply_norm, apply_rope,
@@ -72,8 +71,7 @@ from ..models.layers import (NEG_INF, apply_norm, apply_rope,
                              lm_head_logits, mlp_activation, rms_norm,
                              vocab_rows)
 from ..models.moe import moe_block
-from ..models.ssm import (gate_norm_out, softplus_dt, ssd_decode_step,
-                          ssm_in_proj)
+from ..models.ssm import softplus_dt, ssd_decode_step
 
 
 # ---------------------------------------------------------------------------
@@ -139,152 +137,6 @@ def cache_pspecs(cfg: ModelConfig, *, batch: int, model_axis="model",
 # decode helpers
 # ---------------------------------------------------------------------------
 
-def _embed_flat(tokens: torch.Tensor, emb: torch.Tensor, comm: Comm, *,
-                scale: bool) -> torch.Tensor:
-    """tokens (b,) -> (b, d) in emb's dtype."""
-    out = comm.psum_model(vocab_rows(tokens, emb, comm.model_index()))
-    if scale:
-        out = out * math.sqrt(out.shape[-1])
-    return out.to(emb.dtype)
-
-
-def _decode_attn_layer(x, lp, cfg: ModelConfig, comm: Comm, plan: TPPlan,
-                       k_cache, v_cache, pos: int, window: int):
-    """One attention layer for a single token.  x (b, d); k/v_cache
-    (S, b, n_kv, dh), written in place at ``pos``.  Returns (b, d)."""
-    dh = cfg.resolved_head_dim
-    nq, nkv = plan.q_local(cfg), plan.kv_local(cfg)
-    b = x.shape[0]
-    q = torch.matmul(x, comm.weight(lp["wq"], fsdp_axis=0)).reshape(b, nq, dh)
-    k_new = torch.matmul(x, comm.weight(lp["wk"], fsdp_axis=0)
-                         ).reshape(b, nkv, dh)
-    v_new = torch.matmul(x, comm.weight(lp["wv"], fsdp_axis=0)
-                         ).reshape(b, nkv, dh)
-    if cfg.qk_norm:
-        q = rms_norm(q, lp["q_norm"])
-        k_new = rms_norm(k_new, lp["k_norm"])
-    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q = apply_rope(q[None], posv, cfg.rope_theta)[0]
-    k_new = apply_rope(k_new[None], posv, cfg.rope_theta)[0]
-    if pos < k_cache.shape[0]:        # past the end the reference drops it
-        k_cache[pos] = k_new.to(k_cache.dtype)
-        v_cache[pos] = v_new.to(v_cache.dtype)
-    num, m, l = decode_attention(q, k_cache, v_cache, valid_len=pos + 1,
-                                 kv_offset=0, window=window, q_pos=pos)
-    attn = combine_decode_partials(num, m, l, comm)
-    attn = attn.reshape(b, nq * dh).to(x.dtype)
-    return torch.matmul(attn, comm.weight(lp["wo"], fsdp_axis=1))
-
-
-def _decode_mlp(x, lp, cfg: ModelConfig, comm: Comm, prefix: str = ""
-                ) -> torch.Tensor:
-    def w(name, fsdp_axis):
-        return comm.weight(lp[prefix + name], fsdp_axis=fsdp_axis)
-
-    if cfg.mlp in ("swiglu", "geglu"):
-        h = gated_activation(cfg.mlp, torch.matmul(x, w("w_gate", 0)),
-                             torch.matmul(x, w("w_up", 0)))
-    else:
-        h = mlp_activation(cfg.mlp, torch.matmul(x, w("w_in", 0)))
-    return torch.matmul(h, w("w_out", 1))
-
-
-def _decode_ssm(x, lp, cfg: ModelConfig, comm: Comm, state, conv_tail,
-                prefix: str = "ssm_") -> torch.Tensor:
-    """The SSM mixer for a single token.  x (b, d); state (b, H, N, P)
-    and conv_tail (K-1, b, d_inner), both updated in place.  Returns
-    (b, d)."""
-    g, n = cfg.ssm_groups, cfg.ssm_state
-    z, xs, dt_raw, b_t, c_t = ssm_in_proj(x, lp, comm, prefix)
-    # causal conv: roll the tail window
-    window = torch.cat([conv_tail, xs[None]], dim=0)        # (K, b, di)
-    xs_c = torch.einsum("kbc,kc->bc", window.float(),
-                        lp[prefix + "conv_w"].float()).to(x.dtype)
-    conv_tail.copy_(window[1:])
-    xs_c = F.silu(xs_c.float()).to(x.dtype)
-    dt = softplus_dt(dt_raw, lp[prefix + "dt_bias"])
-    h_new, y = ssd_decode_step(
-        state, xs_c.reshape(-1, cfg.ssm_heads, cfg.ssm_headdim), dt,
-        lp[prefix + "a_log"], b_t.reshape(-1, g, n), c_t.reshape(-1, g, n),
-        lp[prefix + "d_skip"])
-    state.copy_(h_new)
-    return gate_norm_out(y.reshape(-1, cfg.ssm_d_inner), z, lp, comm,
-                         prefix)
-
-
-# ---------------------------------------------------------------------------
-# serve_step
-# ---------------------------------------------------------------------------
-
-def make_serve_step(cfg: ModelConfig, comm: Optional[Comm] = None, *,
-                    joint_kv: bool = False, tp2d: bool = False):
-    """Build ``serve_step(params, cache, tokens) -> (next_tokens, cache')``.
-
-    tokens: (b,) ints (a tensor or numpy) — the tokens decoded at
-    position ``cache.length``; returns the greedily sampled next tokens,
-    (b,) int32 on the model's device, and the cache with ``length + 1``
-    (its K/V, SSM-state and conv-tail tensors updated in place).
-    ``joint_kv``: the KV sequence dim is sharded over data AND model (B
-    == 1 long-context shapes); ``tp2d``: 2D-TP serving."""
-    lm_mod.require_ported(cfg, "make_serve_step")
-    comm = comm or local_comm()
-    plan = tp_plan(cfg, comm.tp)
-    if comm.tp > 1 or comm.dp > 1 or joint_kv or tp2d:
-        return _serve_step_mesh(cfg, comm, plan, joint_kv=joint_kv,
-                                tp2d=tp2d)
-    final_kind = lm_mod.final_norm_kind(cfg)
-
-    @torch.no_grad()
-    def serve_step(params, cache: DecodeCache, tokens):
-        pos = cache.length
-        emb = comm.weight(params["emb"], fsdp_axis=1)
-        tokens = torch.as_tensor(tokens, device=emb.device)
-        x = _embed_flat(tokens, emb, comm,
-                        scale=cfg.name.startswith("gemma"))
-        for idx in range(cfg.n_layers):
-            lp = lm_mod.layer_params(params, idx)
-            h = apply_norm(cfg.norm, x, lp.get("norm1"))
-            if cfg.family == "ssm":
-                x = x + _decode_ssm(h, lp, cfg, comm, cache.ssm_state[idx],
-                                    cache.conv_tail[idx])
-                continue
-            window = layer_window(cfg, idx) if cfg.sliding_window else 0
-            a_out = _decode_attn_layer(h, lp, cfg, comm, plan, cache.k[idx],
-                                       cache.v[idx], pos, window)
-            if cfg.family == "hybrid":
-                s_out = _decode_ssm(h, lp, cfg, comm, cache.ssm_state[idx],
-                                    cache.conv_tail[idx])
-                x = x + 0.5 * (rms_norm(a_out, lp["mix_norm_a"])
-                               + rms_norm(s_out, lp["mix_norm_s"]))
-                h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
-                x = x + _decode_mlp(h2, lp, cfg, comm)
-            elif cfg.parallel_block:
-                x = x + a_out + _decode_mlp(h, lp, cfg, comm)
-            else:
-                x = x + a_out
-                h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
-                if cfg.family == "moe":
-                    mo = moe_block(h2[None], lp, cfg, comm)[0][0]
-                    if cfg.shared_expert_ff:
-                        mo = mo + _decode_mlp(h2, lp, cfg, comm,
-                                              prefix="shared_")
-                    x = x + mo
-                else:
-                    x = x + _decode_mlp(h2, lp, cfg, comm)
-        x = apply_norm(final_kind, x, params["final_norm"])
-        head = comm.weight(params.get("lm_head", params["emb"]),
-                           fsdp_axis=1)
-        logits = lm_head_logits(x, head, comm, real_vocab=cfg.vocab)
-        return greedy_sample(logits, comm), dataclasses.replace(
-            cache, length=pos + 1)
-
-    return serve_step
-
-
-# ---------------------------------------------------------------------------
-# serve_step on a mesh (tp > 1, dp > 1, joint_kv, tp2d)
-# ---------------------------------------------------------------------------
-
 def _wmul(x, w, *, fsdp_axis: int, comm: Comm, tp2d: bool) -> torch.Tensor:
     """``x @ w`` with w's FSDP dim either gathered (classic) or stationary.
 
@@ -317,7 +169,7 @@ def _row_parallel_out(x_loc, w, *, comm: Comm, tp2d: bool,
 
 def _kv_axes(comm: Comm, *, joint: bool) -> tuple:
     """The axes the KV sequence dim is sharded over (model [+ data for
-    B == 1]), outermost first."""
+    B == 1]), outermost first; none with one rank."""
     axes = _axes(comm.model_axis)
     if joint:
         axes = _axes(comm.data_axis) + axes
@@ -353,14 +205,19 @@ def _batch_rows(comm: Comm, b_full: int):
     return None
 
 
-def _mesh_attn_layer(x, lp, cfg: ModelConfig, comm: Comm, plan: TPPlan,
-                     k_cache, v_cache, pos: int, window: int, *,
-                     joint_kv: bool, tp2d: bool, defer_out: bool = False):
-    """One attention layer for a single token on a mesh.  x (b, d)
-    replicated over model; k/v_cache (S_loc, b_loc, nkv, dh), the local
-    sequence shard, written in place at ``pos`` by its owner."""
+def _rows(t, rows):
+    return t if rows is None else t[rows[0]:rows[0] + rows[1]]
+
+
+def _decode_attn_layer(x, lp, cfg: ModelConfig, comm: Comm, plan: TPPlan,
+                       k_cache, v_cache, pos: int, window: int, *,
+                       joint_kv: bool, tp2d: bool, defer_out: bool = False):
+    """One attention layer for a single token.  x (b, d) replicated over
+    model; k/v_cache (S_loc, b_loc, nkv, dh), the local sequence shard,
+    written in place at ``pos`` by its owner.  Returns (b, d)."""
     dh = cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    # local projections, then tiny gathers to full heads
     q = _wmul(x, lp["wq"], fsdp_axis=0, comm=comm, tp2d=tp2d)
     if plan.shard_heads:
         q = comm.ag_seq(q.T, axis=0).T             # (b, nq*dh)
@@ -380,15 +237,13 @@ def _mesh_attn_layer(x, lp, cfg: ModelConfig, comm: Comm, plan: TPPlan,
     # (seq/model, batch/data) cache and the rows rejoin before the
     # out-projection
     rows = _batch_rows(comm, x.shape[0]) if tp2d and not joint_kv else None
-    if rows is not None:
-        q = q[rows[0]:rows[0] + rows[1]]
-        k_new = k_new[rows[0]:rows[0] + rows[1]]
-        v_new = v_new[rows[0]:rows[0] + rows[1]]
+    q, k_new, v_new = (_rows(t, rows) for t in (q, k_new, v_new))
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q[None], posv, cfg.rope_theta)[0]
     k_new = apply_rope(k_new[None], posv, cfg.rope_theta)[0]
 
-    # the cache write on the owning sequence shard
+    # the cache write on the owning sequence shard (past the end of the
+    # cache the reference drops it)
     axes = _kv_axes(comm, joint=joint_kv and rows is None)
     shard_len = k_cache.shape[0]
     my_start = _axes_index(axes) * shard_len
@@ -399,6 +254,7 @@ def _mesh_attn_layer(x, lp, cfg: ModelConfig, comm: Comm, plan: TPPlan,
     num, m, l = decode_attention(q, k_cache, v_cache, valid_len=pos + 1,
                                  kv_offset=my_start, window=window,
                                  q_pos=pos)
+    # flash-decode partials combined over the KV-sharding axes
     m_g = _pmax_axes(m, axes)
     corr = torch.exp(m - m_g)
     l_g = _psum_axes(l * corr, axes)
@@ -417,49 +273,43 @@ def _mesh_attn_layer(x, lp, cfg: ModelConfig, comm: Comm, plan: TPPlan,
                              shard_model=plan.shard_heads)
 
 
-def _mesh_mlp(x, lp, cfg: ModelConfig, comm: Comm, prefix: str = "",
-              tp2d: bool = False, defer_out: bool = False) -> torch.Tensor:
-    def w(name):
-        return lp[prefix + name]
+def _decode_mlp(x, lp, cfg: ModelConfig, comm: Comm, prefix: str = "",
+                tp2d: bool = False, defer_out: bool = False) -> torch.Tensor:
+    def wmul(name):
+        return _wmul(x, lp[prefix + name], fsdp_axis=0, comm=comm,
+                     tp2d=tp2d)
 
     if cfg.mlp in ("swiglu", "geglu"):
-        h = torch.cat([_wmul(x, w("w_gate"), fsdp_axis=0, comm=comm,
-                             tp2d=tp2d),
-                       _wmul(x, w("w_up"), fsdp_axis=0, comm=comm,
-                             tp2d=tp2d)], dim=-1)
+        h = gated_activation(cfg.mlp, wmul("w_gate"), wmul("w_up"))
     else:
-        h = _wmul(x, w("w_in"), fsdp_axis=0, comm=comm, tp2d=tp2d)
-    h = mlp_activation(cfg.mlp, h)
+        h = mlp_activation(cfg.mlp, wmul("w_in"))
     if defer_out:
-        return torch.matmul(h, w("w_out"))
-    return _row_parallel_out(h, w("w_out"), comm=comm, tp2d=tp2d,
+        return torch.matmul(h, lp[prefix + "w_out"])
+    return _row_parallel_out(h, lp[prefix + "w_out"], comm=comm, tp2d=tp2d,
                              shard_model=True)
 
 
-def _mesh_ssm(x, lp, cfg: ModelConfig, comm: Comm, plan: TPPlan, state,
-              conv_tail, prefix: str = "ssm_", tp2d: bool = False):
-    """The SSM mixer for one token on a mesh.  x (b, d); state (b_loc,
-    H_loc, N, P) and conv_tail (K-1, b_loc, di_loc), the local shards,
-    updated in place."""
+def _decode_ssm(x, lp, cfg: ModelConfig, comm: Comm, plan: TPPlan, state,
+                conv_tail, prefix: str = "ssm_", tp2d: bool = False):
+    """The SSM mixer for one token.  x (b, d); state (b_loc, H_loc, N, P)
+    and conv_tail (K-1, b_loc, di_loc), the local shards, updated in
+    place.  Returns (b, d)."""
     def w(name):
         return lp[prefix + name]
 
-    di, h = cfg.ssm_d_inner, cfg.ssm_heads
+    def wmul(name):
+        return _wmul(x, w(name), fsdp_axis=0, comm=comm, tp2d=tp2d)
+
     tp = comm.tp if plan.shard_ssm_heads else 1
-    di_l, h_l = di // tp, h // tp
+    h_l = cfg.ssm_heads // tp
     g, n = cfg.ssm_groups, cfg.ssm_state
-    zxdt = torch.cat([_wmul(x, w(k), fsdp_axis=0, comm=comm, tp2d=tp2d)
-                      for k in ("w_z", "w_x", "w_dt")], dim=-1)
-    bc = _wmul(x, w("w_bc"), fsdp_axis=0, comm=comm, tp2d=tp2d)
     # tp2d: the recurrent state and conv caches are batch-sharded over
     # data: this rank's batch rows for the recurrence, rejoined after
     rows = _batch_rows(comm, x.shape[0]) if tp2d else None
-    if rows is not None:
-        zxdt = zxdt[rows[0]:rows[0] + rows[1]]
-        bc = bc[rows[0]:rows[0] + rows[1]]
-    z, xs, dt_raw = torch.split(zxdt, [di_l, di_l, zxdt.shape[-1] - 2 * di_l],
-                                dim=-1)
+    z, xs, dt_raw, bc = (_rows(wmul(k), rows)
+                         for k in ("w_z", "w_x", "w_dt", "w_bc"))
     b_t, c_t = torch.chunk(bc, 2, dim=-1)
+    # causal conv: roll the tail window
     window = torch.cat([conv_tail, xs[None]], dim=0)    # (K, b, di_l)
     xs_c = torch.einsum("kbc,kc->bc", window.float(),
                         w("conv_w").float()).to(x.dtype)
@@ -470,29 +320,43 @@ def _mesh_ssm(x, lp, cfg: ModelConfig, comm: Comm, plan: TPPlan, state,
         state, xs_c.reshape(-1, h_l, cfg.ssm_headdim), dt, w("a_log"),
         b_t.reshape(-1, g, n), c_t.reshape(-1, g, n), w("d_skip"))
     state.copy_(h_new)
-    y = y.reshape(-1, di_l)
+    y = y.reshape(-1, cfg.ssm_d_inner // tp)
     y = y * F.silu(z.float()).to(y.dtype)
-    yf = y.float()
-    ssq = (yf * yf).sum(dim=-1, keepdim=True)
-    denom = di_l
-    if plan.shard_ssm_heads:
-        ssq = comm.psum_model(ssq)
-        denom = di
-    yf = yf * torch.rsqrt(ssq / denom + 1e-6)
-    y = (yf * w("norm_w").float()).to(x.dtype)
+    if tp == 1:
+        y = rms_norm(y, w("norm_w"))             # the RMSNorm kernel
+    else:
+        # the gated norm over the WHOLE d_inner: the sum of squares is
+        # psum'd over the model axis
+        yf = y.float()
+        ssq = comm.psum_model((yf * yf).sum(dim=-1, keepdim=True))
+        yf = yf * torch.rsqrt(ssq / cfg.ssm_d_inner + 1e-6)
+        y = (yf * w("norm_w").float()).to(x.dtype)
     if rows is not None:
         y = comm.ag_data(y, axis=0)              # rejoin rows pre-out-proj
     return _row_parallel_out(y, w("w_out"), comm=comm, tp2d=tp2d,
                              shard_model=plan.shard_ssm_heads)
 
 
-def _serve_step_mesh(cfg: ModelConfig, comm: Comm, plan: TPPlan, *,
-                     joint_kv: bool, tp2d: bool):
-    """The reference's serve step on a mesh, run by each rank on its
-    shards (``spmd_map``): tokens (b,) as the reference's specs hand them
-    to the rank (batch over data in the classic layout, replicated under
-    tp2d and for B == 1); returns the next tokens and the cache (its
-    local shards updated in place) with ``length + 1``."""
+# ---------------------------------------------------------------------------
+# serve_step
+# ---------------------------------------------------------------------------
+
+def make_serve_step(cfg: ModelConfig, comm: Optional[Comm] = None, *,
+                    joint_kv: bool = False, tp2d: bool = False):
+    """Build ``serve_step(params, cache, tokens) -> (next_tokens, cache')``.
+
+    Each rank runs it on its shards (``spmd_map``; with one rank, on the
+    whole model).  tokens: (b,) ints (a tensor or numpy) — the tokens
+    decoded at position ``cache.length``, as the reference's specs hand
+    them to the rank (batch over data in the classic layout, replicated
+    under tp2d and for B == 1); returns the greedily sampled next tokens,
+    (b,) int32 on the model's device, and the cache with ``length + 1``
+    (its local K/V, SSM-state and conv-tail tensors updated in place).
+    ``joint_kv``: the KV sequence dim is sharded over data AND model (B
+    == 1 long-context shapes); ``tp2d``: 2D-TP serving."""
+    lm_mod.require_ported(cfg, "make_serve_step")
+    comm = comm or local_comm()
+    plan = tp_plan(cfg, comm.tp)
     final_kind = lm_mod.final_norm_kind(cfg)
     scale = cfg.name.startswith("gemma")
 
@@ -512,32 +376,32 @@ def _serve_step_mesh(cfg: ModelConfig, comm: Comm, plan: TPPlan, *,
             lp = lm_mod.layer_params(params, idx)
             h = apply_norm(cfg.norm, x, lp.get("norm1"))
             if cfg.family == "ssm":
-                x = x + _mesh_ssm(h, lp, cfg, comm, plan,
-                                  cache.ssm_state[idx],
-                                  cache.conv_tail[idx], tp2d=tp2d)
+                x = x + _decode_ssm(h, lp, cfg, comm, plan,
+                                    cache.ssm_state[idx],
+                                    cache.conv_tail[idx], tp2d=tp2d)
                 continue
             window = layer_window(cfg, idx) if cfg.sliding_window else 0
             parallel_2d = tp2d and cfg.parallel_block
-            a_out = _mesh_attn_layer(h, lp, cfg, comm, plan, cache.k[idx],
-                                     cache.v[idx], pos, window,
-                                     joint_kv=joint_kv, tp2d=tp2d,
-                                     defer_out=parallel_2d)
+            a_out = _decode_attn_layer(h, lp, cfg, comm, plan, cache.k[idx],
+                                       cache.v[idx], pos, window,
+                                       joint_kv=joint_kv, tp2d=tp2d,
+                                       defer_out=parallel_2d)
             if cfg.family == "hybrid":
-                s_out = _mesh_ssm(h, lp, cfg, comm, plan,
-                                  cache.ssm_state[idx],
-                                  cache.conv_tail[idx], tp2d=tp2d)
+                s_out = _decode_ssm(h, lp, cfg, comm, plan,
+                                    cache.ssm_state[idx],
+                                    cache.conv_tail[idx], tp2d=tp2d)
                 x = x + 0.5 * (rms_norm(a_out, lp["mix_norm_a"])
                                + rms_norm(s_out, lp["mix_norm_s"]))
                 h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
-                x = x + _mesh_mlp(h2, lp, cfg, comm, tp2d=tp2d)
+                x = x + _decode_mlp(h2, lp, cfg, comm, tp2d=tp2d)
             elif parallel_2d:
                 # attention and MLP write the same residual: one psum over
                 # model and one column gather for both partials
-                pm = _mesh_mlp(h, lp, cfg, comm, tp2d=True, defer_out=True)
+                pm = _decode_mlp(h, lp, cfg, comm, tp2d=True, defer_out=True)
                 combined = comm.psum_model(a_out + pm)
                 x = x + comm.ag_data(combined, axis=combined.ndim - 1)
             elif cfg.parallel_block:
-                x = x + a_out + _mesh_mlp(h, lp, cfg, comm)
+                x = x + a_out + _decode_mlp(h, lp, cfg, comm)
             else:
                 x = x + a_out
                 h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
@@ -546,11 +410,11 @@ def _serve_step_mesh(cfg: ModelConfig, comm: Comm, plan: TPPlan, *,
                     # a2a); the shared MLP rides tp2d
                     mo = moe_block(h2[None], lp, cfg, comm)[0][0]
                     if cfg.shared_expert_ff:
-                        mo = mo + _mesh_mlp(h2, lp, cfg, comm,
-                                            prefix="shared_", tp2d=tp2d)
+                        mo = mo + _decode_mlp(h2, lp, cfg, comm,
+                                              prefix="shared_", tp2d=tp2d)
                     x = x + mo
                 else:
-                    x = x + _mesh_mlp(h2, lp, cfg, comm, tp2d=tp2d)
+                    x = x + _decode_mlp(h2, lp, cfg, comm, tp2d=tp2d)
         x = apply_norm(final_kind, x, params["final_norm"])
         head = params.get("lm_head", params["emb"])
         if tp2d:

@@ -231,3 +231,39 @@ def test_kernel_library_is_stale_when_a_header_is_newer(tmp_path,
     assert not _build._stale("flash_attention")
     os.utime(src, (500, 500))
     assert _build._stale("flash_attention")
+
+
+def test_kernel_launches_are_counted_by_thread():
+    """Every kernel wrapper counts its launches where it launches, in
+    total and by the launching thread's name (``spmd_map``'s rank threads
+    are ``spmd-rank<r>``)."""
+    from repro_torch.kernels import count_launch
+    from repro_torch.kernels.doorbell import (stage_copy, stage_copy_push,
+                                              stage_copy_rows)
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
+    for fn in (stage_copy, stage_copy_rows, stage_copy_push,
+               flash_attention_bhsd, moe_gmm, rmsnorm, ssd_scan_bhsp):
+        assert isinstance(fn.launches, int), fn
+        assert isinstance(fn.launches_by_thread, dict), fn
+
+    def fn():
+        pass
+    fn.launches, fn.launches_by_thread = 0, {}
+
+    def rank(n):
+        for _ in range(n):
+            count_launch(fn)
+    threads = [threading.Thread(target=rank, args=(r + 1,),
+                                name=f"spmd-rank{r}") for r in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    count_launch(fn, 4)
+    assert fn.launches == 1 + 2 + 3 + 4
+    assert fn.launches_by_thread == {
+        "spmd-rank0": 1, "spmd-rank1": 2, "spmd-rank2": 3,
+        threading.current_thread().name: 4}

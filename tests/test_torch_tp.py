@@ -383,3 +383,33 @@ def test_params_from_numpy_cuts_each_ranks_shard(tp_data, mesh):
         assert torch.equal(got["emb"], shard(full["emb"],
                                              specs["emb"].pspec(), mesh,
                                              rank))
+
+
+def test_unbound_devices_default_to_the_card(tmp_path):
+    """A Comm with no axis bound puts its barrier token on the card unless
+    asked for another device, and ``DistAxis`` / ``dist_axes`` bind the
+    card unless given ``device="cpu"``: without a card they raise."""
+    import torch.distributed as dist
+    from repro_torch.core.axis import DistAxis
+    from repro_torch.core.status import FatalError
+    from repro_torch.distributed import dist_axes, local_comm
+    tok = local_comm().barrier(device="cpu")
+    assert tok.device.type == "cpu" and int(tok) == 1
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 's'}",
+                            world_size=1, rank=0)
+    try:
+        assert DistAxis([0], device="cpu").device == torch.device("cpu")
+        assert dist_axes((1,), ("x",), device="cpu")["x"].device.type == \
+            "cpu"
+        if torch.cuda.is_available():
+            assert local_comm().barrier().is_cuda
+            assert DistAxis([0]).device.type == "cuda"
+        else:
+            with pytest.raises(FatalError):
+                local_comm().barrier()
+            with pytest.raises(FatalError):
+                DistAxis([0])
+            with pytest.raises(FatalError):
+                dist_axes((1,), ("x",))
+    finally:
+        dist.destroy_process_group()
