@@ -3,8 +3,9 @@
 message path (over the sim, shm and socket transports, under chaos and
 across two processes), gemma3-1b serving, olmoe-1b-7b (MoE) serving,
 mamba2-370m (SSM) serving and hymba-1.5b (hybrid) serving at full width,
-serving on the comm core (the reference's serve traffic), and the
-in-graph collectives with tensor-parallel serving on rank threads.
+serving on the comm core (the reference's serve traffic), the in-graph
+collectives with tensor-parallel serving on rank threads, and the
+recovery path (checkpoints, resharded restore, the 1F1B comm graph).
 
     python3 chip_smoke.py            # from the repository root; one card
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown
@@ -138,8 +139,10 @@ The phases:
    AMs and then sends into its pre-posted CUDA recv buffers, checks every
    byte it receives and reports its counts; then the launcher's
    chaos-kill demo with a 5 s heartbeat timeout, whose survivor must
-   drain every outstanding post as ERR_PEER_DEAD and exit 0.  Every child
-   runs under a wall-clock limit;
+   drain every outstanding post as ERR_PEER_DEAD, shrink the mesh to
+   (1, 1), restore rank 0's step-0 checkpoint resharded onto it with
+   every leaf on the card (``restored_step=0``, ``ok_restore=True``) and
+   exit 0 (phase 18c).  Every child runs under a wall-clock limit;
 16. serving on the comm core (``ServePlane``, ``ContinuousBatcher``,
    ``TokenClient``, ``SyntheticModel`` on the card): first the doorbell
    gather byte for byte against its plain version at the path's rows
@@ -189,10 +192,30 @@ The phases:
    (2 x 2) mesh (:func:`tp2d_phase`).  Every kernel call of a-d is kept
    by signature (:class:`_PathCalls`), and after the counts are read each
    kernel is held against its plain version at every one
-   (:func:`path_kernel_checks`: B4 and B1 on the path's own operands).
+   (:func:`path_kernel_checks`: B4 and B1 on the path's own operands);
+18. the recovery path: a) gemma3-1b's bf16 params at full width through
+   the checkpoint store (:func:`recovery_checkpoint_phase`): the
+   reference tokens from a 4 x 2048 prefill of ``SyntheticPipeline``'s
+   batch of step 3; ``save_sync``, then ``save_async`` while 8 launcher
+   decode steps run, beside 8 with no commit; ``restore`` bitwise, the
+   batch of ``manifest["meta"]["next_step"]`` replayed to a bitwise equal
+   last hidden state and equal tokens; ``restore_resharded`` onto a
+   (1, 2) mesh, each rank's leaves bitwise its shards, and its tp = 2
+   prefill against tp = 1 under 17b's gate (26 B2 and 105 B3 launches a
+   rank thread); the snapshot, write-and-hash, commit and restore seconds
+   and GB/s, decode ms a step with and without a commit in flight;
+   b) ``build_1f1b_comm_graph`` on ``LocalCluster(4, device="cuda")``, 8
+   microbatches, payloads of 32 B and 1 179 648 B
+   (:func:`pipeline_comm_phase`): landing buffers equal to the marker
+   chain, the partial order, ``schedule_1f1b``'s critical path
+   2 (S - 1) + 2 M and each of its edges held by the comm graph's compute
+   nodes, no payload byte through the host; wall ms a graph, messages by
+   protocol; c) phase 15's chaos-kill demo and its resharded restore.
+   Every kernel call of a-b is kept by signature and held against its
+   plain version after the counts are read.
 
 The launch counts are set to 0 just before phases 4, 7, 10, 13, 14, 15,
-16 (after its kernel check), 17a and 17b and read just after; the serving phases
+16 (after its kernel check), 17a, 17b and 18 and read just after; the serving phases
 also record B3's launches by (rows, d) a prefill call and a decode
 step.  Every phase raises on failure;
 nothing is caught.  Each phase
@@ -1041,7 +1064,9 @@ def spmd_rank(outdir) -> int:
 def chaos_kill_case():
     """The launcher's chaos-kill demo on the card: rank 1 is SIGKILLed
     mid-stream; the survivor must detect it, drain every outstanding post
-    as ERR_PEER_DEAD and exit 0 (the launcher's own exit code)."""
+    as ERR_PEER_DEAD, shrink the mesh to (1, 1), restore rank 0's step-0
+    checkpoint resharded onto it with every leaf on the card, and exit 0
+    (the launcher's own exit code)."""
     t0 = time.perf_counter()
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.spmd", "--ranks", "2",
@@ -1053,12 +1078,17 @@ def chaos_kill_case():
     text = r.stdout + r.stderr
     lines = [ln for ln in text.splitlines() if "spmd-chaos rank 0: drained"
              in ln]
+    restored = [ln for ln in text.splitlines()
+                if "spmd-chaos rank 0: recovered in " in ln]
     if r.returncode != 0 or not lines or "other=0 hung=0" not in lines[0] \
-            or "peer_dead=0 " in lines[0]:
+            or "peer_dead=0 " in lines[0] or not restored or (
+                "new_mesh=(1, 1) restored_step=0 on cuda" not in restored[0]
+                or "ok_restore=True" not in restored[0]):
         raise AssertionError(f"the chaos-kill demo failed ({r.returncode}):"
                              f"\n{text}")
     return {"backend": "shm", "hb_timeout_s": HB_TIMEOUT,
-            "seconds": time.perf_counter() - t0, "survivor": lines[0]}
+            "seconds": time.perf_counter() - t0, "survivor": lines[0],
+            "recovery": restored[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -3347,62 +3377,78 @@ def tp_gemma_phase(torch):
                                      config=CommConfig(mode=mode))(params,
                                                                    tokens)
             calls = PREFILL_CALLS + 1
-            by = [{t: n - b0.get(t, 0) for t, n in f.launches_by_thread.items()
-                   if n != b0.get(t, 0)}
-                  for f, b0 in zip((flash_attention_bhsd, rmsnorm), before)]
-            per_rank = {t: {"flash": by[0].get(t, 0) / calls,
-                            "rms": by[1].get(t, 0) / calls}
-                        for t in ("spmd-rank0", "spmd-rank1")}
+            per_rank = _rank_launches(f"17b prefill {mode.value}", cfg,
+                                      before, calls)
             tc = flash_attention_bhsd.launches_by_variant["tc"] - tc0
-            want = {"flash": cfg.n_layers, "rms": 4 * cfg.n_layers + 1}
-            elsewhere = sorted((set(by[0]) | set(by[1])) - set(per_rank))
-            if any(v != want for v in per_rank.values()) or elsewhere:
-                raise AssertionError(f"17b prefill {mode.value}: launches "
-                                     f"per rank and call {per_rank} (want "
-                                     f"{want}), launches on threads "
-                                     f"{elsewhere} too")
             if tc != 2 * cfg.n_layers * calls:
                 raise AssertionError(f"17b prefill {mode.value}: {tc} "
                                      "tensor-core flash launches (want "
                                      f"{2 * cfg.n_layers * calls})")
-            # the last position's hidden state against tp = 1: no further
-            # from the float32 result than twice tp = 1's bf16 distance
-            e2 = _rel_err(last, last32)
-            d21 = _rel_err(last, last1)
-            if not torch.isfinite(last.float()).all() or not e2 <= 2 * e1:
-                raise AssertionError(f"17b prefill {mode.value}: hidden "
-                                     f"state {e2} from float32 (tp = 1: "
-                                     f"{e1}; limit {2 * e1})")
-            # the tokens: the greedy tokens of tp = 2's own hidden state
-            # (the vocab-parallel argmax), and tp = 1's wherever the two
-            # runs' logits separate tp = 1's top two
-            if tok.shape != (b,) or not ((tok >= 0) &
-                                         (tok < cfg.vocab)).all():
-                raise AssertionError(f"17b prefill {mode.value}: tokens "
-                                     f"{tok.tolist()} out of range")
-            lg1 = torch.matmul(last1.float(), head.T)[:, :cfg.vocab]
-            lg2 = torch.matmul(last.float(), head.T)[:, :cfg.vocab]
-            spread = float((lg2 - lg1).abs().max())
-            rows = torch.arange(b, device=DEVICE)
-            own = lg2[rows, tok.long()] >= lg2.max(-1).values - 1e-4 * \
-                lg2.abs().max(-1).values
-            near = lg1[rows, tok.long()] >= lg1[rows, tok1.long()] - \
-                2 * spread
-            if not own.all() or not near.all():
-                raise AssertionError(f"17b prefill {mode.value}: tokens "
-                                     f"{tok.tolist()} (tp = 1: "
-                                     f"{tok1.tolist()}; logits spread "
-                                     f"{spread})")
+            agree = _tp_prefill_gate(torch, f"17b prefill {mode.value}",
+                                     cfg, head, tok, last, tok1, last1,
+                                     last32, e1)
             prefill_rec[mode.value] = {
                 "ms": float(ms.max()), "launches_per_rank_call": per_rank,
-                "flash_tc_launches": tc, "tokens": tok.tolist(),
-                "tokens_equal_tp1": int((tok == tok1).sum()),
-                "rel_err_vs_float32": e2, "rel_err_vs_tp1": d21,
-                "logits_max_abs_diff_vs_tp1": spread}
+                "flash_tc_launches": tc, **agree}
         out["prefill"] = prefill_rec
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def _rank_launches(label, cfg, before, calls) -> dict:
+    """B2's and B3's launches a rank thread and prefill call since
+    ``before`` (their ``launches_by_thread``): raises unless each of the
+    two rank threads launched ``cfg.n_layers`` B2 and ``4 n_layers + 1``
+    B3 kernels a call, and no other thread launched any."""
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    by = [{t: n - b0.get(t, 0) for t, n in f.launches_by_thread.items()
+           if n != b0.get(t, 0)}
+          for f, b0 in zip((flash_attention_bhsd, rmsnorm), before)]
+    per_rank = {t: {"flash": by[0].get(t, 0) / calls,
+                    "rms": by[1].get(t, 0) / calls}
+                for t in ("spmd-rank0", "spmd-rank1")}
+    want = {"flash": cfg.n_layers, "rms": 4 * cfg.n_layers + 1}
+    elsewhere = sorted((set(by[0]) | set(by[1])) - set(per_rank))
+    if any(v != want for v in per_rank.values()) or elsewhere:
+        raise AssertionError(f"{label}: launches per rank and call "
+                             f"{per_rank} (want {want}), launches on "
+                             f"threads {elsewhere} too")
+    return per_rank
+
+
+def _tp_prefill_gate(torch, label, cfg, head, tok, last, tok1, last1,
+                     last32, e1) -> dict:
+    """A tp > 1 bf16 prefill (``tok``, ``last``) against tp = 1's
+    (``tok1``, ``last1``) on the same weights: its last hidden state no
+    further from the float32 tp = 1 result ``last32`` than twice tp = 1's
+    bf16 distance ``e1``, norm-wise; its tokens the argmax of its own
+    logits, and tp = 1's wherever tp = 1's logit of them is more than
+    twice the two runs' largest logit difference below tp = 1's top
+    one.  Raises on a miss; returns the numbers."""
+    b = tok1.shape[0]
+    e2 = _rel_err(last, last32)
+    d21 = _rel_err(last, last1)
+    if not torch.isfinite(last.float()).all() or not e2 <= 2 * e1:
+        raise AssertionError(f"{label}: hidden state {e2} from float32 "
+                             f"(tp = 1: {e1}; limit {2 * e1})")
+    if tok.shape != (b,) or not ((tok >= 0) & (tok < cfg.vocab)).all():
+        raise AssertionError(f"{label}: tokens {tok.tolist()} out of range")
+    lg1 = torch.matmul(last1.float(), head.T)[:, :cfg.vocab]
+    lg2 = torch.matmul(last.float(), head.T)[:, :cfg.vocab]
+    spread = float((lg2 - lg1).abs().max())
+    rows = torch.arange(b, device=DEVICE)
+    own = lg2[rows, tok.long()] >= lg2.max(-1).values - 1e-4 * \
+        lg2.abs().max(-1).values
+    near = lg1[rows, tok.long()] >= lg1[rows, tok1.long()] - 2 * spread
+    if not own.all() or not near.all():
+        raise AssertionError(f"{label}: tokens {tok.tolist()} (tp = 1: "
+                             f"{tok1.tolist()}; logits spread {spread})")
+    return {"tokens": tok.tolist(),
+            "tokens_equal_tp1": int((tok == tok1).sum()),
+            "rel_err_vs_float32": e2, "rel_err_vs_tp1": d21,
+            "logits_max_abs_diff_vs_tp1": spread}
 
 
 def _float_tree(tree):
@@ -3559,6 +3605,354 @@ def tp2d_phase(torch):
                                          f"agreement {agree}")
             rec.update(batch=batch, joint_kv=batch == 1)
             out[name] = rec
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the recovery path
+# ---------------------------------------------------------------------------
+
+#: 18a: the replayed batch (SyntheticPipeline seq_len, global_batch), its
+#: step, and the launcher decode steps run with and without a commit in
+#: flight
+RECOVERY_BATCH = (2048, 4)
+RECOVERY_STEP = 3
+RECOVERY_DECODE = 8
+#: 18b: stages (cluster ranks), microbatches, graphs timed a payload, and
+#: the payloads: the reference's default, and one microbatch of 512
+#: tokens x d 1152 in bf16
+PP_STAGES, PP_MICRO, PP_REPS = 4, 8, 3
+PP_PAYLOADS = (32, 512 * 1152 * 2)
+
+
+class _StoreTimes:
+    """While installed, the seconds ``checkpoint/store.py`` spends in its
+    snapshot (every leaf copied to the host) and in its leaf writes
+    (``np.save``, fsync and SHA-256 a leaf), wherever they run."""
+
+    def __enter__(self):
+        from repro_torch.checkpoint import store
+        self.store = store
+        self.real = (store._snapshot, store._write_leaf)
+        self.snapshot_s = self.write_s = 0.0
+
+        def snapshot(tree):
+            t0 = time.perf_counter()
+            out = self.real[0](tree)
+            self.snapshot_s += time.perf_counter() - t0
+            return out
+
+        def write(*args):
+            t0 = time.perf_counter()
+            out = self.real[1](*args)
+            self.write_s += time.perf_counter() - t0
+            return out
+        store._snapshot, store._write_leaf = snapshot, write
+        return self
+
+    def __exit__(self, *exc):
+        self.store._snapshot, self.store._write_leaf = self.real
+
+
+def _pairs(tree, other, path=()):
+    """(name, leaf, other's leaf) over two trees of one structure."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _pairs(tree[k], other[k], path + (k,))
+    else:
+        yield "/".join(path), tree, other
+
+
+def _bits(t):
+    """``t``'s bytes as a flat uint8 tensor: equal bits, equal bytes."""
+    import torch
+    return t.detach().reshape(-1).contiguous().view(torch.uint8)
+
+
+def _meta_tree(tree):
+    """``tree`` as tensors on the ``meta`` device: its shapes and
+    dtypes, no data."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: _meta_tree(v) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+
+def recovery_checkpoint_phase(torch):
+    """18a: gemma3-1b's bf16 params at full width from seed 0 (with
+    ``tp_target`` 2, as phase 17b, so that its 4 heads shard at tp = 2)
+    through the checkpoint store and back.  A 4 x 2048 prefill of
+    ``SyntheticPipeline(...).get_batch(3)`` gives the reference tokens and
+    hidden state; ``save_sync`` (meta ``next_step`` 3), then ``save_async``
+    of the same step while 8 launcher decode steps run, beside the same 8
+    steps with no commit; ``restore``: every leaf bitwise the saved one,
+    the batch of ``manifest["meta"]["next_step"]`` bitwise the reference
+    batch, and its prefill's last hidden state and tokens bitwise the
+    reference's; ``restore_resharded`` onto a (1, 2) mesh: each rank's
+    leaves bitwise ``shard(full, pspec, mesh, rank)``, and the tp = 2
+    prefill on those trees against tp = 1 under phase 17b's gate with 26
+    B2 and 105 B3 launches on each rank thread.  Times: the snapshot
+    (device -> host), the leaf writes (``np.save`` + fsync + SHA-256),
+    the rest of the commit, the restore, each in GB/s of the params'
+    bytes, and decode ms a step with and without a commit in flight.  The
+    checkpoint directory is deleted at the end."""
+    import dataclasses
+    import shutil
+    from repro_torch.checkpoint import (restore, restore_resharded,
+                                        save_async, save_sync)
+    from repro_torch.configs import get_config
+    from repro_torch.core.modes import CommConfig, CommMode
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.distributed import Mesh, P, shard, spmd_map
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import (init_cache, make_prefill_step,
+                                     make_serve_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("gemma3-1b"), tp_target=2)
+    params, specs = build_model(cfg, device=DEVICE).init(SEED)
+    pspecs = _tp_specs(specs)
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    s, b = RECOVERY_BATCH
+    pipe = SyntheticPipeline(vocab=cfg.vocab, seq_len=s, global_batch=b)
+    tokens = pipe.get_batch(RECOVERY_STEP, DEVICE)["tokens"]
+    prefill = make_prefill_step(cfg)
+    tok1, last1 = prefill(params, {"tokens": tokens})
+    ckpt = os.path.join(ROOT, "build", "phase18_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    meta = {"next_step": RECOVERY_STEP}
+    gb = nbytes / 1e9
+    out = {"config": cfg.name, "dtype": "bfloat16", "layers": cfg.n_layers,
+           "leaves": len(list(_leaves(params))), "param_bytes": nbytes}
+    try:
+        # save_sync, its time split by stage
+        with _StoreTimes() as st:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save_sync(ckpt, RECOVERY_STEP - 1, params, meta=meta)
+            total = time.perf_counter() - t0
+        out["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        rest = total - st.snapshot_s - st.write_s
+        out["save_sync"] = {
+            "seconds": total, "gb_per_s": gb / total,
+            "snapshot_s": st.snapshot_s, "snapshot_gb_per_s":
+                gb / st.snapshot_s,
+            "write_hash_s": st.write_s, "write_hash_gb_per_s":
+                gb / st.write_s,
+            "commit_rest_s": rest}
+
+        # the launcher's decode step, 8 steps with no commit, then 8 while
+        # save_async's writer thread commits the same step again
+        step = make_serve_step(cfg)
+        batch = SERVE_ARGS["max_batch"]
+        dec = SyntheticPipeline(vocab=cfg.vocab, seq_len=RECOVERY_DECODE,
+                                global_batch=batch, seed=1).get_batch(0, DEVICE)[
+            "tokens"]
+        cache = init_cache(cfg, SERVE_ARGS["cache_len"], batch,
+                           device=DEVICE)
+
+        def decode(cache):
+            times = []
+            for i in range(RECOVERY_DECODE):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _, cache = step(params, cache, dec[i])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            return cache, times
+        cache, _ = decode(cache)                       # warm
+        cache, quiet = decode(cache)
+        with _StoreTimes() as st:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sync = save_async(ckpt, RECOVERY_STEP - 1, params, meta=meta)
+            returned = time.perf_counter() - t0
+            cache, busy = decode(cache)
+            in_flight = not sync.ready
+            sync.wait()
+            total = time.perf_counter() - t0
+        del cache
+        q, w = statistics.median(quiet) * 1e3, statistics.median(busy) * 1e3
+        out["save_async"] = {
+            "seconds_to_return": returned, "seconds_to_commit": total,
+            "snapshot_s": st.snapshot_s, "write_hash_s": st.write_s,
+            "commit_in_flight_after_the_steps": in_flight}
+        out["decode"] = {"batch": batch, "steps": RECOVERY_DECODE,
+                         "ms_per_step_no_commit": q,
+                         "ms_per_step_commit_in_flight": w,
+                         "ratio": w / q,
+                         "ms_each_no_commit": [t * 1e3 for t in quiet],
+                         "ms_each_commit_in_flight": [t * 1e3 for t in busy]}
+        if not in_flight:
+            raise AssertionError("18a: the async commit landed before the 8 "
+                                 "decode steps ended; no step ran beside it")
+
+        # restore: every leaf bitwise, and the replayed batch's prefill
+        like = _meta_tree(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, manifest = restore(ckpt, like, device=DEVICE)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        out["restore"] = {"seconds": took, "gb_per_s": gb / took}
+        bad = [n for n, a, r in _pairs(params, restored)
+               if a.dtype != r.dtype or not torch.equal(_bits(a), _bits(r))]
+        if bad or any(t.device.type != torch.device(DEVICE).type
+                      for t in _leaves(restored)):
+            raise AssertionError(f"18a: restored leaves {bad[:5]} differ "
+                                 "from the saved ones, or a leaf is off the "
+                                 "card")
+        nxt = manifest["meta"]["next_step"]
+        replay = pipe.get_batch(nxt, DEVICE)["tokens"]
+        tok_r, last_r = prefill(restored, {"tokens": replay})
+        if not torch.equal(replay, tokens) or \
+                not torch.equal(_bits(last_r), _bits(last1)) or \
+                not torch.equal(tok_r, tok1):
+            raise AssertionError(f"18a: the replay of step {nxt} differs "
+                                 f"(tokens {tok_r.tolist()} against "
+                                 f"{tok1.tolist()})")
+        out["replay"] = {"step": nxt, "tokens": tok_r.tolist(),
+                         "last_hidden_bitwise": True}
+        del restored, tok_r, last_r
+        torch.cuda.empty_cache()
+
+        # restore_resharded onto (1, 2): each rank's leaves are its shards
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        _, last32 = make_prefill_step(cfg32)(_float_tree(params),
+                                             {"tokens": tokens})
+        torch.cuda.empty_cache()
+        head = params["emb"].float()
+        e1 = _rel_err(last1, last32)
+        with Mesh((1, 2), ("data", "model"), device=DEVICE) as mesh:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trees, _ = restore_resharded(ckpt, like, pspecs, mesh)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            for r, tree in enumerate(trees):
+                bad = [n for (n, full, spec), (_, got, _) in zip(
+                           _pairs(params, pspecs), _pairs(tree, pspecs))
+                       if not torch.equal(_bits(shard(full, spec, mesh, r)),
+                                          _bits(got))]
+                if bad:
+                    raise AssertionError(f"18a: rank {r}'s restored leaves "
+                                         f"{bad[:5]} are not its shards")
+
+            def rank(comm, trees, tokens):
+                mine = trees[comm.data_index() * mesh.shape[1]
+                             + comm.model_index()]
+                return make_prefill_step(cfg, comm)(mine,
+                                                    {"tokens": tokens})
+            before = [dict(f.launches_by_thread)
+                      for f in (flash_attention_bhsd, rmsnorm)]
+            tok2, last2 = spmd_map(rank, mesh, (None, P("model")),
+                                   (P(), P()), config=CommConfig(
+                                       mode=CommMode.LCI_DEDICATED))(
+                trees, tokens)
+            per_rank = _rank_launches("18a tp = 2 prefill", cfg, before, 1)
+            agree = _tp_prefill_gate(torch, "18a tp = 2 prefill", cfg, head,
+                                     tok2, last2, tok1, last1, last32, e1)
+            out["resharded"] = {
+                "mesh": [1, 2], "seconds": took, "gb_per_s": gb / took,
+                "launches_per_rank_call": per_rank,
+                "tp1_rel_err_vs_float32": e1, **agree}
+            del trees
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _marker_chain(n_stages: int, n_micro: int):
+    """The landing buffers' values under ``build_1f1b_comm_graph``'s
+    default marker arithmetic: (activations at (s, m), gradients at
+    (s, m))."""
+    act, grad = {}, {}
+    for m in range(n_micro):
+        x = m % 251
+        for s in range(n_stages):
+            x = (x + s + 1) % 251
+            if s < n_stages - 1:
+                act[(s, m)] = x
+        g = x                                   # the last stage's output
+        for s in range(n_stages - 1, 0, -1):
+            g = (g * 2 + s) % 251
+            grad[(s - 1, m)] = g
+    return act, grad
+
+
+def pipeline_comm_phase(torch):
+    """18b: ``build_1f1b_comm_graph`` on ``LocalCluster(4, device="cuda")``
+    (a 4-rank ``Mesh``'s cluster: rendezvous from ``eager_max_bytes``), 8
+    microbatches, an endpoint of two devices a stage, payloads of 32 B
+    and 1 179 648 B; ``PP_REPS`` graphs a payload, each run to its end.
+    Gates: every activation and gradient landing buffer equals the marker
+    chain, on the card; ``assert_partial_order``; every edge of
+    ``schedule_1f1b(4, 8)`` (whose critical path must be 2 (S - 1) + 2 M)
+    held by the comm graph's compute nodes in their completion order; no
+    payload byte through the host (``to_host`` / ``to_card`` copies
+    unchanged).  Records wall ms a graph (median), ms a comm node, and
+    messages and bytes by protocol."""
+    from repro_torch.core.transport.wire import to_card, to_host
+    from repro_torch.distributed import (Mesh, build_1f1b_comm_graph,
+                                         schedule_1f1b)
+    S, M = PP_STAGES, PP_MICRO
+    sched, sids = schedule_1f1b(S, M)
+    sched.execute()
+    want_cp = 2 * (S - 1) + 2 * M
+    if sched.critical_path_len() != want_cp:
+        raise AssertionError(f"18b: 1F1B critical path "
+                             f"{sched.critical_path_len()} (want {want_cp})")
+    node_of = {nid: node for node, nid in sids.items()}
+    edges = [(node_of[d], node_of[n.nid]) for n in sched._nodes
+             for d in n.deps]
+    act_want, grad_want = _marker_chain(S, M)
+    out = {"stages": S, "micro": M, "schedule_critical_path": want_cp,
+           "schedule_edges": len(edges), "cases": []}
+    host0 = (to_host.copies, to_card.copies)
+    for nbytes in PP_PAYLOADS:
+        with Mesh((S,), ("stage",), device=DEVICE) as mesh:
+            cl = mesh.cluster
+            eps = cl.alloc_endpoint(n_devices=2, name="pp")
+            tot0 = mesh.protocol_totals()
+            times = []
+            for _ in range(PP_REPS):
+                pg = build_1f1b_comm_graph(cl, M, nbytes, endpoints=eps)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pg.graph.execute()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                pg.graph.assert_partial_order()
+                pos = {nid: i for i, nid in enumerate(pg.graph.fire_order)}
+                late = [(u, v) for u, v in edges
+                        if pos[pg.compute_ids[u]] >= pos[pg.compute_ids[v]]]
+                wrong = [k for bufs, want in ((pg.act_in, act_want),
+                                              (pg.grad_in, grad_want))
+                         for k, buf in bufs.items()
+                         if buf.device.type != torch.device(DEVICE).type
+                         or not bool((buf == want[k]).all())]
+                if late or wrong:
+                    raise AssertionError(f"18b {nbytes} B: schedule edges "
+                                         f"{late[:3]} out of order, landing "
+                                         f"buffers {wrong[:3]} wrong")
+            tot = {k: v - tot0[k] for k, v in mesh.protocol_totals().items()}
+        n_comm = pg.graph.get_attr("n_comm_nodes")
+        ms = statistics.median(times) * 1e3
+        out["cases"].append({
+            "payload_bytes": nbytes, "graphs": PP_REPS,
+            "nodes": len(pg.graph), "comm_nodes": n_comm,
+            "graph_critical_path": pg.graph.critical_path_len(),
+            "ms_per_graph": ms, "ms_each": [t * 1e3 for t in times],
+            "ms_per_comm_node": ms / n_comm, **tot})
+    host = (to_host.copies - host0[0], to_card.copies - host0[1])
+    if host != (0, 0):
+        raise AssertionError(f"18b: payload bytes crossed the host "
+                             f"(to_host, to_card copies {host})")
+    out["host_copies"] = list(host)
     return out
 
 
@@ -3880,6 +4274,47 @@ def main(argv=None) -> int:
     ssd += checks["ssd_scan"]
     cases += checks["doorbell"]
 
+    # 18. the recovery path: counts set to 0 just before 18a-b, read just
+    # after; every kernel call kept by signature, and each kernel held
+    # against its plain version at each one after the counts are read
+    # (18c, the chaos-kill demo's resharded restore, ran in phase 15)
+    t18 = time.perf_counter()
+    with _PathCalls() as path:
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        recovery = recovery_checkpoint_phase(torch)
+        record("recovery_checkpoint", seconds=time.perf_counter() - t0,
+               **recovery)
+        t0 = time.perf_counter()
+        pp = pipeline_comm_phase(torch)
+        record("pipeline_1f1b", seconds=time.perf_counter() - t0, **pp)
+        r_launches = {"flash_attention": flash_attention_bhsd.launches,
+                      "rmsnorm": rmsnorm.launches,
+                      "moe_gmm": moe_gmm.launches,
+                      "ssd_scan": ssd_scan_bhsp.launches,
+                      "doorbell": stage_copy_rows.launches}
+    if r_launches["flash_attention"] == 0 or r_launches["rmsnorm"] == 0 \
+            or r_launches["moe_gmm"] or r_launches["ssd_scan"]:
+        raise AssertionError(f"the recovery path launched {r_launches} "
+                             "(want B2 and B3, no B4 or B5)")
+    t0 = time.perf_counter()
+    checks = path_kernel_checks(torch, path.calls)
+    missing = [k for k, n in (("flash", r_launches["flash_attention"]),
+                              ("rmsnorm", r_launches["rmsnorm"]),
+                              ("doorbell", r_launches["doorbell"]))
+               if n and not checks[k]]
+    if missing:
+        raise AssertionError(f"phase 18 launched {missing} at no signature "
+                             "that was kept")
+    record("phase18_kernel_checks", seconds=time.perf_counter() - t0,
+           signatures={k: len(v) for k, v in checks.items()},
+           cases=checks)
+    record("phase18", seconds=time.perf_counter() - t18,
+           launches=r_launches)
+    flash += checks["flash"]
+    rms += checks["rmsnorm"]
+    cases += checks["doorbell"]
+
     # the kernels line: headline numbers at each main path's shape
     head = next(c for c in cases if c["case"] == "rows_f32_64x16384_bf160")
     fhead = next(c for c in flash
@@ -3898,7 +4333,8 @@ def main(argv=None) -> int:
         "name": "doorbell.stage_copy_rows", "route": "cuda",
         "source": SOURCE, "replaces": REPLACES,
         "launches": launches + t_launches + p_launches + v_launches
-        + v_ranks + c_launches + tp_launches["doorbell"],
+        + v_ranks + c_launches + tp_launches["doorbell"]
+        + r_launches["doorbell"],
         "launches_by_path": {"message path (phase 4)": launches,
                              "transports (phase 15)": t_launches,
                              "two processes (phase 15)": p_launches,
@@ -3907,7 +4343,8 @@ def main(argv=None) -> int:
                                  v_ranks,
                              "collectives (phase 17a)": c_launches,
                              "tensor parallel (phase 17b-d)":
-                                 tp_launches["doorbell"]},
+                                 tp_launches["doorbell"],
+                             "recovery (phase 18)": r_launches["doorbell"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": "bytes",
@@ -3923,11 +4360,13 @@ def main(argv=None) -> int:
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": n_flash + m_flash + y_flash
-        + tp_launches["flash_attention"],
+        + tp_launches["flash_attention"] + r_launches["flash_attention"],
         "launches_by_path": {"gemma3-1b": n_flash, "olmoe-1b-7b": m_flash,
                              "mamba2-370m": 0, "hymba-1.5b": y_flash,
                              "tensor parallel (phase 17)":
-                                 tp_launches["flash_attention"]},
+                                 tp_launches["flash_attention"],
+                             "recovery (phase 18)":
+                                 r_launches["flash_attention"]},
         "max_abs_err": max(c["max_abs_err"] for c in flash),
         "ms": fhead["kernel_ms"], "plain_ms": fhead["plain_ms"],
         "bound_ms": fhead["bound_ms"], "bound_by": fhead["bound_by"],
@@ -3944,11 +4383,13 @@ def main(argv=None) -> int:
                                    "bound_share"))}, {
         "name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
         "replaces": RMS_REPLACES,
-        "launches": n_rms + m_rms + s_rms + y_rms + tp_launches["rmsnorm"],
+        "launches": n_rms + m_rms + s_rms + y_rms + tp_launches["rmsnorm"]
+        + r_launches["rmsnorm"],
         "launches_by_path": {"gemma3-1b": n_rms, "olmoe-1b-7b": m_rms,
                              "mamba2-370m": s_rms, "hymba-1.5b": y_rms,
                              "tensor parallel (phase 17)":
-                                 tp_launches["rmsnorm"]},
+                                 tp_launches["rmsnorm"],
+                             "recovery (phase 18)": r_launches["rmsnorm"]},
         "max_abs_err": max(c["max_abs_err"] for c in rms),
         "ms": rhead["kernel_ms"], "plain_ms": rhead["plain_ms"],
         "bound_ms": rhead["bound_ms"], "bound_by": "bytes",

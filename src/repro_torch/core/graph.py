@@ -27,9 +27,9 @@ progress → ``test()``/``wait()``.  The old synchronous ``execute()`` is
 kept as a thin shim over start+drain and behaves identically for pure
 host-function graphs.
 
-In the reference the same executor also drives the async checkpoint
-commit pipeline and the 1F1B pipeline-parallel schedule; those are not
-ported yet.
+The same executor also drives the async checkpoint commit pipeline
+(``checkpoint/store.py``) and the 1F1B pipeline-parallel schedule
+(``distributed/pipeline.py``).
 
 Execution keeps the paper's *counter* semantics observable: each node holds
 a signal counter; nodes fire from a ready set (counter == indegree), never

@@ -537,19 +537,22 @@ def _run_demo(window: int, iters: int, size: int, device=None) -> int:
 
 def _run_chaos_demo(size: int, kill_rank: int, hb_timeout: float,
                     device=None) -> int:
-    """Rank-death detection and drain end to end (DESIGN.md §16): every
-    rank streams eager AMs to its ring neighbor and heartbeats; the
-    launcher SIGKILLs ``kill_rank`` mid-stream.  Survivors detect the
-    silence and mark the peer dead, and every outstanding post completes
-    (ERR_PEER_DEAD) — no hang.  Survivor exit 0 is the proof; the
-    launcher treats the victim's death as expected.
+    """Rank-death recovery end to end (DESIGN.md §16): every rank streams
+    eager AMs to its ring neighbor and heartbeats; the launcher SIGKILLs
+    ``kill_rank`` mid-stream.  Survivors detect the silence, mark the
+    peer dead (outstanding posts complete as ERR_PEER_DEAD — no hang),
+    shrink the mesh to the largest shape gemma3-1b's SMOKE config allows
+    on the survivors, and restore the step-0 checkpoint resharded onto
+    it, on the rank's device.  Survivor exit 0 is the proof; the launcher
+    treats the victim's death as expected."""
+    import torch
 
-    The reference goes on to shrink the mesh and restore a checkpoint
-    resharded onto it; that needs the port's checkpoint store and
-    elastic layer (the training stack), so this demo stops after the
-    drain."""
+    from repro_torch.checkpoint import restore_resharded, save_sync
+    from repro_torch.configs.gemma3_1b import SMOKE
     from repro_torch.core import ProcessCluster, post_am
     from repro_torch.core.status import ErrorCode
+    from repro_torch.distributed import Mesh, P
+    from repro_torch.distributed.elastic import shrink_mesh
 
     ctx = bootstrap()
     backend = os.environ.get("REPRO_ATTR_FABRIC_BACKEND", "shm")
@@ -562,6 +565,14 @@ def _run_chaos_demo(size: int, kill_rank: int, hb_timeout: float,
     scq = rt.alloc_cq()          # send-side completions (done / err)
     peer = (ctx.rank + 1) % ctx.n_ranks
     buf = _payload(size, rt.device)
+
+    # the recovery anchor: rank 0 commits a step-0 checkpoint every
+    # survivor can restore from (atomic rename — a crash cannot corrupt it)
+    ckpt_dir = os.path.join(ctx.session, "ckpt")
+    state = {"w": torch.arange(64, dtype=torch.float64, device=rt.device),
+             "step": torch.zeros((), dtype=torch.int64, device=rt.device)}
+    if ctx.rank == 0:
+        save_sync(ckpt_dir, 0, state, meta={"world": ctx.n_ranks})
 
     ppid0 = os.getppid()
     hard_deadline = time.monotonic() + float(
@@ -597,7 +608,7 @@ def _run_chaos_demo(size: int, kill_rank: int, hb_timeout: float,
                     break            # empty (retry status)
 
     ctx.heartbeat()
-    ctx.barrier()                    # all booted
+    ctx.barrier()                    # checkpoint committed, all booted
 
     dead: List[int] = []
     t0 = time.monotonic()
@@ -632,6 +643,23 @@ def _run_chaos_demo(size: int, kill_rank: int, hb_timeout: float,
           f"delivered={counts['delivered']} "
           f"peer_dead={counts['peer_dead']} timeout={counts['timeout']} "
           f"other={counts['other']} hung={hung}")
+
+    # elastic recovery: the largest compatible survivor mesh, and the
+    # pre-fault checkpoint restored resharded onto it (one tree a rank of
+    # the new mesh, every leaf on this rank's device)
+    new_shape = shrink_mesh((ctx.n_ranks, 1), len(dead) / ctx.n_ranks,
+                            SMOKE)
+    like = {"w": torch.empty(64, dtype=torch.float64, device="meta"),
+            "step": torch.empty((), dtype=torch.int64, device="meta")}
+    with Mesh(new_shape, ("data", "model"), device=rt.device) as mesh:
+        trees, manifest = restore_resharded(ckpt_dir, like, P(), mesh)
+    ok_restore = manifest["step"] == 0 and all(
+        t["w"].device == rt.device and int(t["step"]) == 0
+        and torch.equal(t["w"], state["w"]) for t in trees)
+    recovery_ms = (time.monotonic() - t_detect) * 1e3
+    print(f"spmd-chaos rank {ctx.rank}: recovered in {recovery_ms:.0f}ms "
+          f"new_mesh={new_shape} restored_step={manifest['step']} "
+          f"on {trees[0]['w'].device} ok_restore={ok_restore}")
     rel = rt.rel.counters() if rt.rel is not None else {}
     if rel:
         print(f"spmd-chaos rank {ctx.rank}: rel retransmits="
@@ -639,7 +667,7 @@ def _run_chaos_demo(size: int, kill_rank: int, hb_timeout: float,
               f"{rel.get('expired_peer_dead')}")
     cluster.close()
     ctx.close()
-    ok = (hung == 0 and counts["other"] == 0
+    ok = (hung == 0 and counts["other"] == 0 and ok_restore
           and (peer not in dead or counts["peer_dead"] > 0))
     return 0 if ok else 1
 
@@ -670,10 +698,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--chaos-kill", type=int, default=None, metavar="RANK",
                     help="chaos demo: SIGKILL this rank once traffic "
                          "flows; survivors must detect it, drain every "
-                         "outstanding post as ERR_PEER_DEAD and exit 0 "
-                         "(the reference's elastic resharded restore "
-                         "after the drain is not ported: it needs the "
-                         "training stack)")
+                         "outstanding post as ERR_PEER_DEAD, shrink the "
+                         "mesh, restore the step-0 checkpoint resharded "
+                         "onto it and exit 0")
     ap.add_argument("--kill-after", type=float, default=1.0,
                     help="chaos demo: seconds between all-ranks-beating "
                          "and the SIGKILL")

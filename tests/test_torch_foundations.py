@@ -111,7 +111,9 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.apps.kmer, repro_torch.launch.serve, "
             "repro_torch.core.axis, repro_torch.core.collectives, "
             "repro_torch.distributed, repro_torch.distributed.comm, "
-            "repro_torch.distributed.spmd_map; "
+            "repro_torch.distributed.spmd_map, repro_torch.checkpoint, "
+            "repro_torch.data, repro_torch.distributed.pipeline, "
+            "repro_torch.distributed.elastic; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes')); print(bad)")
     env = dict(os.environ, PYTHONPATH=SRC)

@@ -2,7 +2,8 @@
 CPU: bootstrap and the generation-counter barrier, the two-process
 window demo on ``shm`` and ``socket`` (``--device cpu``), attr overrides
 reaching the children, rank death reaping the group, the timeout killing
-everything, the chaos-kill demo up to detection and drain — and one
+everything, the chaos-kill demo through detection, drain and the
+resharded restore of its step-0 checkpoint — and one
 mixed session, rank 0 running the reference and rank 1 the port over
 shm: the wire contract end to end.  Every subprocess runs under its own
 timeout.
@@ -222,7 +223,8 @@ class TestLauncher:
     def test_chaos_kill_detects_and_drains(self):
         """The launcher SIGKILLs rank 1 mid-stream: the survivor detects
         the silence, every outstanding post completes ERR_PEER_DEAD, none
-        hangs, and it exits 0."""
+        hangs; it shrinks the mesh to (1, 1), restores rank 0's step-0
+        checkpoint resharded onto it, on its device, and exits 0."""
         out = _spmd("--ranks", "2", "--device", "cpu", "--chaos-kill", "1",
                     "--kill-after", "0.5", "--hb-timeout", "3",
                     "--timeout", "90")
@@ -231,6 +233,9 @@ class TestLauncher:
         assert "chaos-kill SIGKILL rank 1" in text
         assert "spmd-chaos rank 0: drained" in text, text
         assert "other=0 hung=0" in text
+        assert "spmd-chaos rank 0: recovered in " in text, text
+        assert ("new_mesh=(1, 1) restored_step=0 on cpu ok_restore=True"
+                in text), text
 
 
 MIXED = (
