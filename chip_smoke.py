@@ -4,8 +4,10 @@ message path (over the sim, shm and socket transports, under chaos and
 across two processes), gemma3-1b serving, olmoe-1b-7b (MoE) serving,
 mamba2-370m (SSM) serving and hymba-1.5b (hybrid) serving at full width,
 serving on the comm core (the reference's serve traffic), the in-graph
-collectives with tensor-parallel serving on rank threads, and the
-recovery path (checkpoints, resharded restore, the 1F1B comm graph).
+collectives with tensor-parallel serving on rank threads, the recovery
+path (checkpoints, resharded restore, the 1F1B comm graph), and training
+at tp = 1 (the four families, data parallel on rank threads, the
+pipeline, resume).
 
     python3 chip_smoke.py            # from the repository root; one card
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown
@@ -212,10 +214,32 @@ The phases:
    nodes, no payload byte through the host; wall ms a graph, messages by
    protocol; c) phase 15's chaos-kill demo and its resharded restore.
    Every kernel call of a-b is kept by signature and held against its
-   plain version after the counts are read.
+   plain version after the counts are read;
+19. training on the card at tp = 1 (``train/step.py``'s step: the loss,
+   backward through the kernels' ``autograd.Function``s, whose backward
+   is the plain version's autograd, grad sync, clip, AdamW over the
+   float32 master): a) each wrapper in bf16 at the training shapes of b
+   and c (:func:`train_kernel_checks`): the gradients of the backward it
+   records (the plain version's autograd, which the kernel's output does
+   not enter) against autograd of the plain version in float32, within
+   :data:`GRAD_TOL`, every B2 / B4 / B5 case on its tensor-core variant;
+   b) gemma3-1b at full width, 4 x 2048 tokens, remat on, 8
+   steps on one fixed batch (:func:`train_run`): losses finite and
+   decreasing, every step's B2 and B3 launches exactly the forward's,
+   the remat recompute's and the final norm's (:func:`_train_want`),
+   step ms, tokens/s, peak memory, MFU (:func:`model_flops`), and under
+   ``--profile`` the device's busy share; c) mamba2-370m and hymba-1.5b
+   at full depth, olmoe-1b-7b at 4 of its 16 layers, 2 x 1024 tokens, 4
+   steps each, the same gates; d) dp = 2 rank threads on one card and
+   ``PipelinedModel`` (:func:`train_dp_phase`); e) ``train_loop`` resumed
+   from a step-3 checkpoint bitwise equal to a straight run, under
+   ``torch.use_deterministic_algorithms(True)``
+   (:func:`train_resume_phase`).  Every kernel call of b-e is kept by
+   signature and each kernel held against its plain version at every
+   one after the counts are read (:func:`path_kernel_checks`).
 
 The launch counts are set to 0 just before phases 4, 7, 10, 13, 14, 15,
-16 (after its kernel check), 17a, 17b and 18 and read just after; the serving phases
+16 (after its kernel check), 17a, 17b, 18 and 19b and read just after; the serving phases
 also record B3's launches by (rows, d) a prefill call and a decode
 step.  Every phase raises on failure;
 nothing is caught.  Each phase
@@ -3146,7 +3170,7 @@ class _PathCalls:
     def _moe_gmm(x, w1, w2, *, act="swiglu", block_c=128, rows=None):
         key = (tuple(x.shape), tuple(w1.shape), tuple(w2.shape),
                str(x.dtype), act, rows is None)
-        return key, (x.clone(), w1, w2, act,
+        return key, (x.detach().clone(), w1.detach(), w2.detach(), act,
                      None if rows is None else rows.clone())
 
     @staticmethod
@@ -3162,13 +3186,68 @@ class _PathCalls:
         return key, ([r.clone() for r in rows], wire_bf16)
 
 
-def path_kernel_checks(torch, calls) -> dict:
+def moe_operands_case(torch, label, x, w1, w2, act, rows) -> dict:
+    """B4 on a path's own activations, weights and row counts against the
+    plain version of the variant that ran ("tc": h rounded once to bf16
+    after the float32 activation, as the kernel rounds it).  The model's
+    activations and weights put the outputs over four decades (olmoe's
+    training path: |out| up to ~2.4e4, mean ~1.5e3), where an element of
+    h that rounds the other way moves a small output by more than
+    3e-2 |out|; so the limits scale with the output: the relative
+    Frobenius error within 2^-8 (a bf16 ulp) and every element within
+    2^-7 of the largest |ref| (two ulps at the top of the range).  The
+    distance from the float32 plain version is reported beside them."""
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
+    out, ran = _variant_of(lambda: moe_gmm(x, w1, w2, act=act, rows=rows))
+    want = "tc" if x.dtype == torch.bfloat16 and x.shape[2] % 8 == 0 \
+        else "simt"
+    if ran != want:
+        raise AssertionError(f"{label}: launched the {ran} variant, not "
+                             f"{want}")
+    h_dtype = torch.bfloat16 if ran == "tc" else None
+    ref = moe_gmm_ref(x, w1, w2, act=act, rows=rows,
+                      h_dtype=h_dtype).double()
+    f32 = moe_gmm_ref(x, w1, w2, act=act, rows=rows).double()
+    a = out.double()
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"{label}: non-finite kernel output")
+    scale = float(ref.abs().max())
+    err = float((a - ref).abs().max())
+    fro = float((a - ref).norm() / ref.norm().clamp_min(1e-30))
+    if err > 2 ** -7 * scale or fro > 2 ** -8:
+        raise AssertionError(
+            f"{label}: max error {err} against the {ran} plain version "
+            f"(limit 2^-7 x {scale}), relative Frobenius {fro} (limit "
+            "2^-8)")
+    tol = 3e-2
+    beyond = int(((a - f32).abs() > tol + tol * f32.abs()).sum())
+    case = {"case": label, "shape_x": list(x.shape), "f": w2.shape[1],
+            "act": act, "dtype": str(x.dtype).split(".")[1],
+            "variant": ran, "operands": "the path's own", "ok": True,
+            "max_abs_err": err, "max_abs_ref": scale,
+            "limit": "2^-7 max|ref|, relative Frobenius 2^-8",
+            "relative_frobenius": fro,
+            "vs_float32_plain": {
+                "max_abs_err": float((a - f32).abs().max()),
+                "relative_frobenius": float((a - f32).norm()
+                                            / f32.norm().clamp_min(1e-30)),
+                "elements_beyond_3e-2": beyond, "elements": a.numel()}}
+    del a, ref, f32, out
+    return case
+
+
+def path_kernel_checks(torch, calls, prefix: str = "tp_path",
+                       b4_scaled: bool = False) -> dict:
     """Each kernel held against its plain version at every signature
     :class:`_PathCalls` kept, through the earlier phases' cases (their
     tolerances; untimed): B2, B3 and B5 on fresh draws at the path's
     shapes and options, B4 on the path's own activations, weights and
-    row counts, B1 on the path's own rows byte for byte.  Returns the
-    cases by kernel."""
+    row counts, B1 on the path's own rows byte for byte.  With
+    ``b4_scaled`` (the training path, whose B4 outputs span four
+    decades), B4 on fresh draws at the path's shapes and row counts under
+    that tolerance, and on the path's own operands under
+    :func:`moe_operands_case`'s.  Returns the cases by kernel, each
+    labelled ``prefix`` and its signature."""
     from repro_torch.kernels.doorbell import (stage_copy_rows,
                                               stage_copy_rows_ref)
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
@@ -3176,7 +3255,7 @@ def path_kernel_checks(torch, calls) -> dict:
     out = {k: [] for k in calls}
     for (qs, ks, dn, causal, window, qo) in calls["flash"]:
         sq, b, hq, dh = qs
-        label = (f"tp_path_{sq}x{b}x{hq}x{ks[2]}x{dh}_w{window}_o{qo}_"
+        label = (f"{prefix}_{sq}x{b}x{hq}x{ks[2]}x{dh}_w{window}_o{qo}_"
                  f"{dn.split('.')[1]}")
         out["flash"].append(flash_case(
             torch, label, b, hq, ks[2], sq, ks[0], dh, causal, window, qo,
@@ -3186,22 +3265,30 @@ def path_kernel_checks(torch, calls) -> dict:
             raise AssertionError(f"the path normed with eps {eps}, which "
                                  "rmsnorm_case does not take")
         out["rmsnorm"].append(rmsnorm_case(
-            torch, f"tp_path_{dn.split('.')[1]}_{rows}x{d}", rows, d,
+            torch, f"{prefix}_{dn.split('.')[1]}_{rows}x{d}", rows, d,
             dt[dn], g, with_w=with_w, time_it=False))
     for x, w1, w2, act, rows in calls["moe_gmm"].values():
         e, c, d = x.shape
+        label = (f"{prefix}_{e}x{c}x{d}_f{w2.shape[1]}_{act}_"
+                 f"{str(x.dtype).split('.')[1]}")
+        if b4_scaled:
+            out["moe_gmm"].append(moe_gmm_case(
+                torch, label + "_draw", e, c, d, w2.shape[1], act, x.dtype,
+                g, rows=rows, time_it=False))
+            out["moe_gmm"].append(moe_operands_case(
+                torch, label, x, w1, w2, act, rows))
+            continue
         out["moe_gmm"].append(moe_gmm_case(
-            torch, f"tp_path_{e}x{c}x{d}_f{w2.shape[1]}_{act}_"
-            f"{str(x.dtype).split('.')[1]}", e, c, d, w2.shape[1], act,
-            x.dtype, g, operands=(x, w1, w2), rows=rows, time_it=False))
+            torch, label, e, c, d, w2.shape[1], act, x.dtype, g,
+            operands=(x, w1, w2), rows=rows, time_it=False))
     for (xs, bs_, dn, chunk, h0) in calls["ssd_scan"]:
         s, bs, h, p = xs
         out["ssd_scan"].append(ssd_case(
-            torch, f"tp_path_{bs}x{h}x{s}x{p}_g{bs_[2]}_n{bs_[3]}_"
+            torch, f"{prefix}_{bs}x{h}x{s}x{p}_g{bs_[2]}_n{bs_[3]}_"
             f"{dn.split('.')[1]}", bs, h, s, p, bs_[2], bs_[3], dt[dn], g,
             chunk=chunk, with_h0=h0, time_it=False))
     for (k, shape, dn, wire), (rows, _) in calls["doorbell"].items():
-        label = (f"tp_path_rows_{k}x{'x'.join(map(str, shape))}_"
+        label = (f"{prefix}_rows_{k}x{'x'.join(map(str, shape))}_"
                  f"{dn.split('.')[1]}_bf16{int(wire)}")
         got = stage_copy_rows(rows, wire_bf16=wire)
         ref = stage_copy_rows_ref(rows, wire_bf16=wire)
@@ -3956,6 +4043,664 @@ def pipeline_comm_phase(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training on the card
+# ---------------------------------------------------------------------------
+
+#: 19b: gemma3-1b at full width on the prefill cell's tokens (4 x 2048),
+#: 8 steps on one fixed batch; step ms is the median of the last 6
+TRAIN_GEMMA = dict(arch="gemma3-1b", seq=2048, batch=4, steps=8, timed=6)
+#: 19c: the other families, batch 2 x 1024, 4 steps; olmoe-1b-7b at 4 of
+#: its 16 layers (6.9 B params x 14 bytes of param, master, mu and nu is
+#: about 97 GB, beyond the card's 80 GB)
+TRAIN_FAMILIES = (("mamba2-370m", None), ("hymba-1.5b", None),
+                  ("olmoe-1b-7b", 4))
+TRAIN_SMALL = dict(seq=1024, batch=2, steps=4)
+#: AdamW's rate in every phase 19 run (constant; the reference's other
+#: defaults: b2 0.95, weight decay 0.1, clip at 1.0)
+TRAIN_LR = 1e-3
+#: 19a: the recorded backward's gradients against autograd of the
+#: plain version in float32: tests/test_kernels.py's bf16 tolerance 2e-2,
+#: its atol scaled by the gradient's largest |ref| (a gradient sums many
+#: products; phase 5 scales the tensor-core limit by |ref| likewise)
+GRAD_TOL = 2e-2
+#: 19d: dp = 2 rank threads, gemma3-1b at full width and 2 layers; the
+#: PipelinedModel's stages: gemma3-1b's first 4 layers, 8 microbatches
+TRAIN_DP = dict(layers=2, seq=2048, batch=4)
+TRAIN_PP = dict(stages=4, micro=8, seq=512)
+#: 19e: gemma3-1b's smoke config, 6 steps, a checkpoint at step 3
+TRAIN_RESUME = dict(seq=256, batch=4, steps=6, ckpt_every=3)
+
+
+#: what a kernels-line entry's ``plain_backward_max_abs_err`` measures
+PLAIN_BACKWARD = ("plain_backward_max_abs_err: that backward in bf16 "
+                  "against float32 at the training shapes (19a), which "
+                  "the kernel's output does not enter")
+
+
+def _train_want(arch: str, layers=None) -> tuple:
+    """The launches one training step implies, in :func:`_counts`' order:
+    each layer's forward (a prefill's launches, :data:`SERVING`) once in
+    the forward and once more in remat's recompute, the final norm once
+    (outside the checkpointed layers); the loss chunks launch nothing and
+    the backward runs the plain versions."""
+    from repro_torch.configs import get_config
+    s, n_all = SERVING[arch], get_config(arch).n_layers
+    n = layers or n_all
+    f, m, d = (2 * s[k] // n_all * n for k in ("flash", "moe", "ssd"))
+    r = 2 * (s["rms"] - 1) // n_all * n + 1
+    return (f, r, m, m, d, f, d)
+
+
+def model_flops(cfg, seq: int, batch: int) -> dict:
+    """Model FLOPs of one training step: 6 N T (N = every param, the tied
+    embedding once as the head's product) plus attention's 12 L h dh c T,
+    c a layer's context (s for a global layer, its window for a local
+    one, no causal halving: PaLM's convention)."""
+    from repro_torch.models.blocks import layer_window
+    t = seq * batch
+    dense = 6 * cfg.param_count() * t
+    attn = 0
+    if cfg.family != "ssm":
+        dh = cfg.resolved_head_dim
+        for i in range(cfg.n_layers):
+            w = layer_window(cfg, i)
+            ctx = seq if not w else min(w, seq)
+            attn += 12 * cfg.n_heads * dh * ctx * t
+    return {"dense": dense, "attention": attn, "total": dense + attn}
+
+
+def _grads(torch, fn, inputs, cts):
+    """Gradients of ``fn(*inputs)`` (every floating input) pulled back
+    from ``cts``."""
+    xs = [x.detach().clone().requires_grad_(x.is_floating_point())
+          for x in inputs]
+    out = fn(*xs)
+    outs = out if isinstance(out, tuple) else (out,)
+    srcs = [x for x in xs if x.requires_grad]
+    return torch.autograd.grad(outs[:len(cts)], srcs, cts)
+
+
+def _grad_case(torch, name, kernel_fn, plain_fn, inputs, cts, variant_of):
+    """One 19a case: the gradients of the wrapper on the bf16 inputs (its
+    kernel forward, and the backward it records: autograd of the plain
+    version, recomputed from the saved inputs) against autograd of the
+    plain version on float32 copies.  The kernel's output enters no
+    gradient, so this holds the recorded backward, not the kernel: the
+    kernel's output is held at these shapes by phase 19's path checks.
+    ``variant_of`` (B2, B4, B5) reports the variant the forward took,
+    which must be the tensor cores' (the backward recomputes that
+    variant's plain version)."""
+    t0 = time.perf_counter()
+    variant = None
+    if variant_of is not None:
+        _, variant = variant_of(lambda: kernel_fn(*inputs))
+        if variant != "tc":
+            raise AssertionError(f"{name} ran the {variant} variant, not "
+                                 "the tensor cores")
+    got = _grads(torch, kernel_fn, inputs, cts)
+    fwd_ms = _wall_ms(torch, lambda: kernel_fn(*inputs))
+    fb_ms = _wall_ms(torch, lambda: _grads(torch, kernel_fn, inputs, cts))
+    want = _grads(torch, plain_fn, [x.float() if x.is_floating_point()
+                                    else x for x in inputs],
+                  [c.float() for c in cts])
+    errs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = float(w.abs().max())
+        err, share = _close(f"{name} d{i}", g.float(), w,
+                            torch.bfloat16, atol=GRAD_TOL * scale,
+                            rtol=GRAD_TOL)
+        errs.append({"max_abs_err": err, "limit_share": share,
+                     "max_abs_ref": scale})
+    return {"case": name, "variant": variant, "grads": errs,
+            "max_abs_err": max(e["max_abs_err"] for e in errs),
+            "forward_ms": fwd_ms, "backward_ms": fb_ms - fwd_ms,
+            "seconds": time.perf_counter() - t0}
+
+
+def _wall_ms(torch, fn, reps: int = 3) -> float:
+    """Median wall ms of ``fn()`` from a synchronized card to a
+    synchronized card, after one untimed call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def train_kernel_checks(torch) -> list:
+    """19a: each wrapper in bf16 at the training shapes of 19b and 19c,
+    the gradients of the backward it records (the plain version's
+    autograd in bf16) against autograd of the plain version in float32
+    (:func:`_grad_case`); each case's forward ms (the kernel) and
+    backward ms (the plain version's recompute and autograd; forward +
+    backward less forward), wall time on a synchronized card, median of
+    3."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import \
+        variant_of as flash_variant
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+    from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_ref,
+                                              variant_of as ssd_variant)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=DEVICE)
+                * scale).to(dtype)
+
+    def seq_ref(**kw):
+        def fn(q, k, v):
+            o = flash_attention_ref(*(t.permute(1, 2, 0, 3)
+                                      for t in (q, k, v)), **kw)
+            return o.permute(2, 0, 1, 3)
+        return fn
+
+    cases = []
+    for label, (s, b, hq, hkv, dh, window) in (
+            ("gemma3_local", (2048, 4, 4, 1, 256, 512)),
+            ("gemma3_global", (2048, 4, 4, 1, 256, GEMMA_GLOBAL)),
+            ("olmoe", (1024, 2, 16, 16, 128, 0)),
+            ("hymba_local", (1024, 2, 25, 5, 64, 1024)),
+            ("hymba_global", (1024, 2, 25, 5, 64, GEMMA_GLOBAL))):
+        kw = dict(causal=True, window=window, q_offset=0)
+        q, k, v = rnd(s, b, hq, dh), rnd(s, b, hkv, dh), rnd(s, b, hkv, dh)
+        cases.append(_grad_case(
+            torch, f"flash_{label}", lambda q, k, v: flash_attention(
+                q, k, v, **kw), seq_ref(**kw), (q, k, v),
+            (rnd(s, b, hq, dh),), flash_variant))
+    for label, rows, d in (("gemma3", 8192, 1152), ("gemma3_qk", 32768, 256),
+                           ("mamba2_gated", 2048, 2048),
+                           ("hymba", 2048, 1600)):
+        x, w = rnd(rows, d), rnd(d, scale=0.5)
+        cases.append(_grad_case(torch, f"rmsnorm_{label}", rmsnorm,
+                                rmsnorm_ref, (x, w), (rnd(rows, d),), None))
+    # B4 at olmoe's training shape: 2048 tokens, top-8 of 64, cap 320
+    e, c, d, f = 64, 320, 2048, 1024
+    rows = torch.randint(0, c + 1, (e,), generator=g, device=DEVICE,
+                         dtype=torch.int32)
+    cases.append(_grad_case(
+        torch, "moe_gmm_olmoe_swiglu",
+        lambda x, w1, w2: moe_gmm(x, w1, w2, act="swiglu", rows=rows),
+        lambda x, w1, w2: moe_gmm_ref(x, w1, w2, act="swiglu", rows=rows),
+        (rnd(e, c, d), rnd(e, d, 2 * f, scale=d ** -0.5),
+         rnd(e, f, d, scale=f ** -0.5)), (rnd(e, c, d),), _variant_of))
+    # B5 at mamba2's and hymba's training shapes (seq-major, as ssm_op)
+    for label, h, n in (("mamba2", 32, 128), ("hymba", 50, 16)):
+        s, bs, p = 1024, 2, 64
+        dt = (torch.rand(s, bs, h, generator=g, device=DEVICE) * 0.2
+              + 0.01)
+        a_log = rnd(h, scale=0.5, dtype=torch.float32)
+        d_skip = rnd(h, dtype=torch.float32)
+
+        def seq_plain(x, dt, a_log, b, c, d_skip):
+            y, _ = ssd_scan_ref(x.permute(1, 2, 0, 3), dt.permute(1, 2, 0),
+                                a_log, b.permute(1, 2, 0, 3),
+                                c.permute(1, 2, 0, 3), d_skip)
+            return y.permute(2, 0, 1, 3)
+        cases.append(_grad_case(
+            torch, f"ssd_scan_{label}",
+            lambda *a: ssd_scan(*a)[0], seq_plain,
+            (rnd(s, bs, h, p), dt, a_log, rnd(s, bs, 1, n, scale=0.3),
+             rnd(s, bs, 1, n, scale=0.3), d_skip), (rnd(s, bs, h, p),),
+            ssd_variant))
+    return cases
+
+
+def _busy_share(torch, fn) -> dict:
+    """torch.profiler over ``fn()``: the device's kernel time against the
+    wall time (one stream: kernels do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    rows = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    total = sum(ms for _, ms in rows)
+    return {"wall_ms": wall * 1e3, "device_ms": total,
+            "device_busy_share": total / (wall * 1e3),
+            "top": [{"kernel": k[:90], "ms": ms} for k, ms in
+                    sorted(rows, key=lambda r: -r[1])[:12]]}
+
+
+def _free_card(torch) -> None:
+    """Free what earlier phases left in reference cycles (Python frees a
+    cycle only when its collector runs), then the allocator's cache."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_run(torch, arch: str, layers, seq: int, batch: int, steps: int,
+              timed: int, profile: bool = False, strict: bool = False
+              ) -> dict:
+    """``steps`` steps of ``make_train_step`` (remat on, bf16 params, the
+    float32 master) on one fixed ``SyntheticPipeline`` batch; every step's
+    launches checked against :func:`_train_want`; the losses finite and
+    falling (the last below the first; ``strict``: each below the one
+    before)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step, train_state_init
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    want = _train_want(arch, layers)
+    model = build_model(cfg, device=DEVICE)
+    opt = AdamWConfig(lr=TRAIN_LR)
+    _free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    state, specs = train_state_init(model, SEED, opt)
+    step = make_train_step(model, specs, opt)
+    data = SyntheticPipeline(vocab=cfg.vocab, seq_len=seq,
+                             global_batch=batch).get_batch(0, device=DEVICE)
+    losses, times = [], []
+    for i in range(steps):
+        c0 = _counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, data)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        got = tuple(b - a for a, b in zip(c0, _counts()))
+        if got != want:
+            raise AssertionError(
+                f"{arch} training step {i} launched (flash, RMSNorm, MoE "
+                f"GMM, MoE GMM tensor-core, SSD scan, flash tensor-core, "
+                f"SSD scan tensor-core) {got}, want {want}")
+    falling = all(b < a for a, b in zip(losses, losses[1:])) if strict \
+        else losses[-1] < losses[0]
+    if not all(math.isfinite(x) for x in losses) or not falling:
+        raise AssertionError(f"{arch} training losses {losses} are not "
+                             "finite and falling")
+    step_s = statistics.median(times[-timed:])
+    flops = model_flops(cfg, seq, batch)
+    out = {"arch": arch, "layers": cfg.n_layers, "seq": seq, "batch": batch,
+           "steps": steps, "losses": losses, "step_ms": step_s * 1e3,
+           "step_ms_all": [t * 1e3 for t in times],
+           "tokens_per_s": seq * batch / step_s,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "peak_above_start_gb":
+               (torch.cuda.max_memory_allocated() - start) / 1e9,
+           "allocated_at_start_gb": start / 1e9,
+           "launches_per_step": dict(zip(
+               ("flash", "rmsnorm", "moe_gmm", "moe_gmm_tc", "ssd_scan",
+                "flash_tc", "ssd_scan_tc"), want)),
+           "model_flops": flops,
+           "mfu": flops["total"] / step_s / PEAK_FLOPS["bfloat16"],
+           "mfu_peak": "989 TFLOP/s, H100 SXM dense bf16 (data sheet)",
+           "mfu_terms": "6 N T + 12 L h dh c T: N every param, T the "
+                        "step's tokens, c a layer's context (s global, "
+                        "its window local), no causal halving",
+           "params": cfg.param_count()}
+    if profile:
+        out["profile"] = _busy_share(torch, lambda: step(state, data))
+    del state
+    _free_card(torch)
+    return out
+
+
+def train_dp_phase(torch) -> dict:
+    """19d: a) dp = 2 rank threads on one card (``launch/train.py --mesh
+    2x1``'s path: ``spmd_map`` on a (2, 1) mesh, each rank the whole
+    state and half the batch, the gradient meaned over the data axis on
+    the rank thread after backward), gemma3-1b at full width and 2 layers:
+    the synced grads bitwise equal across the ranks, within GRAD_TOL of
+    each leaf's largest element of dp = 1's on the global batch, the
+    compressed sync (int8 codes summed in int32 over the ranks, times the
+    mean scale) bitwise that rule on the ranks' own grads and its distance
+    from the exact sync reported, no copy through the host, the B2 and
+    B3 launches exactly two steps' in total (a rank's remat recompute runs
+    on autograd's device thread, not on its rank thread, so the gate is
+    on totals); then one launcher step (``mesh_step``) whose
+    loss is dp = 1's within 1e-2; b) ``PipelinedModel``, 4 stages (one
+    gemma3-1b layer each) x 8 microbatches, its grads against the
+    monolithic step's within GRAD_TOL of each leaf's largest element, its
+    launches exactly the schedule's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.modes import CommConfig, CommMode
+    from repro_torch.core.transport.wire import to_card, to_host
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.distributed import Mesh, P, PipelinedModel, local_comm
+    from repro_torch.distributed import spmd_map
+    from repro_torch.distributed.compression import (grad_sync_compressed,
+                                                     init_error_state,
+                                                     quantize_int8)
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.launch.mesh import batch_pspecs
+    from repro_torch.launch.train import mesh_step
+    from repro_torch.models import lm
+    from repro_torch.models.blocks import tp_plan
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init, grad_sync
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.train import TrainState, loss_and_grads
+    out = {}
+    _free_card(torch)
+    cfg = dataclasses.replace(get_config("gemma3-1b"),
+                              n_layers=TRAIN_DP["layers"])
+    model = build_model(cfg, device=DEVICE)
+    params, specs = model.init(SEED)
+    data = SyntheticPipeline(vocab=cfg.vocab, seq_len=TRAIN_DP["seq"],
+                             global_batch=TRAIN_DP["batch"]).get_batch(
+                                 0, device=DEVICE)
+    f_step, r_step = _train_want("gemma3-1b", TRAIN_DP["layers"])[:2]
+    by_rank = {}
+
+    def rank_fn(comm, params, batch):
+        comm = dataclasses.replace(comm, fsdp=False)
+        _, m, grads = loss_and_grads(model, params, batch, comm)
+        synced = grad_sync(grads, specs, comm)
+        comp, _ = grad_sync_compressed(grads, specs,
+                                       init_error_state(grads), comm)
+        by_rank[comm.data_index()] = (synced, comp, grads)
+        return 0
+
+    config = CommConfig(mode=CommMode.LCI_DEDICATED)
+    with Mesh((2, 1), ("data", "model"), device=DEVICE) as mesh:
+        bspec = batch_pspecs(cfg, "train", mesh, batch=TRAIN_DP["batch"])
+        n0 = (flash_attention_bhsd.launches, rmsnorm.launches)
+        host0 = (to_host.copies, to_card.copies)
+        t = time.perf_counter()
+        spmd_map(rank_fn, mesh, (P(), bspec), None, config=config)(params,
+                                                                   data)
+        torch.cuda.synchronize()
+        out["dp2_grads_s"] = time.perf_counter() - t
+        host = (to_host.copies - host0[0], to_card.copies - host0[1])
+        n_dp = (flash_attention_bhsd.launches - n0[0],
+                rmsnorm.launches - n0[1])
+        if n_dp != (2 * f_step, 2 * r_step):
+            raise AssertionError(f"dp = 2 launched (flash, RMSNorm) {n_dp}, "
+                                 f"want two steps' {(2 * f_step, 2 * r_step)}")
+        if host != (0, 0):
+            raise AssertionError(f"grad_sync copied through the host "
+                                 f"(to_host, to_card) {host}")
+        opt = AdamWConfig(lr=TRAIN_LR)
+        state = TrainState(params, adamw_init(params, opt))
+        t = time.perf_counter()
+        _, m2 = mesh_step(model, specs, opt, mesh, config)(state, data)
+        dp2_loss = float(m2["loss"])
+        out["dp2_step_s"] = time.perf_counter() - t
+        out["protocol_totals"] = mesh.protocol_totals()
+        del state
+    _, m1, one = loss_and_grads(model, params, data, local_comm())
+    g0, g1 = (dict(leaves_with_paths(by_rank[r][0])) for r in (0, 1))
+    c0, c1 = (dict(leaves_with_paths(by_rank[r][1])) for r in (0, 1))
+    l0, l1 = (dict(leaves_with_paths(by_rank[r][2])) for r in (0, 1))
+    worst, worst_c = 0.0, 0.0
+    for name, want in leaves_with_paths(one):
+        if not torch.equal(g0[name], g1[name]) or \
+                not torch.equal(c0[name], c1[name]):
+            raise AssertionError(f"dp = 2 synced grad {name} differs "
+                                 "between the ranks")
+        scale = float(want.float().abs().max())
+        err = float((g0[name].float() - want.float()).abs().max())
+        if err > GRAD_TOL * scale:
+            raise AssertionError(f"dp = 2 grad {name}: {err} from dp = 1, "
+                                 f"limit {GRAD_TOL} x {scale}")
+        # the compressed sync bitwise its own rule on the two ranks'
+        # local grads: the int8 codes summed in int32, times the mean
+        # scale, over dp
+        (q0, s0), (q1, s1) = (quantize_int8(l[name]) for l in (l0, l1))
+        rule = ((q0.to(torch.int32) + q1.to(torch.int32)).float()
+                * ((s0 + s1) / 2) / 2).to(c0[name].dtype)
+        if not torch.equal(c0[name], rule):
+            raise AssertionError(f"compressed grad {name} is not the int8 "
+                                 "rule on the ranks' grads")
+        gmax = float(g0[name].float().abs().max())
+        worst = max(worst, err / max(scale, 1e-30))
+        worst_c = max(worst_c, float((c0[name].float() - g0[name].float())
+                                     .abs().max()) / max(gmax, 1e-30))
+    loss1 = float(m1["loss"])
+    if abs(dp2_loss - loss1) > 1e-2 * abs(loss1):
+        raise AssertionError(f"dp = 2 step loss {dp2_loss}, dp = 1 "
+                             f"{loss1}")
+    out.update({"dp": 2, "layers": cfg.n_layers, "seq": TRAIN_DP["seq"],
+                "batch": TRAIN_DP["batch"], "ranks_bitwise_equal": True,
+                "grad_worst_share_of_max_vs_dp1": worst,
+                "compressed_worst_share_of_max": worst_c,
+                "loss_dp2": dp2_loss, "loss_dp1": loss1,
+                "host_copies": list(host),
+                "launches": dict(zip(("flash", "rmsnorm"), n_dp)),
+                "launch_gate": "totals: two steps' launches (a rank's "
+                "remat recompute runs on autograd's device thread)"})
+    del params, one, by_rank
+    _free_card(torch)
+
+    # b) PipelinedModel: 4 gemma3-1b layers as stages, 8 microbatches
+    cfg4 = dataclasses.replace(get_config("gemma3-1b"),
+                               n_layers=TRAIN_PP["stages"])
+    p4, _ = build_model(cfg4, device=DEVICE).init(SEED)
+    plan, comm = tp_plan(cfg4, 1), local_comm()
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    xs = [torch.randn(TRAIN_PP["seq"], 1, cfg4.d_model, generator=g,
+                      device=DEVICE).to(cfg4.dtype)
+          for _ in range(TRAIN_PP["micro"])]
+
+    def stage(s):
+        return lambda p, x: lm._decoder_block(x, p, s, cfg4, comm, plan,
+                                              0)[0]
+    stages = [stage(s) for s in range(TRAIN_PP["stages"])]
+    sp = [lm.layer_params(p4, s) for s in range(TRAIN_PP["stages"])]
+
+    def loss_fn(y, m):
+        return (y.float() ** 2).mean()
+
+    c0 = _counts()
+    t = time.perf_counter()
+    loss_pp, grads_pp = PipelinedModel(stages, TRAIN_PP["micro"]) \
+        .forward_backward(sp, xs, loss_fn)
+    torch.cuda.synchronize()
+    pp_s = time.perf_counter() - t
+    got = tuple(b - a for a, b in zip(c0, _counts()))
+    n_nodes = TRAIN_PP["stages"] * TRAIN_PP["micro"]
+    want = (2 * n_nodes, 2 * 4 * n_nodes, 0, 0, 0, 2 * n_nodes, 0)
+    if got != want:
+        raise AssertionError(f"PipelinedModel launched {got}, want {want} "
+                             "(each stage's forward, and again in its "
+                             "backward node)")
+    tracked = [{k: v.detach().requires_grad_() for k, v in p.items()}
+               for p in sp]
+    total = []
+    with torch.enable_grad():
+        for m, x in enumerate(xs):
+            for s in range(TRAIN_PP["stages"]):
+                x = stages[s](tracked[s], x)
+            total.append(loss_fn(x, m))
+        total = torch.stack(total)
+        flat = [v for p in tracked for _, v in sorted(p.items())]
+        mono = torch.autograd.grad(total.sum(), flat)
+    mono = iter(mono)
+    worst_pp = 0.0
+    for s in range(TRAIN_PP["stages"]):
+        for k in sorted(tracked[s]):
+            want_g = next(mono).float()
+            got_g = grads_pp[s][k].float()
+            scale = float(want_g.abs().max())
+            err = float((got_g - want_g).abs().max())
+            if err > GRAD_TOL * scale:
+                raise AssertionError(f"PipelinedModel stage {s} grad {k}: "
+                                     f"{err} from the monolithic step, "
+                                     f"limit {GRAD_TOL} x {scale}")
+            worst_pp = max(worst_pp, err / max(scale, 1e-30))
+    mono_loss = float(total.detach().mean())
+    if abs(float(loss_pp) - mono_loss) > 1e-3 * abs(mono_loss):
+        raise AssertionError(f"PipelinedModel loss {float(loss_pp)}, "
+                             f"monolithic {mono_loss}")
+    out["pipeline"] = {"stages": TRAIN_PP["stages"],
+                       "micro": TRAIN_PP["micro"],
+                       "micro_shape": [TRAIN_PP["seq"], 1, cfg4.d_model],
+                       "seconds": pp_s, "launches": dict(zip(
+                           ("flash", "rmsnorm"), got[:2])),
+                       "grad_worst_share_of_max": worst_pp,
+                       "loss": float(loss_pp)}
+    return out
+
+
+def train_resume_phase(torch) -> dict:
+    """19e: ``train_loop`` for 6 steps with a checkpoint at step 3 into a
+    temporary directory, then a resume to 6 from it, against a straight
+    run of 6: the params bitwise equal, under
+    ``torch.use_deterministic_algorithms(True)`` (the embedding's
+    scatter-add is not deterministic otherwise)."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.train.loop import LoopConfig, train_loop
+    cfg = get_smoke("gemma3-1b")
+    model = build_model(cfg, device=DEVICE)
+    opt = AdamWConfig(lr=TRAIN_LR)
+    pipe = SyntheticPipeline(vocab=cfg.vocab, seq_len=TRAIN_RESUME["seq"],
+                             global_batch=TRAIN_RESUME["batch"])
+    steps = TRAIN_RESUME["steps"]
+
+    def fresh():
+        state, specs = train_state_init(model, SEED, opt)
+        return state, make_train_step(model, specs, opt)
+
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    tmp = tempfile.mkdtemp(prefix="phase19_ckpt_",
+                           dir=os.path.join(ROOT, "build"))
+    try:
+        t = time.perf_counter()
+        state, step = fresh()
+        straight, _ = train_loop(state, step, pipe,
+                                 LoopConfig(total_steps=steps, log_every=0))
+        state, step = fresh()
+        train_loop(state, step, pipe, LoopConfig(
+            total_steps=TRAIN_RESUME["ckpt_every"], ckpt_dir=tmp,
+            ckpt_every=TRAIN_RESUME["ckpt_every"], log_every=0))
+        state, step = fresh()
+        resumed, hist = train_loop(state, step, pipe, LoopConfig(
+            total_steps=steps, ckpt_dir=tmp, ckpt_every=100, log_every=0))
+        seconds = time.perf_counter() - t
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+        shutil.rmtree(tmp, ignore_errors=True)
+    if [r["step"] for r in hist] != list(range(TRAIN_RESUME["ckpt_every"],
+                                               steps)):
+        raise AssertionError(f"the resume ran steps "
+                             f"{[r['step'] for r in hist]}")
+    dist = 0.0
+    for (n, a), (_, b) in zip(leaves_with_paths(straight.params),
+                              leaves_with_paths(resumed.params)):
+        dist = max(dist, float((a.float() - b.float()).abs().max()))
+        if not torch.equal(a, b):
+            raise AssertionError(f"resumed param {n} differs from the "
+                                 f"straight run by {dist}")
+    return {"config": cfg.name, "steps": steps,
+            "checkpoint_at": TRAIN_RESUME["ckpt_every"],
+            "mode": "torch.use_deterministic_algorithms(True), "
+                    "CUBLAS_WORKSPACE_CONFIG=:4096:8",
+            "max_abs_distance": dist, "bitwise": True,
+            "loops_seconds": seconds}
+
+
+def training_phase(torch, counters, profile: bool) -> tuple:
+    """Phase 19: 19a holds each wrapper's backward (the plain version's
+    autograd) at the training shapes (its launches are not the path's);
+    the counts are set to 0 just before 19b-e and read just after; every
+    kernel call of 19b-e is kept by signature, and each kernel is held
+    against its plain version at each one after the counts are read.
+    Returns 19a's cases, the launches of 19b-e by kernel and the path
+    checks by kernel."""
+    from repro_torch.kernels.doorbell import stage_copy_rows
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
+    t19 = time.perf_counter()
+    t0 = time.perf_counter()
+    grad_cases = train_kernel_checks(torch)
+    record("train_kernel_grads", seconds=time.perf_counter() - t0,
+           cases=grad_cases)
+    with _PathCalls() as path:
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        gemma = train_run(torch, TRAIN_GEMMA["arch"], None,
+                          TRAIN_GEMMA["seq"], TRAIN_GEMMA["batch"],
+                          TRAIN_GEMMA["steps"], TRAIN_GEMMA["timed"],
+                          profile=profile, strict=True)
+        record("train_gemma3", seconds=time.perf_counter() - t0, **gemma)
+        for arch, layers in TRAIN_FAMILIES:
+            t0 = time.perf_counter()
+            fam = train_run(torch, arch, layers, TRAIN_SMALL["seq"],
+                            TRAIN_SMALL["batch"], TRAIN_SMALL["steps"],
+                            TRAIN_SMALL["steps"] - 1, profile=profile)
+            record("train_family", seconds=time.perf_counter() - t0, **fam)
+        t0 = time.perf_counter()
+        dp = train_dp_phase(torch)
+        record("train_dp_pipeline", seconds=time.perf_counter() - t0, **dp)
+        t0 = time.perf_counter()
+        resume = train_resume_phase(torch)
+        record("train_resume", seconds=time.perf_counter() - t0, **resume)
+        g_launches = {"flash_attention": flash_attention_bhsd.launches,
+                      "rmsnorm": rmsnorm.launches,
+                      "moe_gmm": moe_gmm.launches,
+                      "ssd_scan": ssd_scan_bhsp.launches,
+                      "doorbell": stage_copy_rows.launches}
+        g_by_variant = {
+            "flash_attention": dict(flash_attention_bhsd.launches_by_variant),
+            "moe_gmm": dict(moe_gmm.launches_by_variant),
+            "ssd_scan": dict(ssd_scan_bhsp.launches_by_variant)}
+    if min(g_launches[k] for k in ("flash_attention", "rmsnorm", "moe_gmm",
+                                   "ssd_scan")) == 0:
+        raise AssertionError(f"the training path launched a kernel no "
+                             f"time: {g_launches}")
+    _free_card(torch)
+    t0 = time.perf_counter()
+    checks = path_kernel_checks(torch, path.calls, prefix="train_path",
+                                b4_scaled=True)
+    del path
+    missing = [k for k, n in (("flash", g_launches["flash_attention"]),
+                              ("rmsnorm", g_launches["rmsnorm"]),
+                              ("moe_gmm", g_launches["moe_gmm"]),
+                              ("ssd_scan", g_launches["ssd_scan"]),
+                              ("doorbell", g_launches["doorbell"]))
+               if n and not checks[k]]
+    if missing:
+        raise AssertionError(f"phase 19 launched {missing} at no signature "
+                             "that was kept")
+    record("phase19_kernel_checks", seconds=time.perf_counter() - t0,
+           signatures={k: len(v) for k, v in checks.items()},
+           cases=checks)
+    record("phase19", seconds=time.perf_counter() - t19,
+           launches=g_launches, launches_by_variant=g_by_variant)
+    return grad_cases, g_launches, checks
+
+
 def _zero_counts(counters):
     """Every launch count to 0, by thread too, B2's and B4's counts by
     variant and B3's by shape."""
@@ -3984,7 +4729,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of one prefill "
                          "call and 8 decode steps to phases 7, 10, 13 and "
-                         "14")
+                         "14, and of one training step to phases 19b-c")
     ap.add_argument("--spmd-rank", metavar="DIR",
                     help="run as one rank of phase 15's two-process run "
                          "(the SPMD launcher starts it), reporting to DIR")
@@ -4315,6 +5060,19 @@ def main(argv=None) -> int:
     rms += checks["rmsnorm"]
     cases += checks["doorbell"]
 
+    # 19. training on the card (:func:`training_phase`)
+    grad_cases, g_launches, checks = training_phase(torch, counters,
+                                                    args.profile)
+    flash += checks["flash"]
+    rms += checks["rmsnorm"]
+    moe += checks["moe_gmm"]
+    ssd += checks["ssd_scan"]
+    cases += checks["doorbell"]
+
+    def grad_err(prefix):
+        return max(c["max_abs_err"] for c in grad_cases
+                   if c["case"].startswith(prefix))
+
     # the kernels line: headline numbers at each main path's shape
     head = next(c for c in cases if c["case"] == "rows_f32_64x16384_bf160")
     fhead = next(c for c in flash
@@ -4334,7 +5092,7 @@ def main(argv=None) -> int:
         "source": SOURCE, "replaces": REPLACES,
         "launches": launches + t_launches + p_launches + v_launches
         + v_ranks + c_launches + tp_launches["doorbell"]
-        + r_launches["doorbell"],
+        + r_launches["doorbell"] + g_launches["doorbell"],
         "launches_by_path": {"message path (phase 4)": launches,
                              "transports (phase 15)": t_launches,
                              "two processes (phase 15)": p_launches,
@@ -4344,7 +5102,8 @@ def main(argv=None) -> int:
                              "collectives (phase 17a)": c_launches,
                              "tensor parallel (phase 17b-d)":
                                  tp_launches["doorbell"],
-                             "recovery (phase 18)": r_launches["doorbell"]},
+                             "recovery (phase 18)": r_launches["doorbell"],
+                             "training (phase 19)": g_launches["doorbell"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": "bytes",
@@ -4360,14 +5119,20 @@ def main(argv=None) -> int:
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": n_flash + m_flash + y_flash
-        + tp_launches["flash_attention"] + r_launches["flash_attention"],
+        + tp_launches["flash_attention"] + r_launches["flash_attention"]
+        + g_launches["flash_attention"],
         "launches_by_path": {"gemma3-1b": n_flash, "olmoe-1b-7b": m_flash,
                              "mamba2-370m": 0, "hymba-1.5b": y_flash,
                              "tensor parallel (phase 17)":
                                  tp_launches["flash_attention"],
                              "recovery (phase 18)":
-                                 r_launches["flash_attention"]},
+                                 r_launches["flash_attention"],
+                             "training (phase 19)":
+                                 g_launches["flash_attention"]},
         "max_abs_err": max(c["max_abs_err"] for c in flash),
+        "plain_backward_max_abs_err": grad_err("flash"),
+        "backward": "autograd of flash_attention_ref (tc: P in bf16), "
+                    "recomputed from the saved q, k, v; " + PLAIN_BACKWARD,
         "ms": fhead["kernel_ms"], "plain_ms": fhead["plain_ms"],
         "bound_ms": fhead["bound_ms"], "bound_by": fhead["bound_by"],
         "library_ms": fhead["library_ms"], "shape_q": fhead["shape_q"],
@@ -4384,13 +5149,17 @@ def main(argv=None) -> int:
         "name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
         "replaces": RMS_REPLACES,
         "launches": n_rms + m_rms + s_rms + y_rms + tp_launches["rmsnorm"]
-        + r_launches["rmsnorm"],
+        + r_launches["rmsnorm"] + g_launches["rmsnorm"],
         "launches_by_path": {"gemma3-1b": n_rms, "olmoe-1b-7b": m_rms,
                              "mamba2-370m": s_rms, "hymba-1.5b": y_rms,
                              "tensor parallel (phase 17)":
                                  tp_launches["rmsnorm"],
-                             "recovery (phase 18)": r_launches["rmsnorm"]},
+                             "recovery (phase 18)": r_launches["rmsnorm"],
+                             "training (phase 19)": g_launches["rmsnorm"]},
         "max_abs_err": max(c["max_abs_err"] for c in rms),
+        "plain_backward_max_abs_err": grad_err("rmsnorm"),
+        "backward": "autograd of rmsnorm_ref, recomputed from the saved "
+                    "x and w; " + PLAIN_BACKWARD,
         "ms": rhead["kernel_ms"], "plain_ms": rhead["plain_ms"],
         "bound_ms": rhead["bound_ms"], "bound_by": "bytes",
         "library_ms": rhead["library_ms"], "shape": rhead["shape"],
@@ -4398,11 +5167,17 @@ def main(argv=None) -> int:
         "cases": _summary([c for c in rms if "kernel_ms" in c],
                           timed + ("copy_ms", "bound_share"))}, {
         "name": "moe_gmm", "route": "cuda", "source": MOE_SOURCE,
-        "replaces": MOE_REPLACES, "launches": n_moe + tp_launches["moe_gmm"],
+        "replaces": MOE_REPLACES, "launches": n_moe + tp_launches["moe_gmm"]
+        + g_launches["moe_gmm"],
         "launches_by_path": {"olmoe-1b-7b": n_moe,
                              "tensor parallel (phase 17)":
-                                 tp_launches["moe_gmm"]},
+                                 tp_launches["moe_gmm"],
+                             "training (phase 19)": g_launches["moe_gmm"]},
         "max_abs_err": max(c["max_abs_err"] for c in moe),
+        "plain_backward_max_abs_err": grad_err("moe_gmm"),
+        "backward": "autograd of moe_gmm_ref (tc: h rounded to bf16 once "
+                    "after the float32 activation), recomputed from the "
+                    "saved operands; " + PLAIN_BACKWARD,
         "ms": mhead["kernel_ms"], "plain_ms": mhead["plain_ms"],
         "bound_ms": mhead["bound_ms"], "bound_by": mhead["bound_by"],
         "library_ms": mhead["library_ms"], "shape": mhead["shape_x"],
@@ -4415,11 +5190,17 @@ def main(argv=None) -> int:
                           timed + ("variant", "kernel_no_rows_ms"))}, {
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
         "replaces": SSD_REPLACES,
-        "launches": s_ssd + y_ssd + tp_launches["ssd_scan"],
+        "launches": s_ssd + y_ssd + tp_launches["ssd_scan"]
+        + g_launches["ssd_scan"],
         "launches_by_path": {"mamba2-370m": s_ssd, "hymba-1.5b": y_ssd,
                              "tensor parallel (phase 17)":
-                                 tp_launches["ssd_scan"]},
+                                 tp_launches["ssd_scan"],
+                             "training (phase 19)": g_launches["ssd_scan"]},
         "max_abs_err": max(c["max_abs_err"] for c in ssd),
+        "plain_backward_max_abs_err": grad_err("ssd_scan"),
+        "backward": "autograd of ssd_scan_tc_ref (tc) or ssd_scan_ref "
+                    "(simt), recomputed from the saved inputs; "
+                    + PLAIN_BACKWARD,
         "ms": shead["kernel_ms"], "plain_ms": shead["plain_ms"],
         "bound_ms": shead["bound_ms"], "bound_by": shead["bound_by"],
         "library_ms": None, "shape_x": shead["shape_x"],

@@ -31,6 +31,7 @@ from ..core.axis import Axis
 from ..core.modes import CommConfig, CommMode
 from ..core.progress import EndpointSpec
 from ..core.runtime import resolve_device
+from ..core.tree import tree_map
 
 AxisSpec = Union[Axis, Tuple[Axis, ...], None]
 
@@ -39,14 +40,6 @@ def _axes(a: AxisSpec) -> Tuple[Axis, ...]:
     if a is None:
         return ()
     return (a,) if isinstance(a, Axis) else tuple(a)
-
-
-def _tree_map(fn, x):
-    if isinstance(x, dict):
-        return {k: _tree_map(fn, v) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return type(x)(_tree_map(fn, v) for v in x)
-    return fn(x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,13 +158,17 @@ class Comm:
         return ax.psum(x)
 
     def psum_model_ge(self, x: torch.Tensor) -> torch.Tensor:
-        """Gradient-exact psum over the model axis (router aux means).
+        """Gradient-exact psum over the model axis (router aux means, the
+        loss's exp-sums and target logits).
 
-        The forward value is the psum.  The reference's backward passes
-        the cotangent through untouched (``x + stop_gradient(psum(x) -
-        x)``); the port's forward runs under ``torch.no_grad()``, so the
-        gradient-exact form waits for the training slice (ROADMAP A6b)."""
-        return self.psum_model(x)
+        The forward value is the psum; the backward passes the cotangent
+        through untouched, the reference's ``x + stop_gradient(psum(x) -
+        x)``: the value is replicated over the axis, so each rank's
+        cotangent already is the whole one."""
+        ax = self._one_model_axis()
+        if ax is None:
+            return x
+        return _PsumGradExact.apply(x, ax)
 
     def pmax_model(self, x: torch.Tensor) -> torch.Tensor:
         ax = self._one_model_axis()
@@ -229,7 +226,7 @@ class Comm:
     def pmean_data(self, x):
         if not _axes(self.data_axis):
             return x
-        return _tree_map(lambda v: self.psum_data(v) / self.dp, x)
+        return tree_map(lambda v: self.psum_data(v) / self.dp, x)
 
     def psum_all(self, x: torch.Tensor) -> torch.Tensor:
         return self.psum_model(self.psum_data(x))
@@ -237,7 +234,7 @@ class Comm:
     def pmean_all(self, x):
         """Mean over every mesh axis — makes a metric fully replicated."""
         n = self.tp * self.dp
-        return _tree_map(lambda v: self.psum_all(v) / n, x)
+        return tree_map(lambda v: self.psum_all(v) / n, x)
 
     # -- barrier (paper §6 primitive) ----------------------------------------
     def barrier(self, device=None) -> torch.Tensor:
@@ -254,6 +251,18 @@ class Comm:
         for a in _axes(self.data_axis):
             tok = tok * 0 + C.dissemination_barrier(a)
         return tok
+
+
+class _PsumGradExact(torch.autograd.Function):
+    """``axis.psum`` forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.psum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def local_comm(config: Optional[CommConfig] = None) -> Comm:

@@ -10,7 +10,7 @@ semantics (fire order = completion order) plus its introspection: the
 critical path length of the graph IS the pipeline's bubble-inclusive step
 count.
 
-Two deployments of the reference (``repro.distributed.pipeline``) are
+The reference's three deployments (``repro.distributed.pipeline``) are
 ported:
 
 * :func:`schedule_1f1b` — build + validate the schedule (tested against
@@ -23,8 +23,10 @@ ported:
   ``graph.start()`` posts the ready ops, the progress engine signals
   completions, and downstream stages fire as signals arrive.
 
-:class:`PipelinedModel`, stage-split training on the host schedule,
-differentiates each stage and waits for the training slice (ROADMAP A6b).
+* :class:`PipelinedModel` — stage-split training on the host schedule:
+  the graph's fire order runs each stage's forward and backward (torch
+  autograd of one stage at a time), handing activations forward and
+  cotangents back explicitly.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import torch
 
 from ..core.graph import CompletionGraph
 from ..core.post import post_recv_x, post_send_x
+from ..core.tree import leaves_with_paths, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,10 +279,57 @@ def build_1f1b_comm_graph(cluster, n_micro: int, payload_bytes: int = 32,
 
 
 class PipelinedModel:
-    """Stage-split training on the completion-graph schedule — not ported
-    yet: it differentiates each stage, which waits for the training slice
-    (ROADMAP A6b)."""
+    """Stage-split training on the completion-graph schedule.
+
+    ``stage_fns[s](params_s, x) -> y`` for forward (``params_s`` a tensor
+    or a tree of dicts and lists); backward is torch autograd per stage
+    with explicit activation hand-off: a forward node keeps its output
+    (no graph recorded), a backward node runs its stage again under
+    autograd from the kept input and pulls the cotangent that stage
+    s + 1 handed back (the last stage the loss's) through it — the
+    reference's ``jax.vjp`` a stage.  The graph supplies the order, this
+    class the dataflow.  Single-host (semantics and tests)."""
 
     def __init__(self, stage_fns: List[Callable], n_micro: int):
-        raise NotImplementedError("PipelinedModel is not ported (A6b): it "
-                                  "differentiates each stage")
+        self.stage_fns = stage_fns
+        self.n_stages = len(stage_fns)
+        self.n_micro = n_micro
+
+    def forward_backward(self, stage_params: List[Any],
+                         micro_xs: List[torch.Tensor], loss_fn: Callable
+                         ) -> Tuple[torch.Tensor, List[Any]]:
+        """Returns (mean loss, per-stage grads summed over microbatches)."""
+        graph, _ = schedule_1f1b(self.n_stages, self.n_micro)
+        acts: Dict[Tuple[int, int], torch.Tensor] = {}
+        dacts: Dict[Tuple[int, int], torch.Tensor] = {}
+        grads = [tree_map(torch.zeros_like, sp) for sp in stage_params]
+        losses = []
+
+        graph.execute()                       # fire order with 1F1B deps
+        for nid in graph.fire_order:
+            node = graph.value(nid)
+            s, m = node.stage, node.micro
+            x = micro_xs[m] if s == 0 else acts[(s - 1, m)]
+            if node.is_fwd:
+                with torch.no_grad():
+                    acts[(s, m)] = self.stage_fns[s](stage_params[s], x)
+                continue
+            tracked = tree_map(lambda p: p.detach().requires_grad_(),
+                               stage_params[s])
+            leaves = [p for _, p in leaves_with_paths(tracked)]
+            xin = x.detach().requires_grad_(x.is_floating_point())
+            with torch.enable_grad():
+                y = self.stage_fns[s](tracked, xin)
+                if s == self.n_stages - 1:
+                    out, cot = loss_fn(y, m), None    # scalar loss
+                    losses.append(out.detach())
+                else:
+                    out, cot = y, dacts[(s + 1, m)]
+                srcs = leaves + ([xin] if xin.requires_grad else [])
+                got = torch.autograd.grad(out, srcs, cot)
+            for (_, acc), g in zip(leaves_with_paths(grads[s]), got):
+                acc.add_(g)
+            if xin.requires_grad:
+                dacts[(s, m)] = got[-1]
+        graph.assert_partial_order()
+        return torch.stack(losses).mean(), grads

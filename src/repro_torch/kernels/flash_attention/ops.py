@@ -23,6 +23,12 @@ and v in place through their strides (the seq-major wrapper's views
 too), and writes the output in place; a view that a TMA map cannot
 address (off a 16-byte boundary) is copied first.  On ``"simt"`` the
 operands and the output go through dense copies in the kernel layout.
+
+When q, k or v requires a gradient, a CUDA call records a backward: the
+autograd of the plain version of the variant that ran
+(``flash_attention_ref(..., p_dtype=torch.bfloat16)`` for ``"tc"``, the
+reference's arithmetic for ``"simt"``), recomputed from the saved q, k
+and v; it launches no kernel.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .. import _build, count_launch
+from .. import _build, count_launch, grad_wanted, plain_vjp
 from .ref import flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -218,6 +224,13 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
+    if grad_wanted(q, k, v):
+        return _FlashFn.apply(q, k, v, causal, window, q_offset, False)
+    return _bhsd_call(q, k, v, causal=causal, window=window,
+                      q_offset=q_offset)
+
+
+def _bhsd_call(q, k, v, *, causal, window, q_offset):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     return _attend(q, k, v, out, causal=causal, window=window,
                    q_offset=q_offset)
@@ -236,10 +249,44 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                   causal=causal, window=window,
                                   q_offset=q_offset)
         return out.permute(2, 0, 1, 3)
+    if grad_wanted(q, k, v):
+        return _FlashFn.apply(q, k, v, causal, window, q_offset, True)
+    return _seq_call(q, k, v, causal=causal, window=window,
+                     q_offset=q_offset)
+
+
+def _seq_call(q, k, v, *, causal, window, q_offset):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _attend(*(t.permute(1, 2, 0, 3) for t in (q, k, v, out)),
             causal=causal, window=window, q_offset=q_offset)
     return out
+
+
+class _FlashFn(torch.autograd.Function):
+    """The kernel forward (either layout); the backward of the plain
+    version of the variant that ran."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, seq_major):
+        ctx.args = dict(causal=causal, window=window, q_offset=q_offset)
+        ctx.seq_major = seq_major
+        # the variant rule reads dtype and head dim only: either layout
+        ctx.p_dtype = (torch.bfloat16 if variant(q, k, v) == "tc"
+                       else None)
+        ctx.save_for_backward(q, k, v)
+        call = _seq_call if seq_major else _bhsd_call
+        return call(q, k, v, **ctx.args)
+
+    @staticmethod
+    def backward(ctx, go):
+        def plain(q, k, v):
+            if ctx.seq_major:
+                q, k, v = (t.permute(1, 2, 0, 3) for t in (q, k, v))
+            o = flash_attention_ref(q, k, v, p_dtype=ctx.p_dtype, **ctx.args)
+            return o.permute(2, 0, 1, 3) if ctx.seq_major else o
+        grads = plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:3],
+                          (go,))
+        return (*grads, None, None, None, None)
 
 
 def variant_of(call):

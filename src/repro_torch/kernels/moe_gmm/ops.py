@@ -12,6 +12,11 @@ with the activation into a scratch ``h`` that this wrapper allocates,
 then the second product).  ``moe_gmm.launches`` counts wrapper calls
 that launched the kernel, ``moe_gmm.launches_by_variant`` the same by
 variant and ``moe_gmm.launches_by_thread`` by thread.
+
+When x, w1 or w2 requires a gradient, a CUDA call records a backward: the
+autograd of the plain version of the variant that ran (``moe_gmm_ref``
+with h rounded once to bf16 after the float32 activation for ``"tc"``, h
+in float32 for ``"simt"``), recomputed from the saved operands.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from .. import _build, count_launch
+from .. import _build, count_launch, grad_wanted, plain_vjp
 from .ref import ACTS, moe_gmm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -99,6 +104,37 @@ def moe_gmm(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
     del block_c
     if x.device.type == "cpu":
         return moe_gmm_ref(x, w1, w2, act=act, rows=rows)
+    if grad_wanted(x, w1, w2):
+        return _MoeGmmFn.apply(x, w1, w2, act, rows)
+    return _launch(x, w1, w2, act, rows)
+
+
+class _MoeGmmFn(torch.autograd.Function):
+    """The kernel forward; the backward of the plain version of the
+    variant that ran."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w2, act, rows):
+        ctx.act = act
+        ctx.h_dtype = (torch.bfloat16 if variant(x, w1, w2) == "tc"
+                       else None)
+        ctx.save_for_backward(x, w1, w2, rows)
+        return _launch(x, w1, w2, act, rows)
+
+    @staticmethod
+    def backward(ctx, go):
+        x, w1, w2, rows = ctx.saved_tensors
+        grads = plain_vjp(
+            lambda x_, w1_, w2_: moe_gmm_ref(x_, w1_, w2_, act=ctx.act,
+                                             rows=rows,
+                                             h_dtype=ctx.h_dtype),
+            (x, w1, w2), ctx.needs_input_grad[:3], (go,))
+        return (*grads, None, None)
+
+
+def _launch(x, w1, w2, act, rows) -> torch.Tensor:
+    """One call of the variant :func:`variant` picks (two launches in one
+    C call), or raise."""
     f = _check(x, w1, w2, act, rows)
     e, c, d = x.shape
     out = torch.empty_like(x)

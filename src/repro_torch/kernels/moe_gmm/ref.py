@@ -5,7 +5,10 @@ w1[e]) @ w2[e]`` with both products and the activation in float32 and the
 result cast to x.dtype.  swiglu and geglu split w1's output dim as
 [gate | up]; JAX's ``gelu(approximate=True)`` is torch's
 ``gelu(approximate="tanh")``.  The kernel's optional ``rows`` (each
-expert's filled rows) zeroes the rows past each fill.
+expert's filled rows) zeroes the rows past each fill.  ``h_dtype``
+(default None: h stays float32) rounds ``h`` to that dtype once, after
+the float32 activation: with ``torch.bfloat16`` it is the plain version
+of the kernel's tensor-core variant.
 """
 from __future__ import annotations
 
@@ -34,13 +37,15 @@ def activation_f32(act: str, h: torch.Tensor) -> torch.Tensor:
 
 
 def moe_gmm_ref(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
-                act: str = "swiglu",
-                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                act: str = "swiglu", rows: Optional[torch.Tensor] = None,
+                h_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x (E, C, d); w1 (E, d, m·f); w2 (E, f, d) -> (E, C, d) in x.dtype;
     with ``rows`` ((E,) integers), expert e's rows at or past ``rows[e]``
     are zero."""
     h = torch.einsum("ecd,edf->ecf", x.float(), w1.float())
     h = activation_f32(act, h)
+    if h_dtype is not None:
+        h = h.to(h_dtype).float()
     o = torch.einsum("ecf,efd->ecd", h, w2.float())
     if rows is not None:
         slot = torch.arange(o.shape[1], device=o.device)

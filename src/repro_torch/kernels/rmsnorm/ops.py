@@ -5,7 +5,9 @@ kernel (``csrc/rmsnorm.cu``) on the current stream, without
 synchronising, or raises; for a CPU tensor it takes the plain version in
 :mod:`.ref`.  There is no fallback.  ``rmsnorm.launches`` counts the
 kernel launches, ``rmsnorm.launches_by_shape`` the same launches by
-``(rows, d)`` and ``rmsnorm.launches_by_thread`` by thread.
+``(rows, d)`` and ``rmsnorm.launches_by_thread`` by thread.  When x or
+w requires a gradient, the call records a backward: the autograd of
+:func:`.ref.rmsnorm_ref`, recomputed from the saved x and w.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from .. import _build, count_launch
+from .. import _build, count_launch, grad_wanted, plain_vjp
 from .ref import rmsnorm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -50,6 +52,31 @@ def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor] = None, *,
     float32: ``x * rsqrt(mean(x²) + eps) [* w]``."""
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps=eps)
+    if grad_wanted(x, w):
+        return _RmsNormFn.apply(x, w, eps)
+    return _launch(x, w, eps)
+
+
+class _RmsNormFn(torch.autograd.Function):
+    """The kernel forward; the backward of the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, w)
+        return _launch(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gx, gw = plain_vjp(lambda x_, w_: rmsnorm_ref(x_, w_, eps=ctx.eps),
+                           (x, w), ctx.needs_input_grad[:2], (gy,))
+        return gx, gw, None
+
+
+def _launch(x: torch.Tensor, w: Optional[torch.Tensor], eps: float
+            ) -> torch.Tensor:
+    """One kernel launch on CUDA tensors, or raise."""
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm: unsupported device {x.device}")
     d = x.shape[-1]

@@ -21,6 +21,12 @@ variant, ``ssd_scan_bhsp.launches_by_variant`` the same by variant and
 
 The kernel chooses its own chunk length; the ``chunk`` argument is the
 reference's tiling hint and changes only the rounding of the result.
+
+When x, dt, a_log, b, c, d_skip or h0 requires a gradient, a CUDA call
+records a backward: the autograd of the plain version of the variant
+that ran (:func:`.ref.ssd_scan_tc_ref` for ``"tc"``, the per-step
+:func:`.ref.ssd_scan_ref` for ``"simt"``), recomputed from the saved
+inputs, for y and the final state alike.
 """
 from __future__ import annotations
 
@@ -29,8 +35,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build, count_launch
-from .ref import ssd_scan_ref
+from .. import _build, count_launch, grad_wanted, plain_vjp
+from .ref import ssd_scan_ref, ssd_scan_tc_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 #: the largest state size the kernel's shared memory takes
@@ -204,6 +210,12 @@ def ssd_scan_bhsp(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     del chunk
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, a_log, b, c, d_skip, h0=h0)
+    if grad_wanted(x, dt, a_log, b, c, d_skip, h0):
+        return _SsdScanFn.apply(x, dt, a_log, b, c, d_skip, h0, False)
+    return _bhsp_call(x, dt, a_log, b, c, d_skip, h0)
+
+
+def _bhsp_call(x, dt, a_log, b, c, d_skip, h0):
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     return y, _launch(x, dt, a_log, b, c, d_skip, h0, y)
 
@@ -217,15 +229,54 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     h_final (bs, h, n, p)).  The reference's adapter returns y alone; the
     final state comes along here because the model's scan returns it."""
     del chunk
-    xt, dtt = x.permute(1, 2, 0, 3), dt.permute(1, 2, 0)
-    bt, ct = b.permute(1, 2, 0, 3), c.permute(1, 2, 0, 3)
     if x.device.type == "cpu":
+        xt, dtt, bt, ct = _seq_major(x, dt, b, c)
         y, h_final = ssd_scan_ref(xt, dtt, a_log, bt, ct, d_skip, h0=h0)
         return y.permute(2, 0, 1, 3).contiguous(), h_final
+    if grad_wanted(x, dt, a_log, b, c, d_skip, h0):
+        return _SsdScanFn.apply(x, dt, a_log, b, c, d_skip, h0, True)
+    return _seq_call(x, dt, a_log, b, c, d_skip, h0)
+
+
+def _seq_major(x, dt, b, c):
+    """The kernel-layout views of seq-major x, dt, b and c."""
+    return (x.permute(1, 2, 0, 3), dt.permute(1, 2, 0), b.permute(1, 2, 0, 3),
+            c.permute(1, 2, 0, 3))
+
+
+def _seq_call(x, dt, a_log, b, c, d_skip, h0):
+    xt, dtt, bt, ct = _seq_major(x, dt, b, c)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     h_final = _launch(xt, dtt, a_log, bt, ct, d_skip, h0,
                       y.permute(1, 2, 0, 3))
     return y, h_final
+
+
+class _SsdScanFn(torch.autograd.Function):
+    """The kernel forward (either layout); the backward of the plain
+    version of the variant that ran, for y and the final state."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, d_skip, h0, seq_major):
+        ctx.seq_major = seq_major
+        # the variant rule reads dtype and the last dims: either layout
+        ctx.plain = (ssd_scan_tc_ref if variant(x, b) == "tc"
+                     else ssd_scan_ref)
+        ctx.save_for_backward(x, dt, a_log, b, c, d_skip, h0)
+        call = _seq_call if seq_major else _bhsp_call
+        y, h_final = call(x, dt, a_log, b, c, d_skip, h0)
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        def plain(x, dt, a_log, b, c, d_skip, h0):
+            if ctx.seq_major:
+                x, dt, b, c = _seq_major(x, dt, b, c)
+            y, h_final = ctx.plain(x, dt, a_log, b, c, d_skip, h0=h0)
+            return (y.permute(2, 0, 1, 3) if ctx.seq_major else y), h_final
+        grads = plain_vjp(plain, ctx.saved_tensors,
+                          ctx.needs_input_grad[:7], (gy, gh))
+        return (*grads, None)
 
 
 def variant_of(call):

@@ -190,11 +190,14 @@ def truncated_normal_init(gen: torch.Generator, shape, scale: float, dtype,
 
 class ParamFactory:
     """Init-time helper that records a ParamSpec for every created param.
-    Draws from ``gen`` on ``gen.device``."""
+    Draws from ``gen`` on ``gen.device``, or allocates on ``device`` when
+    given (``"meta"``: shapes and dtypes only, nothing drawn)."""
 
-    def __init__(self, gen: torch.Generator, dtype, fsdp: bool = True):
+    def __init__(self, gen: torch.Generator, dtype, fsdp: bool = True,
+                 device=None):
         self.gen = gen
-        self.device = gen.device
+        self.device = torch.device(device) if device is not None \
+            else gen.device
         self.dtype = dtype
         self.fsdp = fsdp
         self.specs: Dict[str, ParamSpec] = {}

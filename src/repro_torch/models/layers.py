@@ -5,7 +5,8 @@ seq-major local view ``(s_local, b, d)`` with a :class:`Comm`.  Norm math
 is float32 whatever the payload dtype.  :func:`rms_norm` goes through the
 RMSNorm kernel (:mod:`repro_torch.kernels.rmsnorm`): for a CUDA tensor it
 launches the hand-written Hopper kernel, for a CPU tensor it runs the
-plain version.  The loss (``lm_head_loss``) waits for the training slice.
+plain version.  :func:`lm_head_loss` is the training loss, the
+vocab-parallel cross-entropy.
 
 Numerics kept from the reference: ``jax.nn.gelu`` defaults to the tanh
 approximation, so both ``"gelu"`` and ``"geglu"`` use
@@ -146,6 +147,39 @@ def embed_tokens(tokens: torch.Tensor, emb: torch.Tensor, comm, *,
     if scale_by_sqrt_dim:
         out = out * math.sqrt(d)
     return out.to(emb.dtype)
+
+
+def lm_head_loss(x: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
+                 comm, *, real_vocab: int, z_coef: float = 0.0,
+                 ignore_label: int = -100):
+    """Vocab-parallel cross-entropy (``repro/models/layers.py:149``).
+
+    x: (s, b, d) full-sequence activations; emb: (V_local, d) head
+    shard; labels: (s, b) global ids.  Returns (sum of the per-token
+    losses float32, number of kept tokens): only (s, b, V_local) logits
+    ever exist on a rank.  Padded vocab rows score -1e30; the max is a
+    constant of the gradient (taken detached, then pmax'd), and the
+    exp-sum and target logit are summed over the model axis with
+    :meth:`Comm.psum_model_ge`, whose backward is the identity."""
+    v_local = emb.shape[0]
+    rank = comm.model_index()
+    logits = torch.matmul(x.float(), emb.float().T)
+    gid = rank * v_local + torch.arange(v_local, device=x.device)
+    logits = logits.masked_fill(gid >= real_vocab, NEG_INF)
+    m = comm.pmax_model(logits.detach().amax(dim=-1))
+    se = comm.psum_model_ge(torch.exp(logits - m[..., None]).sum(dim=-1))
+    lse = m + torch.log(se)                                     # (s, b)
+    local = labels.long() - rank * v_local
+    valid = (local >= 0) & (local < v_local)
+    tl_local = torch.gather(logits, -1,
+                            local.clamp(0, v_local - 1)[..., None])[..., 0]
+    target = comm.psum_model_ge(torch.where(valid, tl_local,
+                                            tl_local.new_zeros(())))
+    keep = labels != ignore_label
+    per_tok = (lse - target) * keep
+    if z_coef:
+        per_tok = per_tok + z_coef * (lse * keep) ** 2
+    return per_tok.sum(), keep.sum()
 
 
 def lm_head_logits(x: torch.Tensor, emb: torch.Tensor, comm, *,

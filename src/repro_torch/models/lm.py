@@ -1,5 +1,5 @@
-"""Language models: init and forward, dense, moe, ssm and hybrid families
-(PyTorch port).
+"""Language models: init, forward and loss, dense, moe, ssm and hybrid
+families (PyTorch port).
 
 The mirror of :mod:`repro.models.lm` for the dense family (GQA,
 sliding-window, qk-norm and parallel-block transformers), the moe family
@@ -8,27 +8,34 @@ expert), the ssm family (a Mamba2 :mod:`.ssm` mixer a layer, no MLP) and
 the hybrid family (attention and the SSM mixer side by side on the same
 normed input, their outputs RMS-normed and averaged, then an MLP).  The
 layer stack is a Python loop over the stacked ``(L, ...)`` parameters
-(the reference's ``lax.scan``); there is no autograd here, so no remat.
+(the reference's ``lax.scan``); with ``remat`` and grad mode on, each
+layer runs under ``torch.utils.checkpoint`` (the reference's per-layer
+``jax.checkpoint``), so backward recomputes it from its input.
+:func:`loss_and_metrics` is the training loss: the vocab-parallel
+cross-entropy over ``loss_chunk``-row chunks, each checkpointed so that
+one chunk's float32 logits are live at a time, plus the router terms.
 At tp > 1 every block runs the reference's tensor-parallel schedule
 through the :class:`Comm` (sequence-sharded activations, the ring
-collectives at the TP boundaries).  The vlm and audio families, the loss
-and remat are not ported yet (ROADMAP.md).
+collectives at the TP boundaries); training is ported at tp = 1.  The
+vlm and audio families are not ported yet (ROADMAP.md A5).
 
 Batch convention (seq-major local view):
     tokens  (s_local, b)   int
+    labels  (s_local, b)   int   (-100 = ignore)
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..distributed.comm import Comm
 from .blocks import TPPlan, init_attention, init_mlp, swa_attention_op, \
     tp_plan
 from .common import ModelConfig, ParamFactory
-from .layers import (apply_norm, embed_tokens, gated_activation, mlp_activation,
-                     mlp_block, rms_norm)
+from .layers import (apply_norm, embed_tokens, gated_activation,
+                     lm_head_loss, mlp_activation, mlp_block, rms_norm)
 from .moe import init_moe, moe_block
 from .ssm import init_ssm, ssm_op
 
@@ -81,13 +88,14 @@ def _init_layer_stack(pf: ParamFactory, cfg: ModelConfig, L: int
     return p
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator
+def init_params(cfg: ModelConfig, gen: torch.Generator, device=None
                 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Returns (params, specs), parallel dicts with the reference's keys
     and stacked shapes, drawn from ``gen`` on ``gen.device`` in the
-    reference's order."""
+    reference's order (on ``device`` when given: ``"meta"`` allocates
+    nothing)."""
     require_ported(cfg, "init_params")
-    pf = ParamFactory(gen, cfg.dtype, fsdp=cfg.fsdp_params)
+    pf = ParamFactory(gen, cfg.dtype, fsdp=cfg.fsdp_params, device=device)
     d = cfg.d_model
     params: Dict[str, Any] = {}
     specs: Dict[str, Any] = {}
@@ -178,11 +186,12 @@ def final_norm_kind(cfg: ModelConfig) -> str:
     return "rmsnorm" if cfg.norm == "rmsnorm" else "layernorm"
 
 
-@torch.no_grad()
 def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig, comm: Comm
+            cfg: ModelConfig, comm: Comm, *, remat: bool = True
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (x_full (s, b, d) post-final-norm full-sequence, aux)."""
+    """Returns (x_full (s, b, d) post-final-norm full-sequence, aux).
+    ``remat`` checkpoints each layer when grad mode is on (under
+    ``torch.no_grad()`` it changes nothing)."""
     require_ported(cfg, "forward")
     plan = tp_plan(cfg, comm.tp)
     tokens = batch["tokens"]
@@ -193,9 +202,23 @@ def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                      scale_by_sqrt_dim=cfg.name.startswith("gemma"))
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in _AUX_KEYS}
+
+    # each layer's params are views from one unbind of each stacked
+    # param, so the backward stacks the layers' gradients once (indexing
+    # layer idx would build a zero-filled stacked gradient a layer and
+    # add them up: L adds of the whole stack)
+    stacks = {k: torch.unbind(v) for k, v in params["layers"].items()}
+
+    def layer(xc, idx):
+        return _decoder_block(xc, {k: v[idx] for k, v in stacks.items()},
+                              idx, cfg, comm, plan, q_offset)
+
+    remat = remat and torch.is_grad_enabled()
     for idx in range(cfg.n_layers):
-        x, layer_aux = _decoder_block(x, layer_params(params, idx), idx, cfg,
-                                      comm, plan, q_offset)
+        if remat:
+            x, layer_aux = checkpoint(layer, x, idx, use_reentrant=False)
+        else:
+            x, layer_aux = layer(x, idx)
         for k, v in layer_aux.items():
             aux[k] = aux[k] + v
     x = apply_norm(final_norm_kind(cfg), x, params["final_norm"])
@@ -206,3 +229,40 @@ def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     aux = {k: comm.psum_model_ge(v / n_layers) / comm.tp
            for k, v in aux.items()}
     return x, aux
+
+
+def loss_and_metrics(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+                     cfg: ModelConfig, comm: Comm, *, remat: bool = True,
+                     loss_chunk: int = 1024
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean CE (+ router aux) over this data shard; the caller pmean's
+    (``repro/models/lm.py:317``).  The head runs over chunks of
+    ``loss_chunk`` sequence rows (the largest divisor of s not above it,
+    as the reference picks); with grad mode on each chunk is
+    checkpointed, so backward recomputes its float32 logits and only one
+    chunk's are live at a time."""
+    x, aux = forward(params, batch, cfg, comm, remat=remat)
+    labels = comm.ag_seq(batch["labels"])              # (s, b)
+    head = comm.weight(params.get("lm_head", params["emb"]), fsdp_axis=1)
+    s = x.shape[0]
+    ck = min(loss_chunk, s)
+    while s % ck:
+        ck -= 1
+
+    def chunk_loss(xb, lb):
+        return lm_head_loss(xb, head, lb, comm, real_vocab=cfg.vocab)
+
+    sums, ns = [], []
+    for i in range(0, s, ck):
+        xb, lb = x[i:i + ck], labels[i:i + ck]
+        if torch.is_grad_enabled():
+            total, n = checkpoint(chunk_loss, xb, lb, use_reentrant=False)
+        else:
+            total, n = chunk_loss(xb, lb)
+        sums.append(total)
+        ns.append(n)
+    total, n = torch.stack(sums).sum(), torch.stack(ns).sum()
+    ce = total / torch.clamp(n, min=1)
+    loss = (ce + cfg.router_aux_coef * aux["aux_lb"]
+            + cfg.router_z_coef * aux["aux_z"])
+    return loss, {"loss": loss, "ce": ce, "ntok": n, **aux}

@@ -1,7 +1,10 @@
 """Model registry — build a Model facade from a ModelConfig (port).
 
 :func:`build_model` binds a config to a device (``cuda`` unless the caller
-asks for ``cpu``); :func:`params_from_numpy` carries the JAX package's
+asks for ``cpu``).  ``Model.forward`` is inference (no autograd graph is
+built); ``Model.loss`` is the training loss; ``Model.abstract_params``
+gives the params' shapes and dtypes as meta-device tensors, with no
+allocation (the reference's ``eval_shape``).  :func:`params_from_numpy` carries the JAX package's
 params across as a numpy tree (``jax.tree_util.tree_map(np.asarray,
 params)``) into the port's dict, keys and stacked shapes unchanged, or
 into one rank's shards of it (``specs=``, ``mesh=``, ``rank=``).
@@ -23,7 +26,7 @@ from .common import ModelConfig
 
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """Facade: init + forward on one device."""
+    """Facade: init, forward and loss on one device."""
 
     cfg: ModelConfig
     device: torch.device
@@ -37,8 +40,25 @@ class Model:
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
         return lm.init_params(self.cfg, gen)
 
-    def forward(self, params, batch, comm: Optional[Comm] = None):
-        return lm.forward(params, batch, self.cfg, comm or local_comm())
+    def abstract_params(self) -> Tuple[Dict, Dict]:
+        """(params as meta-device tensors of the real shapes and dtypes,
+        specs): nothing is allocated or drawn."""
+        return lm.init_params(self.cfg, torch.Generator(), device="meta")
+
+    def loss(self, params, batch, comm: Optional[Comm] = None, *,
+             remat: bool = True):
+        """(loss, metrics) of :func:`lm.loss_and_metrics`."""
+        return lm.loss_and_metrics(params, batch, self.cfg,
+                                   comm or local_comm(), remat=remat)
+
+    @torch.no_grad()
+    def forward(self, params, batch, comm: Optional[Comm] = None, *,
+                remat: bool = True):
+        """Inference forward: no graph is recorded, whatever the params
+        require (``remat`` is the reference's knob; it changes nothing
+        without a graph)."""
+        return lm.forward(params, batch, self.cfg, comm or local_comm(),
+                          remat=remat)
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

@@ -31,8 +31,10 @@ reference, by design:
   ``length + 1``.
 * ``DecodeCache.length`` is a host int, so no decode step reads anything
   back from the card until the sampled tokens are wanted.
-* The vlm and audio families raise "not ported" (ROADMAP.md); so do
-  the cross-attention caches.
+* ``init_cache``, ``make_serve_step`` and ``make_prefill_step`` raise
+  "not ported" for a vlm or audio config (ROADMAP.md A5), and the
+  reference's cross-attention cache (``cross_k`` / ``cross_v``) and
+  ``precompute_cross_kv`` are not here yet.
 
 Per decode step the RMSNorm kernel runs 4 times a layer (norm1, q_norm,
 k_norm, norm2 on gemma3 and olmoe) plus once for the final norm; the

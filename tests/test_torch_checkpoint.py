@@ -17,7 +17,12 @@ CPU, held against the reference (``repro.checkpoint.store``).
   restored by the port resharded onto a (1, 2) mesh, each rank's leaves
   bitwise its shard, and the port's tp = 2 forward on them equal to the
   reference's forward within ``tests/test_torch_tp.py``'s tolerance
-  (float32, 1e-4).
+  (float32, 1e-4);
+* ``tests/test_checkpoint.py::test_resume_exactness`` on the port's
+  ``train_loop`` (a straight run of 10 steps equals 6 steps with
+  checkpoints, then a resume to 10), and a cross-package resume: a
+  ``TrainState`` checkpoint the reference's loop wrote, continued by the
+  port's loop, equals the reference continuing it.
 
 Inputs come from numpy with a seed.
 """
@@ -47,6 +52,7 @@ from repro_torch.core.completion import Synchronizer
 from repro_torch.core.status import FatalError
 from repro_torch.distributed import Mesh, P, shard, spmd_map
 from repro_torch.models.registry import build_model
+from test_torch_train import one_torch_thread  # noqa: F401  (a fixture)
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 
@@ -398,3 +404,110 @@ def test_reference_smoke_params_restore_resharded(tmp_path):
         jnp.asarray(tok, jnp.int32))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# resume through the train loop
+# ---------------------------------------------------------------------------
+
+def _train_cfgs():
+    from repro.models.common import ModelConfig as RConfig
+    fields = dict(name="t", family="dense", n_layers=2, d_model=64,
+                  n_heads=4, n_kv_heads=2, d_ff=128, vocab=64, tp_target=4)
+    from repro_torch.models.common import ModelConfig as PConfig
+    return (RConfig(dtype=jnp.float32, **fields),
+            PConfig(dtype=torch.float32, **fields))
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_resume_exactness(tmp_path):
+    """tests/test_checkpoint.py::test_resume_exactness on the port: 10
+    steps straight equal 6 steps checkpointed every 3 then a resume to
+    10 (fresh states from the same seed each run: the port's step
+    donates its state)."""
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.train.loop import LoopConfig, train_loop
+    _, pcfg = _train_cfgs()
+    model = build_model(pcfg, device="cpu")
+    opt = AdamWConfig(lr=1e-3)
+    pipe = SyntheticPipeline(vocab=64, seq_len=16, global_batch=4)
+
+    def fresh():
+        state, specs = train_state_init(model, 0, opt)
+        return state, make_train_step(model, specs, opt)
+
+    state, step = fresh()
+    s_straight, _ = train_loop(state, step, pipe,
+                               LoopConfig(total_steps=10, log_every=0))
+    state, step = fresh()
+    train_loop(state, step, pipe, LoopConfig(
+        total_steps=6, ckpt_dir=str(tmp_path), ckpt_every=3, log_every=0))
+    assert latest_step(str(tmp_path)) == 5
+    state, step = fresh()
+    s_resumed, hist = train_loop(state, step, pipe, LoopConfig(
+        total_steps=10, ckpt_dir=str(tmp_path), ckpt_every=100,
+        log_every=0))
+    assert [r["step"] for r in hist] == [6, 7, 8, 9]
+    assert int(s_resumed.opt.step) == 10
+    for k, v in s_straight.params.items():
+        if isinstance(v, dict):
+            for kk, vv in v.items():
+                assert torch.equal(vv, s_resumed.params[k][kk])
+        else:
+            assert torch.equal(v, s_resumed.params[k])
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_port_resumes_a_reference_train_state(tmp_path):
+    """The reference's loop trains 3 steps and checkpoints its
+    ``TrainState`` (params, step, mu, nu, master); the port's loop
+    resumes that checkpoint (same leaf names) and runs to step 6; the
+    reference resumes a copy of it and runs to 6 as well.  The params
+    agree within 3e-4 (lr 1e-3; float32 differences in tiny gradients
+    move a param by a fraction of an Adam step), the losses at 1e-5."""
+    import shutil
+    from repro.data import SyntheticPipeline as RPipe
+    from repro.optim import AdamWConfig as RAdamW
+    from repro.train import make_train_step as r_step
+    from repro.train import train_state_init as r_init
+    from repro.train.loop import LoopConfig as RLoop
+    from repro.train.loop import train_loop as r_loop
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.train.loop import LoopConfig, train_loop
+    rcfg, pcfg = _train_cfgs()
+    rmodel = r_build_model(rcfg)
+    ropt = RAdamW(lr=1e-3)
+    rstate, rspecs = r_init(rmodel, jax.random.PRNGKey(0), ropt)
+    rstep = jax.jit(r_step(rmodel, rspecs, ropt))
+    wrap = lambda b, s: {k: jnp.asarray(v) for k, v in b.items()}  # noqa
+    rpipe = RPipe(vocab=64, seq_len=16, global_batch=4)
+    ref_dir, port_dir = str(tmp_path / "ref"), str(tmp_path / "port")
+    r_loop(rstate, rstep, rpipe, RLoop(total_steps=3, ckpt_dir=ref_dir,
+                                        ckpt_every=100, log_every=0),
+           batch_transform=wrap)
+    shutil.copytree(ref_dir, port_dir)
+    want, whist = r_loop(rstate, rstep, rpipe, RLoop(
+        total_steps=6, ckpt_dir=ref_dir, ckpt_every=100, log_every=0),
+        batch_transform=wrap)
+
+    model = build_model(pcfg, device="cpu")
+    opt = AdamWConfig(lr=1e-3)
+    like, specs = train_state_init(model, 1, opt)     # shapes only
+    got, ghist = train_loop(like, make_train_step(model, specs, opt),
+                            SyntheticPipeline(vocab=64, seq_len=16,
+                                              global_batch=4),
+                            LoopConfig(total_steps=6, ckpt_dir=port_dir,
+                                       ckpt_every=100, log_every=0))
+    assert [r["step"] for r in ghist] == [r["step"] for r in whist] == \
+        [3, 4, 5]
+    np.testing.assert_allclose([r["loss"] for r in ghist],
+                               [r["loss"] for r in whist], rtol=1e-5)
+    assert int(got.opt.step) == int(want.opt.step) == 6
+    for w, (_, g) in zip(jax.tree_util.tree_leaves(want.params),
+                         leaves_with_paths(got.params)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=3e-4)
