@@ -5,9 +5,10 @@ across two processes), gemma3-1b serving, olmoe-1b-7b (MoE) serving,
 mamba2-370m (SSM) serving and hymba-1.5b (hybrid) serving at full width,
 serving on the comm core (the reference's serve traffic), the in-graph
 collectives with tensor-parallel serving on rank threads, the recovery
-path (checkpoints, resharded restore, the 1F1B comm graph), and training
+path (checkpoints, resharded restore, the 1F1B comm graph), training
 at tp = 1 (the four families, data parallel on rank threads, the
-pipeline, resume).
+pipeline, resume), and the vlm and audio families (whisper-tiny and
+llama-3.2-vision served through the cross-KV cache, and trained).
 
     python3 chip_smoke.py            # from the repository root; one card
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown
@@ -236,10 +237,35 @@ The phases:
    ``torch.use_deterministic_algorithms(True)``
    (:func:`train_resume_phase`).  Every kernel call of b-e is kept by
    signature and each kernel held against its plain version at every
-   one after the counts are read (:func:`path_kernel_checks`).
+   one after the counts are read (:func:`path_kernel_checks`);
+20. the vlm and audio families (:func:`cross_phase`), bf16: a)
+   whisper-tiny at its full configuration (4 encoder and 4 decoder
+   layers, d 384, 1500 stub frames, batch 4): the encoder, the cross-KV
+   (``precompute_cross_kv``), a 64-token prompt's prefill, then the
+   prompt teacher-forced through ``make_serve_step`` and 16 greedy
+   steps; then the same weights in float32: the decode against the
+   forward over the same tokens (phase 6's gate), and the bf16 decode's
+   logits no further from that float32 forward than twice the bf16
+   forward's, its tokens float32's argmax beyond a tie threshold set by
+   the bf16 forward's error (:func:`bf16_decode_gate`); b)
+   llama-3.2-vision at full width cut to 10 layers (8 self + 2 gated
+   cross; the 100-layer model's bf16 weights exceed the card), the gates
+   0.5, 1600 stub image tokens, batch 2, a 128-token prompt, the same
+   steps and gates, and other image embeddings moving the logits; c) a
+   training step (remat, AdamW) of whisper-tiny at full width and of
+   llama-3.2-vision at its smoke widths; every call's B2 and B3
+   launches checked (:func:`cross_want`), every kernel call of a-c kept
+   by signature and held against its plain version; d) B2 at the new signatures
+   (whisper's unmasked encoder and cross-attention, the vision model's
+   causal self- and unmasked cross-attention) and B3 at (rows, 8192) and
+   (rows, 384), timed beside the bound and the library call, and the
+   recorded backward at the unmasked training signatures.  The phase
+   prints each model's prefill ms, decode ms a step, training step ms
+   and peak memory beside the card's name and power limit.
 
 The launch counts are set to 0 just before phases 4, 7, 10, 13, 14, 15,
-16 (after its kernel check), 17a, 17b, 18 and 19b and read just after; the serving phases
+16 (after its kernel check), 17a, 17b, 18, 19b and 20a and read just
+after; the serving phases
 also record B3's launches by (rows, d) a prefill call and a decode
 step.  Every phase raises on failure;
 nothing is caught.  Each phase
@@ -1916,31 +1942,37 @@ def flash_case(torch, label, b, hq, hkv, sq, skv, dh, causal, window,
             fn, inputs, form = _causal_sdpa(xs)
             case["library_causal_ms"] = device_ms(fn, inputs)
             case["library_causal_form"] = form
+        # no mask at all (cross-attention, the encoder): the library's
+        # unmasked call, the same work
+        if not causal and window == 0:
+            fn, inputs, form = _causal_sdpa(xs, causal=False)
+            case["library_unmasked_ms"] = device_ms(fn, inputs)
+            case["library_unmasked_form"] = form
         case["achieved_tflops"] = flops / case["kernel_ms"] / 1e9
         case["bound_share"] = case["bound_ms"] / case["kernel_ms"]
     return case
 
 
-def _causal_sdpa(xs):
-    """``F.scaled_dot_product_attention(..., is_causal=True)`` over the
-    (q, k, v) tuples ``xs``: (the call, its inputs, the form).  The form
-    is ``enable_gqa`` where the chosen backend takes it, else k and v are
-    expanded to q's heads here, outside the timed calls (a GQA shape then
-    reads hq / hkv times the kv bytes)."""
+def _causal_sdpa(xs, causal: bool = True):
+    """``F.scaled_dot_product_attention(..., is_causal=causal)`` over the
+    (q, k, v) tuples ``xs``, with no mask: (the call, its inputs, the
+    form).  The form is ``enable_gqa`` where the chosen backend takes
+    it, else k and v are expanded to q's heads here, outside the timed
+    calls (a GQA shape then reads hq / hkv times the kv bytes)."""
     import torch
     import torch.nn.functional as F
     q, k, v = xs[0]
     try:
-        F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                        enable_gqa=True)
         torch.cuda.synchronize()
         return (lambda t: F.scaled_dot_product_attention(
-            t[0], t[1], t[2], is_causal=True, enable_gqa=True)), xs, \
+            t[0], t[1], t[2], is_causal=causal, enable_gqa=True)), xs, \
             "enable_gqa"
     except RuntimeError:
         g = q.shape[1] // k.shape[1]
         return (lambda t: F.scaled_dot_product_attention(
-            t[0], t[1], t[2], is_causal=True)), [
+            t[0], t[1], t[2], is_causal=causal)), [
             (t[0], t[1].repeat_interleave(g, dim=1),
              t[2].repeat_interleave(g, dim=1)) for t in xs], "expanded"
 
@@ -2038,30 +2070,46 @@ def model_kernel_phase(torch):
 PARITY_S, PARITY_B = 32, 2
 
 
-def _decode_vs_forward(torch, cfg, params, tokens):
+def _decode_vs_forward(torch, cfg, params, tokens, extras=None):
     """Teacher-forced ``make_serve_step`` over every position against
     ``forward``'s greedy tokens, and ``make_prefill_step``'s token
-    against forward's last position."""
+    against forward's last position.  A vlm or audio config's
+    ``extras`` (its image embeddings or frames) go to forward and
+    prefill, and the decode cache carries their cross-KV
+    (``precompute_cross_kv``; whisper's memory from the port's encoder).
+    Returns the record and forward's logits (s, b, V)."""
     from repro_torch.distributed import local_comm
+    from repro_torch.models import lm
+    from repro_torch.models.blocks import tp_plan
     from repro_torch.models.layers import greedy_sample, lm_head_logits
     from repro_torch.models.registry import build_model
     from repro_torch.serving import (init_cache, make_prefill_step,
                                      make_serve_step)
+    from repro_torch.serving.engine import precompute_cross_kv
     comm = local_comm()
-    x, aux = build_model(cfg, device=DEVICE).forward(params,
-                                                     {"tokens": tokens})
+    batch = {"tokens": tokens, **(extras or {})}
+    x, aux = build_model(cfg, device=DEVICE).forward(params, batch)
     head = params.get("lm_head", params["emb"])
     logits = lm_head_logits(x, head, comm, real_vocab=cfg.vocab)
     oracle = greedy_sample(logits, comm)
     top2 = logits.topk(2, dim=-1).values
     step = make_serve_step(cfg)
-    cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], device=DEVICE)
+    s, b = tokens.shape
+    if cfg.n_cross_layers:
+        with torch.no_grad():
+            mem = (lm._encode(params, batch, cfg, comm, tp_plan(cfg, 1),
+                              remat=False) if cfg.is_encdec
+                   else batch["image_embeds"])
+        cache = init_cache(cfg, s, b, n_memory=mem.shape[0], device=DEVICE)
+        cache.cross_k, cache.cross_v = precompute_cross_kv(params, mem, cfg)
+    else:
+        cache = init_cache(cfg, s, b, device=DEVICE)
     preds = []
-    for i in range(tokens.shape[0]):
+    for i in range(s):
         nxt, cache = step(params, cache, tokens[i])
         preds.append(nxt)
     preds = torch.stack(preds)
-    p_tok, last = make_prefill_step(cfg)(params, {"tokens": tokens})
+    p_tok, last = make_prefill_step(cfg)(params, batch)
     torch.cuda.synchronize()
     if not torch.isfinite(x).all() or not torch.isfinite(last).all():
         raise AssertionError(f"{cfg.name} f32: non-finite hidden states")
@@ -2071,7 +2119,20 @@ def _decode_vs_forward(torch, cfg, params, tokens):
                                                              oracle[-1])),
             "min_top2_margin": float((top2[..., 0] - top2[..., 1]).min()),
             "mismatches": int((preds != oracle).sum()),
-            "forward_aux": {k: float(v) for k, v in aux.items()}}
+            "forward_aux": {k: float(v) for k, v in aux.items()}}, logits
+
+
+def _parity_gate(label: str, res: dict) -> None:
+    """Phase 6's float32 gate on a :func:`_decode_vs_forward` record:
+    decode agrees with forward on more than 0.95 of the tokens, and
+    prefill's token is forward's at the last position."""
+    agree = res["decode_vs_forward_agreement"]
+    if agree <= 0.95:
+        raise AssertionError(f"{label} f32: decode agrees with forward on "
+                             f"{agree:.3f} of tokens (needs > 0.95)")
+    if not res["prefill_token_equals_forward"]:
+        raise AssertionError(f"{label} f32: prefill token differs from "
+                             "forward's last position")
 
 
 def model_parity_phase(torch, arch: str = "gemma3-1b"):
@@ -2105,19 +2166,13 @@ def model_parity_phase(torch, arch: str = "gemma3-1b"):
     if cfg.family == "moe":
         out["own_capacity_factor"] = {"capacity_factor": cfg.capacity_factor,
                                       **_decode_vs_forward(torch, cfg,
-                                                           params, tokens)}
+                                                           params, tokens)[0]}
         gated = dataclasses.replace(
             cfg, capacity_factor=cfg.n_experts / cfg.top_k)
         out["gated_capacity_factor"] = gated.capacity_factor
-    res = _decode_vs_forward(torch, gated, params, tokens)
+    res, _ = _decode_vs_forward(torch, gated, params, tokens)
     out.update(res)
-    agree = res["decode_vs_forward_agreement"]
-    if agree <= 0.95:
-        raise AssertionError(f"{arch} f32: decode agrees with forward on "
-                             f"{agree:.3f} of tokens (needs > 0.95)")
-    if not res["prefill_token_equals_forward"]:
-        raise AssertionError(f"{arch} f32: prefill token differs from "
-                             "forward's last position")
+    _parity_gate(arch, res)
     if res["forward_aux"]["dropped_frac"] != 0.0:
         raise AssertionError(f"{arch} f32: forward dropped assignments at "
                              f"capacity factor {gated.capacity_factor}")
@@ -2366,11 +2421,13 @@ class _CastLog:
         torch.Tensor.to = self.real
 
 
-def profile_phase(torch, cfg, params, tokens):
+def profile_phase(torch, cfg, params, tokens, extras=None, cache=None):
     """``--profile`` only: torch.profiler over one prefill call and over
     8 decode steps: device time by kernel, summed, against wall time, and
     the float32 -> bf16 cast kernels' launches; then a second prefill
-    with ``Tensor.to`` watched, for where those casts come from."""
+    with ``Tensor.to`` watched, for where those casts come from.
+    ``extras`` joins the prefill's batch (a vlm or audio config's stub);
+    ``cache`` (at least 12 positions) replaces the launcher's cache."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     from repro_torch.serving import (init_cache, make_prefill_step,
@@ -2399,22 +2456,24 @@ def profile_phase(torch, cfg, params, tokens):
                         for k, ms, c in rows[:12]]}
 
     prefill = make_prefill_step(cfg)
-    prefill(params, {"tokens": tokens})
+    batch = {"tokens": tokens, **(extras or {})}
+    prefill(params, batch)
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        prefill(params, {"tokens": tokens})
+        prefill(params, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     out = {"prefill_call": split(prof, wall)}
     with _CastLog() as casts:
-        prefill(params, {"tokens": tokens})
+        prefill(params, batch)
         torch.cuda.synchronize()
     out["prefill_cast_sites"] = casts.sites
     step = make_serve_step(cfg)
-    b = SERVE_ARGS["max_batch"]
-    cache = init_cache(cfg, SERVE_ARGS["cache_len"], b, device=DEVICE)
+    b = SERVE_ARGS["max_batch"] if cache is None else cache.k.shape[2]
+    if cache is None:
+        cache = init_cache(cfg, SERVE_ARGS["cache_len"], b, device=DEVICE)
     tok = tokens[0, :1].repeat(b)
     for _ in range(4):
         tok, cache = step(params, cache, tok)
@@ -4439,7 +4498,8 @@ def train_dp_phase(torch) -> dict:
         opt = AdamWConfig(lr=TRAIN_LR)
         state = TrainState(params, adamw_init(params, opt))
         t = time.perf_counter()
-        _, m2 = mesh_step(model, specs, opt, mesh, config)(state, data)
+        _, m2 = mesh_step(model, specs, opt, mesh, config,
+                          batch=TRAIN_DP["batch"])(state, data)
         dp2_loss = float(m2["loss"])
         out["dp2_step_s"] = time.perf_counter() - t
         out["protocol_totals"] = mesh.protocol_totals()
@@ -4701,6 +4761,585 @@ def training_phase(torch, counters, profile: bool) -> tuple:
     return grad_cases, g_launches, checks
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the vlm and audio families
+# ---------------------------------------------------------------------------
+
+#: 20a: whisper-tiny at its full configuration (4 + 4 layers, d 384, 1500
+#: frames, vocab 51865), bf16: encode, the cross-KV, a 64-token prompt's
+#: prefill, the prompt teacher-forced through the decode step, 16 greedy
+#: steps
+WHISPER_SERVE = dict(arch="whisper-tiny", batch=4, prompt=64, new=16)
+#: 20b: llama-3.2-vision at its full width cut to 10 layers (8 self + 2
+#: gated cross): the 100-layer model's ~180 GB of bf16 weights do not fit
+#: the card's 80 GB, 10 layers are ~10.8 B params (~21.6 GB); the gates
+#: 0.5 (at init they are 0, and the cross layers would add nothing); the
+#: float32 run on the same weights (~43 GB)
+VISION_SERVE = dict(arch="llama-3.2-vision-90b", layers=10, batch=2,
+                    prompt=128, new=16, gate=0.5)
+#: 20c: a training step of whisper-tiny at full width (remat, AdamW; the
+#: launcher's stub frames, 1500 rounded up to 1504) and of
+#: llama-3.2-vision at its SMOKE widths: at full width 10 layers' params
+#: with the float32 master and moments (2 + 12 bytes a param) are ~151 GB
+WHISPER_TRAIN = dict(seq=256, batch=4, steps=3)
+VISION_SMOKE_TRAIN = dict(seq=128, batch=4, steps=3)
+
+
+def cross_want(cfg) -> dict:
+    """B2 and B3 launches of a vlm or audio config: a prefill (a
+    forward), a decode step, the encoder alone, and a training step
+    (remat recomputes every checkpointed layer once; the final norm runs
+    outside them)."""
+    final = int(cfg.norm == "rmsnorm")
+    if cfg.family == "vlm":
+        n_cross = cfg.n_cross_layers
+        n_self = cfg.n_layers - n_cross
+        flash, enc = cfg.n_layers, 0
+        rms = 2 * n_self + 2 * n_cross + final  # norm1/norm2, normx/normm
+    else:
+        flash = cfg.encoder_layers + 2 * cfg.n_layers   # enc, self, cross
+        enc = cfg.encoder_layers
+        rms = cfg.n_layers + final       # normx (layernorm elsewhere)
+    return {"prefill": (flash, rms), "step": (0, rms), "encode": (enc, 0),
+            "train": (2 * flash, 2 * (rms - final) + final)}
+
+
+def _b2_b3(c0, variant: str) -> tuple:
+    """(B2, B3) launches since the :func:`_counts` snapshot ``c0``;
+    raises unless every B2 launch took ``variant`` and no B4 or B5
+    kernel ran."""
+    d = [b - a for a, b in zip(c0, _counts())]
+    tc_ok = d[5] == (d[0] if variant == "tc" else 0)
+    if d[2] or d[4] or not tc_ok:
+        raise AssertionError(f"launched (flash, RMSNorm, MoE GMM, MoE GMM "
+                             f"tc, SSD scan, flash tc, SSD scan tc) {d} "
+                             f"(want every B2 launch {variant}, no B4 or "
+                             "B5)")
+    return d[0], d[1]
+
+
+class _StepLogits:
+    """While installed, keeps the logits of every decode step
+    (``serving/engine.py``'s ``lm_head_logits``)."""
+
+    def __enter__(self):
+        import repro_torch.serving.engine as engine
+        self.mod, self.real, self.logits = engine, engine.lm_head_logits, []
+
+        def kept(*a, **kw):
+            out = self.real(*a, **kw)
+            self.logits.append(out)
+            return out
+        engine.lm_head_logits = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.lm_head_logits = self.real
+
+
+def bf16_decode_gate(torch, label, vocab, ld, lf, lf32, tok_d) -> dict:
+    """The bf16 teacher-forced decode's logits ``ld`` (s, b, V) and
+    tokens ``tok_d`` (s, b) against the float32 forward ``lf32`` at the
+    same weights and inputs.  The bf16 forward ``lf`` is the witness of
+    what bf16 rounding alone does to this network, measured outside the
+    decode (phase 17b's rule): the decode's logits no further from
+    float32 than twice the bf16 forward's, norm-wise; and its token
+    float32's argmax wherever float32's top two logits are further apart
+    than the tie threshold, four times the bf16 forward's largest logit
+    error (a decode within twice that error keeps the argmax).  Raises
+    on a miss."""
+    ld, lf, lf32 = (t[..., :vocab].double() for t in (ld, lf, lf32))
+    tok = tok_d.long()
+    w_rel, d_rel = _rel_err(lf, lf32), _rel_err(ld, lf32)
+    w_max = float((lf - lf32).abs().max())
+    top2 = lf32.topk(2, dim=-1).values
+    arg32 = lf32.argmax(-1)
+    gated = top2[..., 0] - top2[..., 1] > 4 * w_max
+    bad = gated & (tok != arg32)
+    if not d_rel <= 2 * w_rel or bad.any():
+        raise AssertionError(f"{label}: bf16 decode {d_rel} from the float32 "
+                             f"forward (bf16 forward: {w_rel}; limit "
+                             f"{2 * w_rel}); {int(bad.sum())} of "
+                             f"{int(gated.sum())} tokens beyond the tie "
+                             f"threshold {4 * w_max} differ from its argmax")
+    return {"positions": tok.numel(),
+            "decode_rel_err_vs_float32": d_rel,
+            "bf16_forward_rel_err_vs_float32": w_rel,
+            "decode_rel_err_vs_bf16_forward": _rel_err(ld, lf),
+            "decode_max_logit_err_vs_float32":
+                float((ld - lf32).abs().max()),
+            "bf16_forward_max_logit_err_vs_float32": w_max,
+            "tie_threshold": 4 * w_max, "gated_positions": int(gated.sum()),
+            "decode_agreement_float32": float((tok == arg32).float().mean()),
+            "bf16_forward_agreement_float32":
+                float((lf.argmax(-1) == arg32).float().mean()),
+            "decode_agreement_bf16_forward":
+                float((tok == lf.argmax(-1)).float().mean())}
+
+
+def cross_serve_case(torch, label, cfg, params, ext, prompt, new: int,
+                     profile: bool = False) -> tuple:
+    """A vlm or audio config served through the engine's entry points:
+    the memory (the encoder over the frames, or the image embeddings),
+    ``precompute_cross_kv``, ``make_prefill_step`` on the prompt (one
+    untimed call, PREFILL_CALLS timed), then ``make_serve_step`` over
+    the prompt teacher-forced and ``new`` greedy steps; every call's B2
+    and B3 launches checked (:func:`cross_want`; B2 "tc" in bf16, "simt"
+    in float32).  Returns the record and, for :func:`same_weights_f32`,
+    the sequence teacher-forced, the decode's tokens and logits and the
+    full forward's logits over that sequence."""
+    from repro_torch.distributed import local_comm
+    from repro_torch.models import lm
+    from repro_torch.models.blocks import tp_plan
+    from repro_torch.models.layers import lm_head_logits
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import (init_cache, make_prefill_step,
+                                     make_serve_step)
+    from repro_torch.serving.engine import precompute_cross_kv
+    want = cross_want(cfg)
+    variant = "tc" if cfg.dtype == torch.bfloat16 else "simt"
+    s, b = prompt.shape
+    comm = local_comm()
+    out = {"config": cfg.name, "dtype": str(cfg.dtype).split(".")[1],
+           "layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+           "batch": b, "prompt": s, "new_tokens": new,
+           "flash_variant": variant}
+
+    def timed(fn, expect, name):
+        c0 = _counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            res = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        got = _b2_b3(c0, variant)
+        if got != expect:
+            raise AssertionError(f"{label} {name}: (B2, B3) launches {got},"
+                                 f" want {expect}")
+        return res, ms
+
+    torch.cuda.reset_peak_memory_stats()
+    if cfg.is_encdec:
+        def encode():
+            return lm._encode(params, ext, cfg, comm, tp_plan(cfg, 1),
+                              remat=False)
+        encode_ms = [timed(encode, want["encode"], "encode")[1]
+                     for _ in range(PREFILL_CALLS + 1)]
+        mem, _ = timed(encode, want["encode"], "encode")
+        out["encode_ms"] = statistics.median(encode_ms[1:])
+    else:
+        mem = ext["image_embeds"]
+    (ck, cv), out["cross_kv_ms"] = timed(
+        lambda: precompute_cross_kv(params, mem, cfg), (0, 0), "cross-KV")
+    out["cross_kv_shape"] = list(ck.shape)
+    prefill = make_prefill_step(cfg)
+    times = []
+    for i in range(PREFILL_CALLS + 1):
+        (tok, last), ms = timed(lambda: prefill(params, {"tokens": prompt,
+                                                         **ext}),
+                                want["prefill"], "prefill")
+        times.append(ms)
+    if not torch.isfinite(last.float()).all() or tok.shape != (b,):
+        raise AssertionError(f"{label} prefill: non-finite hidden state")
+    out["prefill_ms"] = statistics.median(times[1:])
+    out["prefill_ms_each"] = times[1:]
+    out["prefill_tokens_per_s"] = s * b / (out["prefill_ms"] / 1e3)
+    cache = init_cache(cfg, s + new, b, n_memory=mem.shape[0],
+                       device=DEVICE)
+    cache.cross_k, cache.cross_v = ck, cv
+    step = make_serve_step(cfg)
+    ins, outs, step_ms = [], [], []
+    with _StepLogits() as logs:
+        nxt = None
+        for i in range(s + new):
+            inp = prompt[i] if i < s else nxt
+            (nxt, cache), ms = timed(lambda: step(params, cache, inp),
+                                     want["step"], "decode step")
+            ins.append(inp)
+            outs.append(nxt)
+            step_ms.append(ms)
+    tok_d = torch.stack(outs)
+    seq = torch.stack(ins)
+    with torch.no_grad():
+        x, _ = build_model(cfg, device=DEVICE).forward(
+            params, {"tokens": seq, **ext})
+        lf = lm_head_logits(x, params.get("lm_head", params["emb"]), comm,
+                            real_vocab=cfg.vocab)
+    held = {"seq": seq, "tok_d": tok_d, "ld": torch.stack(logs.logits),
+            "lf": lf}
+    out["logit_std"] = float(lf[..., :cfg.vocab].float().std())
+    out["prefill_token_equals_decode"] = bool(torch.equal(tok, tok_d[s - 1]))
+    out["decode_ms_per_step_prompt"] = statistics.median(step_ms[:s])
+    if new:
+        out["decode_ms_per_step"] = statistics.median(step_ms[s:])
+        out["decode_tokens_per_s"] = b / (out["decode_ms_per_step"] / 1e3)
+    out["launches"] = {k: dict(zip(("flash", "rmsnorm"), v))
+                       for k, v in want.items() if k != "train"}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if profile:
+        pcache = init_cache(cfg, 16, b, n_memory=mem.shape[0],
+                            device=DEVICE)
+        pcache.cross_k, pcache.cross_v = ck, cv
+        out["profile"] = profile_phase(torch, cfg, params, prompt, ext,
+                                       pcache)
+    return out, held
+
+
+def _to_float32_(tree) -> None:
+    """Every floating leaf of a params tree replaced by its float32 cast,
+    one leaf at a time (the bf16 leaf freed as its cast lands)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _to_float32_(v)
+        elif v.is_floating_point():
+            tree[k] = v.float()
+
+
+def _fan_in_scaled_(params) -> None:
+    """Each stacked matrix (L, fan_in, fan_out) of a params tree rescaled
+    in place from the init's std, 1/sqrt(L) in both packages, to
+    1/sqrt(fan_in).  At the init's scale the residual grows ~1000-fold
+    in the first layer and attention saturates, so bf16 rounding alone
+    moves whisper's logits as far as an unrelated network's (phase 20a's
+    first run); at this scale it moves them little, and a bf16 decode
+    fault stands out."""
+    for v in _leaves(params):
+        if v.ndim == 3:
+            v.mul_(math.sqrt(v.shape[0] / v.shape[1]))
+
+
+def same_weights_f32(torch, label, cfg, params, ext, held) -> dict:
+    """The bf16 run's weights ``params`` cast to float32 in place (TF32
+    off; the caller's bf16 tree is gone after), and the bf16 run's
+    sequence ``held["seq"]`` through :func:`_decode_vs_forward` in
+    float32 with the extras ``ext``: phase 6's gate
+    (:func:`_parity_gate`).  Then the bf16 decode held against that
+    float32 forward (:func:`bf16_decode_gate`)."""
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    _to_float32_(params)
+    res, lf32 = _decode_vs_forward(torch, cfg32, params, held["seq"],
+                                   {k: v.float() for k, v in ext.items()})
+    _parity_gate(label, res)
+    gate = bf16_decode_gate(torch, label, cfg.vocab, held["ld"], held["lf"],
+                            lf32, held["tok_d"])
+    return {"float32": {"positions": held["seq"].numel(),
+                        "logit_std": float(lf32[..., :cfg.vocab].std()),
+                        **res},
+            "bf16_decode_vs_float32": gate}
+
+
+def _whisper_frames(cfg, batch):
+    from repro_torch.data import stub_frames
+    return {"frames": torch_from(stub_frames(cfg.n_audio_frames, batch,
+                                             cfg.d_model), cfg.dtype)}
+
+
+def _vision_image(cfg, batch, step=0):
+    from repro_torch.data import stub_image_embeds
+    return {"image_embeds": torch_from(stub_image_embeds(
+        cfg.n_image_tokens, batch, cfg.d_model, step), cfg.dtype)}
+
+
+def torch_from(arr, dtype):
+    """A numpy array on the card in ``dtype``."""
+    import torch
+    return torch.from_numpy(arr).to(DEVICE, dtype)
+
+
+def whisper_serve_phase(torch, profile: bool) -> dict:
+    """20a: whisper-tiny's full config in bf16, seeded random weights on
+    the card, the stub frames drawn with numpy (``data/pipeline.py``,
+    seed 2); then the same weights in float32 (:func:`same_weights_f32`).
+    Both again with the weights at std 1/sqrt(fan_in)
+    (:func:`_fan_in_scaled_`), where bf16 is not chaotic and the bf16
+    gate is tight."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    w = WHISPER_SERVE
+    cfg = get_config(w["arch"])
+    params, _ = build_model(cfg, device=DEVICE).init(SEED)
+    prompt = torch.from_numpy(np.random.default_rng(SEED + 20).integers(
+        0, cfg.vocab, (w["prompt"], w["batch"])).astype(np.int32)).to(
+        DEVICE)
+    ext = _whisper_frames(cfg, w["batch"])
+    out, held = cross_serve_case(torch, "whisper-tiny", cfg, params, ext,
+                                 prompt, w["new"], profile)
+    out["params"] = sum(int(t.numel()) for t in _leaves(params))
+    out["frames"] = cfg.n_audio_frames
+    out.update(same_weights_f32(torch, "whisper-tiny", cfg, params, ext,
+                                held))
+    params, _ = build_model(cfg, device=DEVICE).init(SEED)
+    _fan_in_scaled_(params)
+    label = "whisper-tiny, weights at 1/sqrt(fan_in)"
+    scaled, held = cross_serve_case(torch, label, cfg, params, ext, prompt,
+                                    w["new"])
+    scaled.update(same_weights_f32(torch, label, cfg, params, ext, held))
+    out["fan_in_scaled"] = {k: scaled[k] for k in (
+        "logit_std", "float32", "bf16_decode_vs_float32")}
+    del params, held
+    _free_card(torch)
+    return out
+
+
+def vision_serve_phase(torch, profile: bool) -> dict:
+    """20b: llama-3.2-vision at full width, 10 layers, bf16; weights
+    drawn on the card from an explicit generator, the gates set to 0.5,
+    the stub image embeddings drawn with numpy (seed 1).  The image
+    check on the prefill's last logits: the same image gives the same
+    bits, another image moves them, and with the gates at 0 another
+    image changes no bit (so the cross layers carry the image).  Then
+    the same weights in float32 (:func:`same_weights_f32`; ~43 GB, the
+    bf16 tree cast leaf by leaf)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import local_comm
+    from repro_torch.models.layers import lm_head_logits
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import make_prefill_step
+    v = VISION_SERVE
+    full = get_config(v["arch"])
+    cfg = dataclasses.replace(full, n_layers=v["layers"])
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params, _ = build_model(cfg, device=DEVICE).init(gen)
+    gates = params["cross_layers"]
+    for k in ("gate_attn", "gate_mlp"):
+        gates[k].fill_(v["gate"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = torch.from_numpy(np.random.default_rng(SEED + 21).integers(
+        0, cfg.vocab, (v["prompt"], v["batch"])).astype(np.int32)).to(
+        DEVICE)
+    ext = _vision_image(cfg, v["batch"])
+    out, held = cross_serve_case(torch, "llama-3.2-vision", cfg, params,
+                                 ext, prompt, v["new"], profile)
+    prefill = make_prefill_step(cfg)
+
+    def last_logits(step):
+        _, last = prefill(params, {"tokens": prompt,
+                                   **_vision_image(cfg, v["batch"], step)})
+        return lm_head_logits(last, params["lm_head"], local_comm(),
+                              real_vocab=cfg.vocab)
+    a, again, other = last_logits(0), last_logits(0), last_logits(1)
+    moved = float((other - a).abs().max())
+    n_cross = cfg.n_cross_layers
+    for k in ("gate_attn", "gate_mlp"):
+        gates[k].zero_()
+    shut = torch.equal(last_logits(0), last_logits(1))
+    for k in ("gate_attn", "gate_mlp"):
+        gates[k].fill_(v["gate"])
+    if not torch.equal(a, again) or not moved > 1e-2 or not shut:
+        raise AssertionError(f"llama-3.2-vision image check: same image "
+                             f"bitwise {torch.equal(a, again)}, another "
+                             f"moved the logits by {moved}, gates 0 "
+                             f"bitwise {shut}")
+    out.update({"params": sum(int(t.numel()) for t in _leaves(params)),
+                "init_s": init_s, "image_tokens": cfg.n_image_tokens,
+                "gates": v["gate"], "image_check": {
+                    "other_image_max_logit_change": moved,
+                    "same_image_bitwise": True,
+                    "gates_zero_other_image_bitwise": True},
+                "cut": f"depth {cfg.n_layers} of {full.n_layers} "
+                       f"({cfg.n_layers - n_cross} self + {n_cross} gated "
+                       "cross layers), full width: the 100-layer model's "
+                       "~180 GB of bf16 weights exceed the card's 80 GB"})
+    del gates, a, again, other
+    _free_card(torch)
+    out.update(same_weights_f32(torch, "llama-3.2-vision", cfg, params, ext,
+                                held))
+    del params, held
+    _free_card(torch)
+    return out
+
+
+def cross_train_run(torch, label, cfg, seq: int, batch: int, steps: int,
+                    variant: str) -> dict:
+    """``steps`` steps of ``make_train_step`` (remat on, bf16 params, the
+    float32 master, AdamW) on one fixed batch with the launcher's
+    frontend stub (``launch/train.py::batch_extras``); a vlm config's
+    gates set to 0.5 in the params and the master.  Every step's B2 and
+    B3 launches checked (:func:`cross_want`); the losses finite and the
+    last below the first."""
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.launch.train import batch_extras
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step, train_state_init
+    want = cross_want(cfg)["train"]
+    model = build_model(cfg, device=DEVICE)
+    opt = AdamWConfig(lr=TRAIN_LR)
+    _free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    state, specs = train_state_init(model, SEED, opt)
+    if cfg.family == "vlm":
+        for tree in (state.params, state.opt.master):
+            for k in ("gate_attn", "gate_mlp"):
+                tree["cross_layers"][k].fill_(VISION_SERVE["gate"])
+    step = make_train_step(model, specs, opt)
+    data = SyntheticPipeline(vocab=cfg.vocab, seq_len=seq,
+                             global_batch=batch).get_batch(0, device=DEVICE)
+    data.update(batch_extras(cfg, batch, 0, DEVICE))
+    losses, times = [], []
+    for i in range(steps):
+        c0 = _counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, data)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        got = _b2_b3(c0, variant)
+        if got != want:
+            raise AssertionError(f"{label} training step {i}: (B2, B3) "
+                                 f"launches {got}, want {want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{label} training losses {losses} are not "
+                             "finite and falling")
+    step_s = statistics.median(times[1:])
+    out = {"config": cfg.name, "layers": cfg.n_layers, "seq": seq,
+           "batch": batch, "extras": {k: list(t.shape) for k, t in
+                                      data.items() if k not in
+                                      ("tokens", "labels")},
+           "steps": steps, "losses": losses, "step_ms": step_s * 1e3,
+           "step_ms_all": [t * 1e3 for t in times],
+           "tokens_per_s": seq * batch / step_s,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "params": cfg.param_count(),
+           "launches_per_step": dict(zip(("flash", "rmsnorm"), want)),
+           "flash_variant": variant}
+    del state
+    _free_card(torch)
+    return out
+
+
+def cross_kernel_cases(torch) -> tuple:
+    """20d: B2 at the phase's new signatures (whisper's encoder and
+    cross-attention, the vision model's self- and cross-attention; bf16
+    "tc") and B3 at the vision model's width and whisper's, held against
+    their plain versions and timed beside the bound and the library
+    call (for the unmasked ones ``scaled_dot_product_attention`` with no
+    mask); then the recorded backward at the unmasked signatures of
+    20c's whisper step (:func:`_grad_case`)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import \
+        variant_of as flash_variant
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    bf = torch.bfloat16
+    w, v = WHISPER_SERVE, VISION_SERVE
+    t = 1500
+    flash = [flash_case(torch, label, *shape, bf, g) for label, shape in (
+        ("whisper_encoder_bfloat16",
+         (w["batch"], 6, 6, t, t, 64, False, 0, 0)),
+        ("whisper_cross_bfloat16",
+         (w["batch"], 6, 6, w["prompt"], t, 64, False, 0, 0)),
+        ("vision_self_bfloat16",
+         (v["batch"], 64, 8, v["prompt"], v["prompt"], 128, True, 0, 0)),
+        ("vision_cross_bfloat16",
+         (v["batch"], 64, 8, v["prompt"], 1600, 128, False, 0, 0)))]
+    rms = [rmsnorm_case(torch, f"{name}_bfloat16_{rows}x{d}", rows, d, bf, g)
+           for name, rows, d in (
+               ("vision_prefill", v["batch"] * v["prompt"], 8192),
+               ("vision_decode", v["batch"], 8192),
+               ("whisper_prefill", w["batch"] * w["prompt"], 384),
+               ("whisper_decode", w["batch"], 384))]
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=DEVICE).to(bf)
+
+    def seq_ref(q, k, v):
+        o = flash_attention_ref(*(x.permute(1, 2, 0, 3) for x in (q, k, v)),
+                                causal=False, p_dtype=torch.bfloat16)
+        return o.permute(2, 0, 1, 3)
+    tt, s, b = 1504, WHISPER_TRAIN["seq"], WHISPER_TRAIN["batch"]
+    grads = [_grad_case(torch, f"flash_whisper_train_{name}",
+                        lambda q, k, v: flash_attention(q, k, v,
+                                                        causal=False),
+                        seq_ref, (rnd(sq, b, 6, 64), rnd(tt, b, 6, 64),
+                                  rnd(tt, b, 6, 64)), (rnd(sq, b, 6, 64),),
+                        flash_variant)
+             for name, sq in (("encoder", tt), ("cross", s))]
+    return flash, rms, grads
+
+
+def cross_phase(torch, counters, profile: bool) -> tuple:
+    """Phase 20: the counts set to 0 just before 20a-c and read just
+    after; every kernel call of 20a-c kept by signature and held against
+    its plain version at each one after the counts are read; then 20d.
+    Returns the launches by kernel and the kernel cases (B2, B3, the
+    backward cases)."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    t20 = time.perf_counter()
+    _free_card(torch)
+    with _PathCalls() as path:
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        whisper = whisper_serve_phase(torch, profile)
+        record("cross_whisper_serve", seconds=time.perf_counter() - t0,
+               **whisper)
+        t0 = time.perf_counter()
+        vision = vision_serve_phase(torch, profile)
+        record("cross_vision_serve", seconds=time.perf_counter() - t0,
+               **vision)
+        t0 = time.perf_counter()
+        trains = [cross_train_run(torch, "whisper-tiny",
+                                  get_config("whisper-tiny"),
+                                  variant="tc", **WHISPER_TRAIN),
+                  cross_train_run(torch, "llama-3.2-vision smoke",
+                                  get_smoke("llama-3.2-vision-90b"),
+                                  variant="simt", **VISION_SMOKE_TRAIN)]
+        record("cross_train", seconds=time.perf_counter() - t0, runs=trains)
+        x_launches = {"flash_attention": flash_attention_bhsd.launches,
+                      "rmsnorm": rmsnorm.launches}
+        by_variant = dict(flash_attention_bhsd.launches_by_variant)
+    if min(x_launches.values()) == 0:
+        raise AssertionError(f"the vlm and audio paths launched a kernel "
+                             f"no time: {x_launches}")
+    t0 = time.perf_counter()
+    checks = path_kernel_checks(torch, path.calls, prefix="cross_path")
+    del path
+    missing = [k for k in ("flash", "rmsnorm") if not checks[k]]
+    if missing or any(checks[k] for k in ("moe_gmm", "ssd_scan",
+                                          "doorbell")):
+        raise AssertionError(f"phase 20 kept signatures "
+                             f"{ {k: len(c) for k, c in checks.items()} }")
+    record("phase20_kernel_checks", seconds=time.perf_counter() - t0,
+           signatures={k: len(c) for k, c in checks.items()}, cases=checks)
+    t0 = time.perf_counter()
+    flash, rms, grads = cross_kernel_cases(torch)
+    record("cross_kernel_cases", seconds=time.perf_counter() - t0,
+           flash_attention=flash, rmsnorm=rms, backward=grads)
+    smi = _card_line()
+    for name, rec in (("whisper-tiny", whisper),
+                      ("llama-3.2-vision (10 layers)", vision)):
+        print(f"phase 20 {name}: prefill {rec['prefill_ms']:.2f} ms, "
+              f"decode {rec['decode_ms_per_step']:.2f} ms a step, peak "
+              f"{rec['peak_memory_gb']:.2f} GB ({smi})", flush=True)
+    for rec in trains:
+        print(f"phase 20 train {rec['config']}: {rec['step_ms']:.1f} ms a "
+              f"step, peak {rec['peak_memory_gb']:.2f} GB ({smi})",
+              flush=True)
+    record("phase20", seconds=time.perf_counter() - t20,
+           launches=x_launches, flash_launches_by_variant=by_variant,
+           card=smi)
+    return x_launches, by_variant, flash + checks["flash"], \
+        rms + checks["rmsnorm"], grads
+
+
+def _card_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip(
+                          ).splitlines()[0].strip()
+
+
 def _zero_counts(counters):
     """Every launch count to 0, by thread too, B2's and B4's counts by
     variant and B3's by shape."""
@@ -4729,7 +5368,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of one prefill "
                          "call and 8 decode steps to phases 7, 10, 13 and "
-                         "14, and of one training step to phases 19b-c")
+                         "14 and to phase 20's whisper-tiny and "
+                         "llama-3.2-vision prefill and decode (20a-b), "
+                         "and of one training step to phases 19b-c")
     ap.add_argument("--spmd-rank", metavar="DIR",
                     help="run as one rank of phase 15's two-process run "
                          "(the SPMD launcher starts it), reporting to DIR")
@@ -5069,6 +5710,14 @@ def main(argv=None) -> int:
     ssd += checks["ssd_scan"]
     cases += checks["doorbell"]
 
+    # 20. the vlm and audio families (:func:`cross_phase`)
+    x_launches, x_by_variant, x_flash, x_rms, x_grads = cross_phase(
+        torch, counters, args.profile)
+    flash += x_flash
+    rms += x_rms
+    grad_cases += x_grads
+    flash_by["vlm and audio (phase 20)"] = x_by_variant
+
     def grad_err(prefix):
         return max(c["max_abs_err"] for c in grad_cases
                    if c["case"].startswith(prefix))
@@ -5120,7 +5769,7 @@ def main(argv=None) -> int:
         "replaces": FLASH_REPLACES,
         "launches": n_flash + m_flash + y_flash
         + tp_launches["flash_attention"] + r_launches["flash_attention"]
-        + g_launches["flash_attention"],
+        + g_launches["flash_attention"] + x_launches["flash_attention"],
         "launches_by_path": {"gemma3-1b": n_flash, "olmoe-1b-7b": m_flash,
                              "mamba2-370m": 0, "hymba-1.5b": y_flash,
                              "tensor parallel (phase 17)":
@@ -5128,7 +5777,9 @@ def main(argv=None) -> int:
                              "recovery (phase 18)":
                                  r_launches["flash_attention"],
                              "training (phase 19)":
-                                 g_launches["flash_attention"]},
+                                 g_launches["flash_attention"],
+                             "vlm and audio (phase 20)":
+                                 x_launches["flash_attention"]},
         "max_abs_err": max(c["max_abs_err"] for c in flash),
         "plain_backward_max_abs_err": grad_err("flash"),
         "backward": "autograd of flash_attention_ref (tc: P in bf16), "
@@ -5144,18 +5795,23 @@ def main(argv=None) -> int:
         "cases": _summary([c for c in flash if "kernel_ms" in c],
                           timed + ("variant", "kernel_bhsd_ms",
                                    "library_causal_ms",
-                                   "library_causal_form", "achieved_tflops",
-                                   "bound_share"))}, {
+                                   "library_causal_form",
+                                   "library_unmasked_ms",
+                                   "library_unmasked_form",
+                                   "achieved_tflops", "bound_share"))}, {
         "name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
         "replaces": RMS_REPLACES,
         "launches": n_rms + m_rms + s_rms + y_rms + tp_launches["rmsnorm"]
-        + r_launches["rmsnorm"] + g_launches["rmsnorm"],
+        + r_launches["rmsnorm"] + g_launches["rmsnorm"]
+        + x_launches["rmsnorm"],
         "launches_by_path": {"gemma3-1b": n_rms, "olmoe-1b-7b": m_rms,
                              "mamba2-370m": s_rms, "hymba-1.5b": y_rms,
                              "tensor parallel (phase 17)":
                                  tp_launches["rmsnorm"],
                              "recovery (phase 18)": r_launches["rmsnorm"],
-                             "training (phase 19)": g_launches["rmsnorm"]},
+                             "training (phase 19)": g_launches["rmsnorm"],
+                             "vlm and audio (phase 20)":
+                                 x_launches["rmsnorm"]},
         "max_abs_err": max(c["max_abs_err"] for c in rms),
         "plain_backward_max_abs_err": grad_err("rmsnorm"),
         "backward": "autograd of rmsnorm_ref, recomputed from the saved "

@@ -45,8 +45,19 @@ def shard(mesh: Mesh, tree, tree_pspecs, rank: int):
 def batch_pspecs(cfg, shape_kind: str, mesh: Mesh, *, batch: int
                  ) -> Dict[str, P]:
     """PartitionSpecs for the batch dict of one cell: tokens and labels
-    sequence over ``model``, batch over the data axes."""
+    sequence over ``model``, batch over the data axes; a vlm config's
+    image embeddings whole on every model rank, an enc-dec config's
+    frames sequence over ``model`` (batch over data when batch > 1);
+    ``cfg`` None: the tokens' specs alone."""
     daxes = data_axes(mesh)
     if shape_kind == "decode":
-        return {"tokens": P() if batch == 1 else P(daxes)}
-    return {"tokens": P("model", daxes), "labels": P("model", daxes)}
+        out = {"tokens": P() if batch == 1 else P(daxes)}
+    else:
+        out = {"tokens": P("model", daxes), "labels": P("model", daxes)}
+    if cfg is None:                       # tokens alone
+        return out
+    if cfg.family == "vlm":
+        out["image_embeds"] = P(None, daxes if batch > 1 else None, None)
+    if cfg.is_encdec:
+        out["frames"] = P("model", daxes if batch > 1 else None, None)
+    return out

@@ -10,7 +10,10 @@ at the scheduler's position front through ``make_serve_step`` (one
 device->host read of the sampled tokens per round).  ``--transport``
 routes requests over the host runtime's endpoints: prompts ride a
 by-size-striped prefill endpoint, generated tokens a separate decode
-endpoint.
+endpoint.  The vlm and audio configs are refused, as the reference's
+launcher refuses them (its prompts carry no image or audio): their
+serving entry points are ``serving.engine``'s ``precompute_cross_kv``,
+``make_prefill_step`` and ``make_serve_step``.
 
 :func:`serve` is the loop itself, callable with any config and params.
 """
@@ -130,6 +133,9 @@ def main(argv=None) -> Dict:
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "vlm" or cfg.is_encdec:
+        # as the reference's launcher: its prompts carry no image or audio
+        raise SystemExit("serve demo targets decoder-only archs")
     model = build_model(cfg, device=args.device)
     params, _ = model.init(0)
     if args.attr and not args.transport:

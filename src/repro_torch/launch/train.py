@@ -18,8 +18,11 @@ drawn from seed 0; the schedule is the reference's cosine over
 batch shard (:func:`repro_torch.launch.mesh.batch_pspecs`), and the
 gradient is synced on the rank thread after backward.  ``--mesh DxM``
 with M > 1 raises: training at tp > 1 needs autograd through the
-model-axis collectives (ROADMAP A6c).  The vlm and audio families raise
-(A5).  Checkpoint/restart: pass ``--ckpt-dir``; rerunning resumes from
+model-axis collectives (ROADMAP A6c).  A vlm config's batches carry the
+stub image embeddings (``max(n_image_tokens, 4)`` rows), an audio
+config's the stub frames (``n_audio_frames`` rounded up to 16, at least
+16), drawn per step as the reference's launcher draws them.
+Checkpoint/restart: pass ``--ckpt-dir``; rerunning resumes from
 the last committed step with exact data replay.
 
 :func:`train` is the launcher's loop, callable with any config and
@@ -32,13 +35,14 @@ import dataclasses
 import time
 from typing import Any, Dict, List, Optional
 
+import torch
+
 from ..configs import ARCH_NAMES, get_config, get_smoke
 from ..core.attrs import parse_attr_args
 from ..core.modes import _FIELD_TO_ATTR, CommConfig, parse_mode
-from ..data import SyntheticPipeline
+from ..data import SyntheticPipeline, stub_frames, stub_image_embeds
 from ..distributed.spmd_map import Mesh, P, spmd_map
 from ..models.common import ModelConfig
-from ..models.lm import PORTED_FAMILIES
 from ..models.registry import build_model
 from ..optim import AdamWConfig, cosine_schedule
 from ..train import TrainState, make_train_step, train_state_init
@@ -66,12 +70,29 @@ def opt_config(lr: float, steps: int) -> AdamWConfig:
     return AdamWConfig(lr=cosine_schedule(lr, 10, steps))
 
 
+def batch_extras(cfg: ModelConfig, batch: int, step: int, device
+                 ) -> Dict[str, Any]:
+    """The frontend stubs of a vlm or audio batch at ``step``, in
+    ``cfg.dtype`` on ``device`` (the reference launcher's ``extras``)."""
+    out = {}
+    if cfg.family == "vlm":
+        out["image_embeds"] = stub_image_embeds(
+            max(cfg.n_image_tokens, 4), batch, cfg.d_model, step)
+    if cfg.is_encdec:
+        t = max(((cfg.n_audio_frames + 15) // 16) * 16, 16)
+        out["frames"] = stub_frames(t, batch, cfg.d_model, step)
+    return {k: torch.from_numpy(v).to(device=device, dtype=cfg.dtype)
+            for k, v in out.items()}
+
+
 def mesh_step(model, specs, opt: AdamWConfig, mesh: Mesh,
-              config: CommConfig, *, remat: bool = True):
+              config: CommConfig, *, batch: int, remat: bool = True):
     """The step on every rank of a ``(D, 1)`` mesh: each rank takes its
-    whole copy of the state and its batch shard; returns rank 0's
-    updated state (every rank's is the same) and the meaned metrics."""
-    bspec = batch_pspecs(model.cfg, "train", mesh, batch=0)
+    whole copy of the state and its batch shard (``batch``, the global
+    batch, > 1 cuts a vlm or audio batch's extras over data too);
+    returns rank 0's updated state (every rank's is the same) and the
+    meaned metrics."""
+    bspec = batch_pspecs(model.cfg, "train", mesh, batch=batch)
 
     def rank_step(comm, state, batch):
         comm = dataclasses.replace(comm, fsdp=False)   # replicated state
@@ -97,11 +118,15 @@ def train(cfg: ModelConfig, state: TrainState, specs, *, steps: int,
         step_fn = make_train_step(model, specs, opt, remat=remat)
     else:
         step_fn = mesh_step(model, specs, opt, mesh, config or CommConfig(),
-                            remat=remat)
+                            remat=remat, batch=batch)
     pipe = SyntheticPipeline(vocab=cfg.vocab, seq_len=seq,
                              global_batch=batch)
     loop_cfg = loop_cfg or LoopConfig(total_steps=steps)
-    _, hist = train_loop(state, step_fn, pipe, loop_cfg)
+
+    def transform(b, step):
+        return {**b, **batch_extras(cfg, batch, step, model.device)}
+    _, hist = train_loop(state, step_fn, pipe, loop_cfg,
+                         batch_transform=transform)
     return hist
 
 
@@ -128,10 +153,6 @@ def main(argv=None) -> List[Dict[str, Any]]:
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"--arch {args.arch}: the {cfg.family!r} family is not ported "
-            "(A5)")
     mesh = config = None
     if args.mesh:
         d, m = parse_mesh(args.mesh)

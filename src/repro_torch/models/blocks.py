@@ -118,32 +118,45 @@ def init_mlp(pf: ParamFactory, cfg: ModelConfig, prefix: str = "",
 
 def attention_op(x: torch.Tensor, p: Dict[str, torch.Tensor],
                  cfg: ModelConfig, comm, plan: TPPlan, *, window: int,
-                 q_offset: int, causal: bool = True, prefix: str = ""
+                 q_offset: int, memory: Optional[torch.Tensor] = None,
+                 causal: bool = True, prefix: str = ""
                  ) -> torch.Tensor:
     """x: (s_local, b, d) pre-normed; returns (s_local, b, d)
     un-residual.  One flash-attention launch on CUDA, on the rank's
     local heads.  K and V are projected by one matmul with the local
-    ``[wk | wv]`` shards, as the reference does."""
+    ``[wk | wv]`` shards, as the reference does.
+
+    ``memory``: (t, b, d), the full-length cross-attention source
+    (replicated over the model axis).  When given, K and V come from it
+    (no sequence gather), RoPE is off and the kernel runs unmasked
+    (``causal=False``, ``window=0``).  ``causal=False`` without memory is
+    the encoder's bidirectional self-attention, RoPE on, as in the
+    reference."""
     dh = cfg.resolved_head_dim
     wq = comm.weight(p[prefix + "wq"], fsdp_axis=0)
     # concat of LOCAL shards: the layout is [K_local | V_local]
     wkv = torch.cat([comm.weight(p[prefix + "wk"], fsdp_axis=0),
                      comm.weight(p[prefix + "wv"], fsdp_axis=0)], dim=1)
     wo = comm.weight(p[prefix + "wo"], fsdp_axis=1)
+    is_cross = memory is not None
+    kv_src = memory if is_cross else x
     nq_l, nkv_l = plan.q_local(cfg), plan.kv_local(cfg)
 
     if plan.shard_heads:
         # Plan A: full-sequence q for the local head shard
         q = comm.ag_matmul(x, wq)                       # (s, b, nq_l*dh)
-        if plan.shard_kv:
+        if plan.shard_kv and not is_cross:
             kv = comm.ag_matmul(x, wkv)                 # (s, b, 2*nkv_l*dh)
             k, v = torch.chunk(kv.reshape(*kv.shape[:-1], 2 * nkv_l, dh),
                                2, dim=-2)
         else:
-            # replicated KV projection: every rank computes ALL kv heads,
-            # then keeps the contiguous kv-head range its GLOBAL q heads
-            # map to (GQA grouping is global, not local)
-            kv = comm.ag_seq(torch.matmul(x, wkv))
+            # replicated KV projection: every rank computes ALL kv heads
+            # (memory needs no gather), then keeps the contiguous kv-head
+            # range its GLOBAL q heads map to (GQA grouping is global,
+            # not local)
+            kv = torch.matmul(kv_src, wkv)
+            if not is_cross:
+                kv = comm.ag_seq(kv)
             kv = kv.reshape(*kv.shape[:-1], 2, nkv_l, dh)
             g_ratio = cfg.n_heads // cfg.n_kv_heads
             if nq_l >= g_ratio:
@@ -152,15 +165,21 @@ def attention_op(x: torch.Tensor, p: Dict[str, torch.Tensor],
             else:
                 assert g_ratio % nq_l == 0, (nq_l, g_ratio)
                 cnt = 1
-            start = (comm.model_index() * nq_l) // g_ratio
+            # the reference's dynamic_slice clamps the start into range:
+            # with the kv heads sharded the local shard is already the
+            # range (start 0)
+            start = min((comm.model_index() * nq_l) // g_ratio, nkv_l - cnt)
             kv = kv[..., start:start + cnt, :]
             k, v = kv[..., 0, :, :], kv[..., 1, :, :]
         q = q.reshape(q.shape[0], *q.shape[1:-1], nq_l, dh)
         q_off_attn = 0                                  # q covers full seq
     else:
-        # Plan B: local-sequence q over all heads; KV gathered
+        # Plan B: local-sequence q over all heads; KV gathered (memory:
+        # already full)
         q = torch.matmul(x, wq)                         # (s_l, b, nq*dh)
-        kv = comm.ag_seq(torch.matmul(x, wkv))
+        kv = torch.matmul(kv_src, wkv)
+        if not is_cross:
+            kv = comm.ag_seq(kv)
         q = q.reshape(*q.shape[:-1], nq_l, dh)
         k, v = torch.chunk(kv.reshape(*kv.shape[:-1], 2 * nkv_l, dh), 2,
                            dim=-2)
@@ -169,12 +188,15 @@ def attention_op(x: torch.Tensor, p: Dict[str, torch.Tensor],
     if cfg.qk_norm:
         q = rms_norm(q, p[prefix + "q_norm"])
         k = rms_norm(k, p[prefix + "k_norm"])
-    q_pos = q_off_attn + torch.arange(q.shape[0], dtype=torch.int32,
-                                      device=x.device)
-    k_pos = torch.arange(k.shape[0], dtype=torch.int32, device=x.device)
-    q = apply_rope(q, q_pos, cfg.rope_theta)
-    k = apply_rope(k, k_pos, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=causal, window=window,
+    if not is_cross:                                    # RoPE: self-attn
+        q_pos = q_off_attn + torch.arange(q.shape[0], dtype=torch.int32,
+                                          device=x.device)
+        k_pos = torch.arange(k.shape[0], dtype=torch.int32,
+                             device=x.device)
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, k_pos, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=causal and not is_cross,
+                        window=0 if is_cross else window,
                         q_offset=q_off_attn)
     o = o.reshape(*o.shape[:-2], nq_l * dh)
     if plan.shard_heads:

@@ -111,9 +111,36 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         return self.ssm_d_inner // self.ssm_headdim
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def n_cross_layers(self) -> int:
+        """Cross-attention layers: a vlm config's gated layers (one every
+        ``cross_attn_every``), every decoder layer of an enc-dec config,
+        else 0."""
+        if self.family == "vlm":
+            return self.n_layers // self.cross_attn_every
+        return self.n_layers if self.is_encdec else 0
+
     def uses_subquadratic_attention(self) -> bool:
         return (self.family in ("ssm", "hybrid")
                 or self.sliding_window > 0)
+
+    def layer_is_global(self, i: int) -> bool:
+        """Does layer ``i`` use full (global) attention?"""
+        if self.sliding_window == 0:
+            return True
+        if i in self.global_layers:
+            return True
+        if self.swa_every_nth_global:
+            return (i + 1) % self.swa_every_nth_global == 0
+        return False
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding included once if tied)."""
@@ -137,13 +164,20 @@ class ModelConfig:
             ff_mult = 3 if self.mlp == "swiglu" else 2
             per_layer += ff_mult * d * self.d_ff
         per_layer += 2 * d                                     # norms
-        n_cross = 0
-        if self.cross_attn_every:
-            n_cross = self.n_layers // self.cross_attn_every
+        n_cross = self.n_cross_layers if self.cross_attn_every else 0
         cross = n_cross * (2 * d * (nq * dh) + 2 * d * (nkv * dh))
         emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
         enc = self.encoder_layers * per_layer                  # (approx)
         return (self.n_layers * per_layer + cross + emb + enc + d)
+
+    def active_param_count(self) -> int:
+        """Activated parameters per token (MoE: top-k experts only)."""
+        if not self.n_experts:
+            return self.param_count()
+        ff_mult = 3 if self.mlp == "swiglu" else 2
+        expert = ff_mult * self.d_model * self.d_ff
+        return (self.param_count()
+                - self.n_layers * (self.n_experts - self.top_k) * expert)
 
 
 # ---------------------------------------------------------------------------

@@ -86,6 +86,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(s: int, d: int, offset: int = 0, device=None
+                         ) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings of positions ``offset ..
+    offset + s - 1``: (s, d) float32, ``[sin | cos]``."""
+    pos = torch.arange(s, dtype=torch.float32, device=device) + offset
+    half = d // 2
+    freqs = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=device) / max(half - 1, 1))
+    ang = pos[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------

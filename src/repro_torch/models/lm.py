@@ -1,27 +1,33 @@
-"""Language models: init, forward and loss, dense, moe, ssm and hybrid
-families (PyTorch port).
+"""Language models: init, forward and loss for every family (PyTorch
+port).
 
 The mirror of :mod:`repro.models.lm` for the dense family (GQA,
 sliding-window, qk-norm and parallel-block transformers), the moe family
 (a :mod:`.moe` block in place of the MLP, plus an optional shared
-expert), the ssm family (a Mamba2 :mod:`.ssm` mixer a layer, no MLP) and
+expert), the ssm family (a Mamba2 :mod:`.ssm` mixer a layer, no MLP),
 the hybrid family (attention and the SSM mixer side by side on the same
-normed input, their outputs RMS-normed and averaged, then an MLP).  The
-layer stack is a Python loop over the stacked ``(L, ...)`` parameters
-(the reference's ``lax.scan``); with ``remat`` and grad mode on, each
-layer runs under ``torch.utils.checkpoint`` (the reference's per-layer
+normed input, their outputs RMS-normed and averaged, then an MLP), the
+vlm family (llama-3.2-vision: superblocks of ``cross_attn_every - 1``
+self-attention layers and one gated cross-attention layer over the
+image embeddings) and the audio family (whisper: an encoder over the
+frame embeddings, then decoder layers that cross-attend to its output).
+The layer stack is a Python loop over the stacked ``(L, ...)``
+parameters (the reference's ``lax.scan``); with ``remat`` and grad mode
+on, each layer, superblock or encoder layer runs under
+``torch.utils.checkpoint`` (the reference's per-layer
 ``jax.checkpoint``), so backward recomputes it from its input.
 :func:`loss_and_metrics` is the training loss: the vocab-parallel
 cross-entropy over ``loss_chunk``-row chunks, each checkpointed so that
 one chunk's float32 logits are live at a time, plus the router terms.
 At tp > 1 every block runs the reference's tensor-parallel schedule
 through the :class:`Comm` (sequence-sharded activations, the ring
-collectives at the TP boundaries); training is ported at tp = 1.  The
-vlm and audio families are not ported yet (ROADMAP.md A5).
+collectives at the TP boundaries); training is ported at tp = 1.
 
 Batch convention (seq-major local view):
     tokens  (s_local, b)   int
     labels  (s_local, b)   int   (-100 = ignore)
+    [frames (t_local, b, d)]        audio stub (whisper)
+    [image_embeds (ti, b, d)]       vision stub (llama-3.2-vision)
 """
 from __future__ import annotations
 
@@ -31,15 +37,16 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..distributed.comm import Comm
-from .blocks import TPPlan, init_attention, init_mlp, swa_attention_op, \
-    tp_plan
+from .blocks import (TPPlan, attention_op, init_attention, init_mlp,
+                     swa_attention_op, tp_plan)
 from .common import ModelConfig, ParamFactory
 from .layers import (apply_norm, embed_tokens, gated_activation,
-                     lm_head_loss, mlp_activation, mlp_block, rms_norm)
+                     lm_head_loss, mlp_activation, mlp_block, rms_norm,
+                     sinusoidal_positions)
 from .moe import init_moe, moe_block
 from .ssm import init_ssm, ssm_op
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 _AUX_KEYS = ("aux_lb", "aux_z", "dropped_frac")
 
 
@@ -93,23 +100,60 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None
     """Returns (params, specs), parallel dicts with the reference's keys
     and stacked shapes, drawn from ``gen`` on ``gen.device`` in the
     reference's order (on ``device`` when given: ``"meta"`` allocates
-    nothing)."""
+    nothing).  A vlm config adds ``cross_layers`` (its gates zero, as in
+    the reference), an enc-dec config ``encoder`` and
+    ``enc_final_norm``."""
     require_ported(cfg, "init_params")
     pf = ParamFactory(gen, cfg.dtype, fsdp=cfg.fsdp_params, device=device)
     d = cfg.d_model
     params: Dict[str, Any] = {}
     specs: Dict[str, Any] = {}
-    params["emb"] = pf.dense("emb", (cfg.padded_vocab, d), tp_axis=0,
-                             fsdp_axis=1, stacked=False, scale=1.0)
-    specs["emb"] = pf.specs.pop("emb")
+
+    def grab(sub: Dict[str, torch.Tensor], dest_key: str):
+        params[dest_key] = sub
+        specs[dest_key] = {k: pf.specs[k] for k in sub}
+        pf.specs.clear()
+
+    def grab_one(name: str, value: torch.Tensor):
+        params[name] = value
+        specs[name] = pf.specs.pop(name)
+
+    grab_one("emb", pf.dense("emb", (cfg.padded_vocab, d), tp_axis=0,
+                             fsdp_axis=1, stacked=False, scale=1.0))
     if not cfg.tie_embeddings:
-        params["lm_head"] = pf.dense("lm_head", (cfg.padded_vocab, d),
-                                     tp_axis=0, fsdp_axis=1, stacked=False)
-        specs["lm_head"] = pf.specs.pop("lm_head")
-    params["final_norm"] = pf.ones("final_norm", (d,), stacked=False)
-    specs["final_norm"] = pf.specs.pop("final_norm")
-    params["layers"] = _init_layer_stack(pf, cfg, cfg.n_layers)
-    specs["layers"] = {k: pf.specs[k] for k in params["layers"]}
+        grab_one("lm_head", pf.dense("lm_head", (cfg.padded_vocab, d),
+                                     tp_axis=0, fsdp_axis=1, stacked=False))
+    grab_one("final_norm", pf.ones("final_norm", (d,), stacked=False))
+
+    if cfg.family == "vlm":
+        n_cross = cfg.n_cross_layers
+        grab(_init_layer_stack(pf, cfg, cfg.n_layers - n_cross), "layers")
+        cp: Dict[str, torch.Tensor] = {
+            "normx": pf.ones("normx", (n_cross, d))}
+        cp.update(init_attention(pf, cfg, prefix="x_",
+                                 stacked_layers=n_cross))
+        cp["gate_attn"] = pf.zeros("gate_attn", (n_cross,),
+                                   dtype=torch.float32)
+        cp["normm"] = pf.ones("normm", (n_cross, d))
+        cp.update(init_mlp(pf, cfg, prefix="xm_", stacked_layers=n_cross))
+        cp["gate_mlp"] = pf.zeros("gate_mlp", (n_cross,),
+                                  dtype=torch.float32)
+        grab(cp, "cross_layers")
+    elif cfg.is_encdec:
+        grab(_init_layer_stack(pf, cfg, cfg.encoder_layers), "encoder")
+        grab_one("enc_final_norm", pf.ones("enc_final_norm", (d,),
+                                           stacked=False))
+        L = cfg.n_layers
+        dp: Dict[str, torch.Tensor] = {}
+        dp.update(_init_norm(pf, cfg, "norm1", L))
+        dp.update(init_attention(pf, cfg, stacked_layers=L))
+        dp["normx"] = pf.ones("normx", (L, d))
+        dp.update(init_attention(pf, cfg, prefix="x_", stacked_layers=L))
+        dp.update(_init_norm(pf, cfg, "norm2", L))
+        dp.update(init_mlp(pf, cfg, stacked_layers=L))
+        grab(dp, "layers")
+    else:
+        grab(_init_layer_stack(pf, cfg, cfg.n_layers), "layers")
     return params, specs
 
 
@@ -148,8 +192,11 @@ def _mlp_op(x, lp, cfg, comm, prefix: str = "") -> torch.Tensor:
 
 
 def _decoder_block(x, lp, idx: int, cfg: ModelConfig, comm: Comm,
-                   plan: TPPlan, q_offset: int) -> Tuple[torch.Tensor, Dict]:
-    """One decoder layer of a ported family; returns (x', aux)."""
+                   plan: TPPlan, q_offset: int, memory=None
+                   ) -> Tuple[torch.Tensor, Dict]:
+    """One decoder layer of any family; returns (x', aux).  With
+    ``memory`` and the layer's ``x_`` weights (enc-dec), a
+    cross-attention sub-block follows the self-attention."""
     h = apply_norm(cfg.norm, x, lp.get("norm1"))
     if cfg.family == "ssm":
         return x + ssm_op(h, lp, cfg, comm, plan), {}
@@ -164,6 +211,11 @@ def _decoder_block(x, lp, idx: int, cfg: ModelConfig, comm: Comm,
     if cfg.parallel_block:                       # Cohere: attn ∥ mlp
         return x + attn + _mlp_op(h, lp, cfg, comm), {}
     x = x + attn
+    if memory is not None and "x_wq" in lp:      # enc-dec cross-attention
+        # rms_norm whatever cfg.norm is, as the reference does
+        hx = rms_norm(x, lp["normx"])
+        x = x + attention_op(hx, lp, cfg, comm, plan, window=0,
+                             q_offset=q_offset, memory=memory, prefix="x_")
     h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
     if cfg.family == "moe":
         moe_out, aux = moe_block(h2, lp, cfg, comm)
@@ -173,9 +225,39 @@ def _decoder_block(x, lp, idx: int, cfg: ModelConfig, comm: Comm,
     return x + _mlp_op(h2, lp, cfg, comm), {}
 
 
-def layer_params(params: Dict[str, Any], idx: int) -> Dict[str, Any]:
+def _cross_block(x, lp, cfg: ModelConfig, comm: Comm, plan: TPPlan,
+                 q_offset: int, memory) -> torch.Tensor:
+    """Gated cross-attention layer (llama-3.2-vision style)."""
+    hx = rms_norm(x, lp["normx"])
+    attn = attention_op(hx, lp, cfg, comm, plan, window=0,
+                        q_offset=q_offset, memory=memory, prefix="x_")
+    x = x + torch.tanh(lp["gate_attn"]).to(x.dtype) * attn
+    hm = rms_norm(x, lp["normm"])
+    ff = _mlp_op(hm, lp, cfg, comm, prefix="xm_")
+    return x + torch.tanh(lp["gate_mlp"]).to(x.dtype) * ff
+
+
+def layer_params(params: Dict[str, Any], idx: int,
+                 key: str = "layers") -> Dict[str, Any]:
     """Layer ``idx``'s slice of the stacked ``(L, ...)`` params (views)."""
-    return {k: v[idx] for k, v in params["layers"].items()}
+    return {k: v[idx] for k, v in params[key].items()}
+
+
+def _unbind(stack: Dict[str, torch.Tensor]) -> list:
+    """Each layer's params as views from one unbind of each stacked
+    param, so the backward stacks the layers' gradients once (indexing
+    layer idx would build a zero-filled stacked gradient a layer and add
+    them up: L adds of the whole stack)."""
+    parts = {k: torch.unbind(v) for k, v in stack.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _run(fn, remat: bool, *args):
+    """``fn(*args)``, checkpointed when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -190,8 +272,9 @@ def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
             cfg: ModelConfig, comm: Comm, *, remat: bool = True
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (x_full (s, b, d) post-final-norm full-sequence, aux).
-    ``remat`` checkpoints each layer when grad mode is on (under
-    ``torch.no_grad()`` it changes nothing)."""
+    ``remat`` checkpoints each layer (a vlm config: each superblock; an
+    enc-dec config: each encoder and decoder layer) when grad mode is on
+    (under ``torch.no_grad()`` it changes nothing)."""
     require_ported(cfg, "forward")
     plan = tp_plan(cfg, comm.tp)
     tokens = batch["tokens"]
@@ -202,25 +285,37 @@ def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                      scale_by_sqrt_dim=cfg.name.startswith("gemma"))
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in _AUX_KEYS}
-
-    # each layer's params are views from one unbind of each stacked
-    # param, so the backward stacks the layers' gradients once (indexing
-    # layer idx would build a zero-filled stacked gradient a layer and
-    # add them up: L adds of the whole stack)
-    stacks = {k: torch.unbind(v) for k, v in params["layers"].items()}
-
-    def layer(xc, idx):
-        return _decoder_block(xc, {k: v[idx] for k, v in stacks.items()},
-                              idx, cfg, comm, plan, q_offset)
-
     remat = remat and torch.is_grad_enabled()
-    for idx in range(cfg.n_layers):
-        if remat:
-            x, layer_aux = checkpoint(layer, x, idx, use_reentrant=False)
-        else:
-            x, layer_aux = layer(x, idx)
-        for k, v in layer_aux.items():
-            aux[k] = aux[k] + v
+
+    memory = None
+    if cfg.family == "vlm":
+        memory = batch["image_embeds"]              # (ti, b, d) replicated
+    if cfg.is_encdec:
+        memory = _encode(params, batch, cfg, comm, plan, remat=remat)
+
+    layers = _unbind(params["layers"])
+    if cfg.family == "vlm":
+        per = cfg.cross_attn_every - 1              # self layers a block
+        cross = _unbind(params["cross_layers"])
+
+        def superblock(xc, mem, i):
+            for j in range(per):
+                xc, _ = _decoder_block(xc, layers[i * per + j], i * per + j,
+                                       cfg, comm, plan, q_offset)
+            return _cross_block(xc, cross[i], cfg, comm, plan, q_offset,
+                                mem)
+
+        for i in range(cfg.n_cross_layers):
+            x = _run(superblock, remat, x, memory, i)
+    else:
+        def layer(xc, mem, idx):
+            return _decoder_block(xc, layers[idx], idx, cfg, comm, plan,
+                                  q_offset, memory=mem)
+
+        for idx in range(cfg.n_layers):
+            x, layer_aux = _run(layer, remat, x, memory, idx)
+            for k, v in layer_aux.items():
+                aux[k] = aux[k] + v
     x = apply_norm(final_norm_kind(cfg), x, params["final_norm"])
     x = comm.ag_seq(x)
     # per-layer means; the router terms come from local tokens, so the
@@ -229,6 +324,32 @@ def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     aux = {k: comm.psum_model_ge(v / n_layers) / comm.tp
            for k, v in aux.items()}
     return x, aux
+
+
+def _encode(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, comm: Comm, plan: TPPlan, *,
+            remat: bool) -> torch.Tensor:
+    """Whisper-style encoder over the stub frame embeddings (t_local, b,
+    d) -> the full memory (t, b, d): sinusoidal positions, then
+    bidirectional self-attention layers (RoPE on, ``q_offset`` 0, as in
+    the reference), the final layernorm and a sequence gather."""
+    frames = batch["frames"]                        # (t_local, b, d)
+    t_l, _, d = frames.shape
+    pos = sinusoidal_positions(t_l, d, offset=comm.model_index() * t_l,
+                               device=frames.device).to(frames.dtype)
+    x = frames + pos[:, None, :]
+
+    def layer(xc, lp):
+        h = apply_norm(cfg.norm, xc, lp.get("norm1"))
+        xc = xc + attention_op(h, lp, cfg, comm, plan, window=0,
+                               q_offset=0, causal=False)
+        h2 = apply_norm(cfg.norm, xc, lp.get("norm2"))
+        return xc + _mlp_op(h2, lp, cfg, comm)
+
+    for lp in _unbind(params["encoder"]):
+        x = _run(layer, remat, x, lp)
+    x = apply_norm(final_norm_kind(cfg), x, params["enc_final_norm"])
+    return comm.ag_seq(x)                           # memory: (t, b, d)
 
 
 def loss_and_metrics(params: Dict[str, Any], batch: Dict[str, torch.Tensor],

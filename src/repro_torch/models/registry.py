@@ -63,8 +63,11 @@ class Model:
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """A :class:`Model` on ``device`` (default ``cuda``; no GPU and no
-    ``"cpu"`` raises).  The vlm and audio families raise "not ported"."""
+    ``"cpu"`` raises; ``"meta"`` gives a model for shapes only, as
+    ``abstract_params``).  Every family of the reference builds."""
     lm.require_ported(cfg, "build_model")
+    if device is not None and torch.device(device).type == "meta":
+        return Model(cfg, torch.device("meta"))
     return Model(cfg, resolve_device(device))
 
 

@@ -1,5 +1,6 @@
-"""Serving on the port: the decode/prefill engine for the dense, moe, ssm
-and hybrid families, the paged KV allocator, the continuous-batching
+"""Serving on the port: the decode/prefill engine for every family (the
+vlm and audio ones with a cross-KV cache from ``precompute_cross_kv``),
+the paged KV allocator, the continuous-batching
 scheduler, and serving on the comm core (``ContinuousBatcher``,
 ``ServePlane``, ``TokenClient``) with each tick's tokens on the engine's
 device.  On a mesh (``spmd_map``) the engine runs the reference's

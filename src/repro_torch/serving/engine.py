@@ -1,5 +1,5 @@
-"""Serving engine: prefill and single-token decode, dense, moe, ssm and
-hybrid (port).
+"""Serving engine: prefill and single-token decode for every family
+(port).
 
 The mirror of :mod:`repro.serving.engine`.
 
@@ -14,6 +14,10 @@ Cache layout (the reference's global view; a rank holds its shard, cut by
                                        over ``model``, batch over ``data``
     conv_tail  (L, K-1, B, d_inner)    cfg.dtype (ssm, hybrid); channels
                                        with the heads
+    cross_k/v  (L_x, T, B, n_kv, dh)   cfg.dtype (vlm, audio): the memory's
+                                       K/V of every cross-attention layer,
+                                       from :func:`precompute_cross_kv`;
+                                       batch over ``data``
 
 all on the model's device.  The decode step is the reference's, run by
 each rank on its shards: local head shards, tiny gathers to full heads,
@@ -31,10 +35,8 @@ reference, by design:
   ``length + 1``.
 * ``DecodeCache.length`` is a host int, so no decode step reads anything
   back from the card until the sampled tokens are wanted.
-* ``init_cache``, ``make_serve_step`` and ``make_prefill_step`` raise
-  "not ported" for a vlm or audio config (ROADMAP.md A5), and the
-  reference's cross-attention cache (``cross_k`` / ``cross_v``) and
-  ``precompute_cross_kv`` are not here yet.
+* A vlm or audio decode step needs the cross-KV cache: a cache without
+  ``cross_k`` raises (the reference would fail inside its scan).
 
 Per decode step the RMSNorm kernel runs 4 times a layer (norm1, q_norm,
 k_norm, norm2 on gemma3 and olmoe) plus once for the final norm; the
@@ -48,9 +50,14 @@ plain :func:`~repro_torch.models.ssm.ssd_decode_step`, as the reference
 has no kernel for it) and its gated norm (one RMSNorm launch), so an
 ssm decode step launches RMSNorm twice a layer plus the final norm and
 never the SSD-scan kernel; a hybrid layer adds attention, the two mix
-norms and norm2 (five a layer).  Prefill is the full-sequence forward,
-so it also runs the flash-attention kernel once an attention layer and
-the SSD-scan kernel once an ssm or hybrid layer.
+norms and norm2 (five a layer).  A vlm superblock adds a cross-attention
+layer against the cached image K/V (normx, normm: two launches), an
+audio decoder layer a cross-attention sub-block (normx: one launch, an
+RMSNorm whatever the config's norm, as in the reference); the memory's
+K/V are projected once, by :func:`precompute_cross_kv`.  Prefill is
+the full-sequence forward, so it also runs the flash-attention kernel once an attention layer (a
+cross-attention layer unmasked against the memory; whisper's encoder
+bidirectional) and the SSD-scan kernel once an ssm or hybrid layer.
 """
 from __future__ import annotations
 
@@ -86,19 +93,25 @@ class DecodeCache:
     v: Optional[torch.Tensor] = None
     ssm_state: Optional[torch.Tensor] = None  # (L, b, H, N, P) float32
     conv_tail: Optional[torch.Tensor] = None  # (L, K-1, b, d_inner)
+    cross_k: Optional[torch.Tensor] = None   # (L_x, T, b, n_kv, dh)
+    cross_v: Optional[torch.Tensor] = None
     length: int = 0                          # valid positions (host int)
 
 
 def init_cache(cfg: ModelConfig, seq_len: int, batch: int, *,
-               device=None) -> DecodeCache:
+               n_memory: int = 0, device=None) -> DecodeCache:
     """A zeroed cache of ``seq_len`` positions for ``batch`` sequences on
-    ``device`` (default ``cuda``): K/V for every family with attention,
-    the SSM state and conv tail for ssm and hybrid."""
+    ``device`` (default ``cuda``): K/V for every family with attention
+    (a vlm config's self-attention layers only), the SSM state and conv
+    tail for ssm and hybrid, and with ``n_memory`` the cross-KV of each
+    cross-attention layer over ``n_memory`` memory rows."""
     lm_mod.require_ported(cfg, "init_cache")
     dev = resolve_device(device)
     c = DecodeCache(length=0)
     if cfg.family != "ssm":
-        shape = (cfg.n_layers, seq_len, batch, cfg.n_kv_heads,
+        n_self = cfg.n_layers - (cfg.n_cross_layers if cfg.family == "vlm"
+                                 else 0)
+        shape = (n_self, seq_len, batch, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         c.k = torch.zeros(shape, dtype=cfg.dtype, device=dev)
         c.v = torch.zeros(shape, dtype=cfg.dtype, device=dev)
@@ -109,6 +122,11 @@ def init_cache(cfg: ModelConfig, seq_len: int, batch: int, *,
         c.conv_tail = torch.zeros(
             (cfg.n_layers, cfg.ssm_conv_kernel - 1, batch, cfg.ssm_d_inner),
             dtype=cfg.dtype, device=dev)
+    if cfg.n_cross_layers and n_memory:
+        xshape = (cfg.n_cross_layers, n_memory, batch, cfg.n_kv_heads,
+                  cfg.resolved_head_dim)
+        c.cross_k = torch.zeros(xshape, dtype=cfg.dtype, device=dev)
+        c.cross_v = torch.zeros(xshape, dtype=cfg.dtype, device=dev)
     return c
 
 
@@ -118,7 +136,8 @@ def cache_pspecs(cfg: ModelConfig, *, batch: int, model_axis="model",
     over model (+ data when B == 1, where the batch is replicated over
     data and the data axis becomes extra sequence parallelism for the
     KV), batch over data otherwise; the SSM state's heads and the conv
-    tail's channels over model when the SSM heads are sharded.
+    tail's channels over model when the SSM heads are sharded; the
+    cross-KV whole on every model rank, batch over data.
     ``tp2d`` keeps the reference's signature (the layout is the same)."""
     daxes = (data_axis,) if isinstance(data_axis, str) else tuple(data_axis)
     joint = batch == 1
@@ -127,12 +146,14 @@ def cache_pspecs(cfg: ModelConfig, *, batch: int, model_axis="model",
     ssm_head = model_axis if shard_decisions(cfg)["ssm"] else None
     attn = cfg.family != "ssm"
     ssm = cfg.family in ("ssm", "hybrid")
+    cross = (P(None, None, batch_spec, None, None) if cfg.n_cross_layers
+             else None)
     return DecodeCache(
         k=P(None, seq_axes, batch_spec, None, None) if attn else None,
         v=P(None, seq_axes, batch_spec, None, None) if attn else None,
         ssm_state=P(None, batch_spec, ssm_head, None, None) if ssm else None,
         conv_tail=P(None, None, batch_spec, ssm_head) if ssm else None,
-        length=None)
+        cross_k=cross, cross_v=cross, length=None)
 
 
 # ---------------------------------------------------------------------------
@@ -213,55 +234,69 @@ def _rows(t, rows):
 
 def _decode_attn_layer(x, lp, cfg: ModelConfig, comm: Comm, plan: TPPlan,
                        k_cache, v_cache, pos: int, window: int, *,
-                       joint_kv: bool, tp2d: bool, defer_out: bool = False):
+                       joint_kv: bool, tp2d: bool, defer_out: bool = False,
+                       prefix: str = "", memory_kv=None):
     """One attention layer for a single token.  x (b, d) replicated over
     model; k/v_cache (S_loc, b_loc, nkv, dh), the local sequence shard,
-    written in place at ``pos`` by its owner.  Returns (b, d)."""
+    written in place at ``pos`` by its owner.  With ``memory_kv`` (the
+    layer's cross K/V, (T, b_loc, nkv, dh), whole on every model rank)
+    the token attends over the whole memory instead: no cache write, no
+    RoPE, nothing to combine.  Returns (b, d)."""
     dh = cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    is_cross = memory_kv is not None
     # local projections, then tiny gathers to full heads
-    q = _wmul(x, lp["wq"], fsdp_axis=0, comm=comm, tp2d=tp2d)
+    q = _wmul(x, lp[prefix + "wq"], fsdp_axis=0, comm=comm, tp2d=tp2d)
     if plan.shard_heads:
         q = comm.ag_seq(q.T, axis=0).T             # (b, nq*dh)
     q = q.reshape(-1, nq, dh)
-    k_new = _wmul(x, lp["wk"], fsdp_axis=0, comm=comm, tp2d=tp2d)
-    v_new = _wmul(x, lp["wv"], fsdp_axis=0, comm=comm, tp2d=tp2d)
-    if plan.shard_kv:
-        k_new = comm.ag_seq(k_new.T, axis=0).T
-        v_new = comm.ag_seq(v_new.T, axis=0).T
-    k_new = k_new.reshape(-1, nkv, dh)
-    v_new = v_new.reshape(-1, nkv, dh)
+    if not is_cross:
+        k_new = _wmul(x, lp[prefix + "wk"], fsdp_axis=0, comm=comm,
+                      tp2d=tp2d)
+        v_new = _wmul(x, lp[prefix + "wv"], fsdp_axis=0, comm=comm,
+                      tp2d=tp2d)
+        if plan.shard_kv:
+            k_new = comm.ag_seq(k_new.T, axis=0).T
+            v_new = comm.ag_seq(v_new.T, axis=0).T
+        k_new = k_new.reshape(-1, nkv, dh)
+        v_new = v_new.reshape(-1, nkv, dh)
     if cfg.qk_norm:
-        q = rms_norm(q, lp["q_norm"])
-        k_new = rms_norm(k_new, lp["k_norm"])
+        q = rms_norm(q, lp[prefix + "q_norm"])
+        if not is_cross:
+            k_new = rms_norm(k_new, lp[prefix + "k_norm"])
     # tp2d: x and q are batch-replicated over data (the weight-stationary
     # layout), but the attention runs batch-SHARDED against the classic
     # (seq/model, batch/data) cache and the rows rejoin before the
     # out-projection
     rows = _batch_rows(comm, x.shape[0]) if tp2d and not joint_kv else None
-    q, k_new, v_new = (_rows(t, rows) for t in (q, k_new, v_new))
-    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q = apply_rope(q[None], posv, cfg.rope_theta)[0]
-    k_new = apply_rope(k_new[None], posv, cfg.rope_theta)[0]
-
-    # the cache write on the owning sequence shard (past the end of the
-    # cache the reference drops it)
-    axes = _kv_axes(comm, joint=joint_kv and rows is None)
-    shard_len = k_cache.shape[0]
-    my_start = _axes_index(axes) * shard_len
-    rel = pos - my_start
-    if 0 <= rel < shard_len:
-        k_cache[rel] = k_new.to(k_cache.dtype)
-        v_cache[rel] = v_new.to(v_cache.dtype)
-    num, m, l = decode_attention(q, k_cache, v_cache, valid_len=pos + 1,
-                                 kv_offset=my_start, window=window,
-                                 q_pos=pos)
-    # flash-decode partials combined over the KV-sharding axes
-    m_g = _pmax_axes(m, axes)
-    corr = torch.exp(m - m_g)
-    l_g = _psum_axes(l * corr, axes)
-    num_g = _psum_axes(num * corr[..., None], axes)
-    attn = num_g / torch.clamp(l_g, min=1e-37)[..., None]
+    q = _rows(q, rows)
+    if is_cross:
+        mk, mv = memory_kv
+        num, m, l = decode_attention(q, mk, mv, valid_len=None)
+        attn = num / torch.clamp(l, min=1e-37)[..., None]
+    else:
+        k_new, v_new = _rows(k_new, rows), _rows(v_new, rows)
+        posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q[None], posv, cfg.rope_theta)[0]
+        k_new = apply_rope(k_new[None], posv, cfg.rope_theta)[0]
+        # the cache write on the owning sequence shard (past the end of
+        # the cache the reference drops it)
+        axes = _kv_axes(comm, joint=joint_kv and rows is None)
+        shard_len = k_cache.shape[0]
+        my_start = _axes_index(axes) * shard_len
+        rel = pos - my_start
+        if 0 <= rel < shard_len:
+            k_cache[rel] = k_new.to(k_cache.dtype)
+            v_cache[rel] = v_new.to(v_cache.dtype)
+        num, m, l = decode_attention(q, k_cache, v_cache,
+                                     valid_len=pos + 1, kv_offset=my_start,
+                                     window=window, q_pos=pos)
+        # flash-decode partials combined over the KV-sharding axes
+        m_g = _pmax_axes(m, axes)
+        corr = torch.exp(m - m_g)
+        l_g = _psum_axes(l * corr, axes)
+        num_g = _psum_axes(num * corr[..., None], axes)
+        attn = num_g / torch.clamp(l_g, min=1e-37)[..., None]
     attn = attn.reshape(-1, nq * dh).to(x.dtype)
     if rows is not None:
         attn = comm.ag_data(attn, axis=0)          # (b, nq*dh)
@@ -270,8 +305,8 @@ def _decode_attn_layer(x, lp, cfg: ModelConfig, comm: Comm, plan: TPPlan,
         start = comm.model_index() * (nq_l * dh)
         attn = attn[:, start:start + nq_l * dh]
     if defer_out:
-        return torch.matmul(attn, lp["wo"])
-    return _row_parallel_out(attn, lp["wo"], comm=comm, tp2d=tp2d,
+        return torch.matmul(attn, lp[prefix + "wo"])
+    return _row_parallel_out(attn, lp[prefix + "wo"], comm=comm, tp2d=tp2d,
                              shard_model=plan.shard_heads)
 
 
@@ -354,6 +389,8 @@ def make_serve_step(cfg: ModelConfig, comm: Optional[Comm] = None, *,
     under tp2d and for B == 1); returns the greedily sampled next tokens,
     (b,) int32 on the model's device, and the cache with ``length + 1``
     (its local K/V, SSM-state and conv-tail tensors updated in place).
+    A vlm or audio step reads the cross-KV of ``cache`` (filled by
+    :func:`precompute_cross_kv`).
     ``joint_kv``: the KV sequence dim is sharded over data AND model (B
     == 1 long-context shapes); ``tp2d``: 2D-TP serving."""
     lm_mod.require_ported(cfg, "make_serve_step")
@@ -361,6 +398,7 @@ def make_serve_step(cfg: ModelConfig, comm: Optional[Comm] = None, *,
     plan = tp_plan(cfg, comm.tp)
     final_kind = lm_mod.final_norm_kind(cfg)
     scale = cfg.name.startswith("gemma")
+    n_cross = cfg.n_cross_layers
 
     @torch.no_grad()
     def serve_step(params, cache: DecodeCache, tokens):
@@ -374,14 +412,19 @@ def make_serve_step(cfg: ModelConfig, comm: Optional[Comm] = None, *,
         if scale:
             rows = rows * math.sqrt(rows.shape[-1])
         x = rows.to(emb.dtype)
-        for idx in range(cfg.n_layers):
-            lp = lm_mod.layer_params(params, idx)
+        if n_cross and cache.cross_k is None:
+            raise ValueError(f"{cfg.name}: a {cfg.family} decode step "
+                             "needs the cross-KV cache (init_cache(..., "
+                             "n_memory=) filled by precompute_cross_kv)")
+
+        def layer(x, lp, idx, xkv=None):
+            """Self layer ``idx`` (its cache row); ``xkv``: the enc-dec
+            cross K/V of this layer."""
             h = apply_norm(cfg.norm, x, lp.get("norm1"))
             if cfg.family == "ssm":
-                x = x + _decode_ssm(h, lp, cfg, comm, plan,
-                                    cache.ssm_state[idx],
-                                    cache.conv_tail[idx], tp2d=tp2d)
-                continue
+                return x + _decode_ssm(h, lp, cfg, comm, plan,
+                                       cache.ssm_state[idx],
+                                       cache.conv_tail[idx], tp2d=tp2d)
             window = layer_window(cfg, idx) if cfg.sliding_window else 0
             parallel_2d = tp2d and cfg.parallel_block
             a_out = _decode_attn_layer(h, lp, cfg, comm, plan, cache.k[idx],
@@ -395,28 +438,53 @@ def make_serve_step(cfg: ModelConfig, comm: Optional[Comm] = None, *,
                 x = x + 0.5 * (rms_norm(a_out, lp["mix_norm_a"])
                                + rms_norm(s_out, lp["mix_norm_s"]))
                 h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
-                x = x + _decode_mlp(h2, lp, cfg, comm, tp2d=tp2d)
-            elif parallel_2d:
+                return x + _decode_mlp(h2, lp, cfg, comm, tp2d=tp2d)
+            if parallel_2d:
                 # attention and MLP write the same residual: one psum over
                 # model and one column gather for both partials
                 pm = _decode_mlp(h, lp, cfg, comm, tp2d=True, defer_out=True)
                 combined = comm.psum_model(a_out + pm)
-                x = x + comm.ag_data(combined, axis=combined.ndim - 1)
-            elif cfg.parallel_block:
-                x = x + a_out + _decode_mlp(h, lp, cfg, comm)
-            else:
-                x = x + a_out
-                h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
-                if cfg.family == "moe":
-                    # the experts keep the gather path (dispatch owns the
-                    # a2a); the shared MLP rides tp2d
-                    mo = moe_block(h2[None], lp, cfg, comm)[0][0]
-                    if cfg.shared_expert_ff:
-                        mo = mo + _decode_mlp(h2, lp, cfg, comm,
-                                              prefix="shared_", tp2d=tp2d)
-                    x = x + mo
-                else:
-                    x = x + _decode_mlp(h2, lp, cfg, comm, tp2d=tp2d)
+                return x + comm.ag_data(combined, axis=combined.ndim - 1)
+            if cfg.parallel_block:
+                return x + a_out + _decode_mlp(h, lp, cfg, comm)
+            x = x + a_out
+            if xkv is not None:                  # enc-dec cross-attention
+                x = x + _decode_attn_layer(
+                    rms_norm(x, lp["normx"]), lp, cfg, comm, plan, None,
+                    None, pos, 0, joint_kv=joint_kv, tp2d=tp2d,
+                    prefix="x_", memory_kv=xkv)
+            h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
+            if cfg.family == "moe":
+                # the experts keep the gather path (dispatch owns the
+                # a2a); the shared MLP rides tp2d
+                mo = moe_block(h2[None], lp, cfg, comm)[0][0]
+                if cfg.shared_expert_ff:
+                    mo = mo + _decode_mlp(h2, lp, cfg, comm,
+                                          prefix="shared_", tp2d=tp2d)
+                return x + mo
+            return x + _decode_mlp(h2, lp, cfg, comm, tp2d=tp2d)
+
+        if cfg.family == "vlm":
+            per = cfg.cross_attn_every - 1
+            for i in range(n_cross):
+                for j in range(per):
+                    idx = i * per + j
+                    x = layer(x, lm_mod.layer_params(params, idx), idx)
+                clp = lm_mod.layer_params(params, i, "cross_layers")
+                x_out = _decode_attn_layer(
+                    rms_norm(x, clp["normx"]), clp, cfg, comm, plan, None,
+                    None, pos, 0, joint_kv=joint_kv, tp2d=tp2d,
+                    prefix="x_", memory_kv=(cache.cross_k[i],
+                                            cache.cross_v[i]))
+                x = x + torch.tanh(clp["gate_attn"]).to(x.dtype) * x_out
+                ff = _decode_mlp(rms_norm(x, clp["normm"]), clp, cfg, comm,
+                                 prefix="xm_", tp2d=tp2d)
+                x = x + torch.tanh(clp["gate_mlp"]).to(x.dtype) * ff
+        else:
+            for idx in range(cfg.n_layers):
+                xkv = ((cache.cross_k[idx], cache.cross_v[idx])
+                       if cfg.is_encdec else None)
+                x = layer(x, lm_mod.layer_params(params, idx), idx, xkv)
         x = apply_norm(final_kind, x, params["final_norm"])
         head = params.get("lm_head", params["emb"])
         if tp2d:
@@ -439,6 +507,24 @@ def make_serve_step(cfg: ModelConfig, comm: Optional[Comm] = None, *,
     return serve_step
 
 
+def precompute_cross_kv(params, memory: torch.Tensor, cfg: ModelConfig,
+                        comm: Optional[Comm] = None):
+    """Project the encoder or image memory through every cross-attention
+    layer's K/V: memory (T, b, d), full length -> (cross_k, cross_v),
+    each (L_x, T, b, n_kv, dh); computed once at admission, reused by
+    every decode step."""
+    comm = comm or local_comm()
+    dh = cfg.resolved_head_dim
+    stack = params["cross_layers" if cfg.family == "vlm" else "layers"]
+
+    def project(name):
+        return torch.stack([
+            torch.matmul(memory, comm.weight(w, fsdp_axis=0)).unflatten(
+                -1, (-1, dh)) for w in stack[name]])
+    with torch.no_grad():
+        return project("x_wk"), project("x_wv")
+
+
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
@@ -446,7 +532,8 @@ def make_serve_step(cfg: ModelConfig, comm: Optional[Comm] = None, *,
 def make_prefill_step(cfg: ModelConfig, comm: Optional[Comm] = None):
     """Build ``prefill(params, batch) -> (next_tokens (b,), last_hidden
     (b, d))``: the full-sequence forward at inference, with the head on
-    the last position only."""
+    the last position only (a vlm batch carries ``image_embeds``, an
+    audio batch ``frames``)."""
     lm_mod.require_ported(cfg, "make_prefill_step")
     comm = comm or local_comm()
 

@@ -5,13 +5,20 @@ devices, on params and tokens drawn with numpy by the port's test.
     python torch_tp_ref.py forward|decode|comm IN.npz CASES.json OUT.npz
 
 ``CASES.json`` maps a case name to its ``ModelConfig`` fields (float32);
-``IN.npz`` holds each case's params (``<case>/<path>``) and tokens
-(``<case>/tokens``).  ``OUT.npz`` gets, per case and mode:
+``IN.npz`` holds each case's params (``<case>/<path>``), tokens
+(``<case>/tokens``) and, for a vlm or audio case, its frontend stub
+(``<case>/image_embeds`` or ``<case>/frames``).  ``OUT.npz`` gets, per
+case and mode:
 
 * ``forward``: the post-final-norm hidden states (s, b, d) and the aux
-  terms of ``forward`` at tokens (32, 4) sharded ("model", "data");
+  terms of ``forward`` at tokens (32, 4) sharded ("model", "data"),
+  image embeddings (ti, 4, d) at (None, "data", None), frames (t, 4, d)
+  at ("model", "data", None);
 * ``decode``: the teacher-forced greedy tokens (S, b) of the classic and
-  the tp2d decode (``joint_kv`` when b == 1), and the local oracle's;
+  the tp2d decode (``joint_kv`` when b == 1), and the local oracle's; a
+  vlm or audio case's cross-KV is computed once at one rank
+  (``precompute_cross_kv`` of the image embeddings, or of the encoder's
+  memory) and cut by ``cache_pspecs``;
 * ``comm``: every rank's results of the ``Comm`` methods, stacked.
 
 The conftest-style environment (XLA_FLAGS for 8 devices, PYTHONPATH) is
@@ -29,20 +36,37 @@ from repro.compat import make_mesh, shard_map
 from repro.core.modes import CommConfig, CommMode
 from repro.core.progress import EndpointSpec
 from repro.distributed.comm import Comm
+from repro.distributed.comm import local_comm
+from repro.models import lm as lm_mod
+from repro.models.blocks import tp_plan
 from repro.models.common import ModelConfig
 from repro.models.registry import build_model
-from repro.serving.engine import cache_pspecs, init_cache, make_serve_step
+from repro.serving.engine import (DecodeCache, cache_pspecs, init_cache,
+                                  make_serve_step, precompute_cross_kv)
 
 KIND, IN, CASES, OUT = sys.argv[1:5]
 MESH = make_mesh((2, 4), ("data", "model"))
 F = jnp.float32
 OPTS = {"xla_allow_excess_precision": False}
+#: a case's inputs in IN.npz, with their batch specs
+INPUTS = {"image_embeds": Ps(None, "data", None),
+          "frames": Ps("model", "data", None)}
+
+
+def is_input(key: str) -> bool:
+    return key.rsplit("/", 1)[-1] in ("tokens",) + tuple(INPUTS)
+
+
+def extras(data, name):
+    """The case's frontend stub, by batch key."""
+    return {k: jnp.asarray(data[f"{name}/{k}"]) for k in INPUTS
+            if f"{name}/{k}" in data}
 
 
 def unflatten(data, prefix):
     tree = {}
     for k, v in data.items():
-        if not k.startswith(prefix + "/") or k.endswith("/tokens"):
+        if not k.startswith(prefix + "/") or is_input(k):
             continue
         node = tree
         parts = k[len(prefix) + 1:].split("/")
@@ -69,22 +93,42 @@ def run_forward(cases, data, out):
     for name, fields in cases.items():
         cfg, m, params, pspecs = case_setup(name, fields, data)
         tokens = jnp.asarray(data[name + "/tokens"], jnp.int32)
+        ext = extras(data, name)
         for mode in (CommMode.BSP, CommMode.LCI_DEDICATED):
             comm = Comm(CommConfig(mode=mode), model_axis="model",
                         data_axis="data")
 
-            def fwd(p, t):
-                x, aux = m.forward(p, {"tokens": t}, comm, remat=False)
+            def fwd(p, t, e):
+                x, aux = m.forward(p, {"tokens": t, **e}, comm, remat=False)
                 return x, {k: v[None] for k, v in aux.items()}
             f = shard_map(fwd, mesh=MESH,
-                          in_specs=(pspecs, Ps("model", "data")),
+                          in_specs=(pspecs, Ps("model", "data"),
+                                    {k: INPUTS[k] for k in ext}),
                           out_specs=(Ps(None, "data"),
                                      Ps(("data", "model"))),
                           check_vma=False)
-            x, aux = compiled(f, params, tokens)(params, tokens)
+            x, aux = compiled(f, params, tokens, ext)(params, tokens, ext)
             out[f"{name}/{mode.value}/x"] = np.asarray(x)
             for k, v in aux.items():
                 out[f"{name}/{mode.value}/{k}"] = np.asarray(v)
+
+
+def fresh_cache(cfg, params, data, name, S, batch):
+    """A zeroed cache; a vlm or audio case's holds the cross-KV computed
+    at one rank."""
+    ext = extras(data, name)
+    if not ext:
+        return init_cache(cfg, S, batch)
+    if cfg.is_encdec:
+        mem = lm_mod._encode(params, ext, cfg, local_comm(), tp_plan(cfg, 1),
+                             remat=False)
+    else:
+        mem = ext["image_embeds"]
+    ck, cv = precompute_cross_kv(params, mem, cfg)
+    c = init_cache(cfg, S, batch, n_memory=mem.shape[0])
+    return DecodeCache(k=c.k, v=c.v, ssm_state=c.ssm_state,
+                       conv_tail=c.conv_tail, cross_k=ck, cross_v=cv,
+                       length=c.length)
 
 
 def run_decode(cases, data, out):
@@ -102,14 +146,14 @@ def run_decode(cases, data, out):
             fn = jax.jit(shard_map(
                 serve, mesh=MESH, in_specs=(pspecs, cspecs, tok_spec),
                 out_specs=(tok_spec, cspecs), check_vma=False))
-            cache = init_cache(cfg, S, batch)
+            cache = fresh_cache(cfg, params, data, name, S, batch)
             preds = []
             for i in range(S):
                 nxt, cache = fn(params, cache, tokens[i])
                 preds.append(np.asarray(nxt))
             out[f"{name}/{'tp2d' if tp2d else 'classic'}"] = np.stack(preds)
         serve_l = jax.jit(make_serve_step(cfg))
-        cache = init_cache(cfg, S, batch)
+        cache = fresh_cache(cfg, params, data, name, S, batch)
         preds = []
         for i in range(S):
             nxt, cache = serve_l(params, cache, tokens[i])

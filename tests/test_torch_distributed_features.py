@@ -492,7 +492,7 @@ class TestDataParallel:
             state = TrainState(params_from_numpy(pcfg, host, device="cpu"),
                                None)
             state.opt = adamw_init(state.params, opt)
-            step = mesh_step(model, specs, opt, mesh, CommConfig())
+            step = mesh_step(model, specs, opt, mesh, CommConfig(), batch=4)
             losses = []
             for b in batches:
                 state, m = step(state, _tensors(b))

@@ -133,10 +133,15 @@ def test_prefill_step_matches_reference(case):
 
 
 def test_unported_paths_raise():
+    """Once "not ported" for the vlm and audio families: both now build on
+    the CPU, and the port's serve launcher refuses them as the
+    reference's does (its prompts carry no image or audio)."""
     from repro_torch.configs import get_smoke
     for arch in ("llama-3.2-vision-90b", "whisper-tiny"):   # vlm, audio
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(get_smoke(arch), device="cpu")
+        model = build_model(get_smoke(arch), device="cpu")
+        assert model.device.type == "cpu"
+        with pytest.raises(SystemExit, match="decoder-only"):
+            p_launch.main(["--arch", arch, "--smoke", "--device", "cpu"])
     # tp2d and joint_kv are ported: at one rank each decodes exactly the
     # plain step's tokens (their mesh runs: tests/test_torch_tp.py)
     _, _, pcfg, pparams = carried_model(MODEL_CASES["dense"], "float32")

@@ -8,17 +8,20 @@ by side), the port on 8 rank threads of ``LocalCluster(8, device="cpu")``
 through ``spmd_map`` (``LciAxis``), every param cut by its spec's
 ``pspec()`` (tp over ``model``, FSDP over ``data``).
 
-* ``forward`` of ``dist_equivalence.py``'s ported families — dense Plan A
+* ``forward`` of ``dist_equivalence.py``'s configs — dense Plan A
   (heads and kv sharded), Plan A with the kv heads replicated, Plan B
-  with sliding windows, moe, ssm and hybrid — in BSP and LCI_DEDICATED:
-  the hidden states at the float32 tolerance of ``test_torch_models.py``
-  (1e-4) and the aux terms at 1e-5 (the gradient half of that helper
-  waits for the training slice);
-* ``tp2d_decode.py``'s four configs (dense, gqa-par, ssm, moe), plus the
-  dense config at batch 1 (``joint_kv``): teacher-forced greedy tokens of
-  the classic and the tp2d decode equal the reference's under
-  ``shard_map``, and each agrees with the local oracle on more than 0.95
-  of them;
+  with sliding windows, moe, ssm, hybrid, vlm (image embeddings at
+  (None, "data", None), the gates drawn nonzero) and whisper (frames at
+  ("model", "data", None)) — in BSP and LCI_DEDICATED: the hidden states
+  at the float32 tolerance of ``test_torch_models.py`` (1e-4) and the
+  aux terms at 1e-5 (the gradient half of that helper waits for
+  training at tp > 1, ROADMAP A6c);
+* ``tp2d_decode.py``'s four configs (dense, gqa-par, ssm, moe), the
+  dense config at batch 1 (``joint_kv``), and the vlm and whisper
+  configs above with their cross-KV computed at one rank and cut by
+  ``cache_pspecs``: teacher-forced greedy tokens of the classic and the
+  tp2d decode equal the reference's under ``shard_map``, and each agrees
+  with the local oracle on more than 0.95 of them;
 * the ``Comm`` methods on the mesh in every mode (bitwise where no sum is
   taken, 1e-5 otherwise) and ``get_attr`` / ``attrs`` against the
   reference's.
@@ -35,9 +38,13 @@ import torch
 from repro_torch.core.modes import CommConfig, CommMode
 from repro_torch.core.progress import EndpointSpec
 from repro_torch.distributed import Comm, Mesh, P, spmd_map
+from repro_torch.distributed import local_comm
+from repro_torch.models import lm as lm_mod
+from repro_torch.models.blocks import tp_plan
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import build_model
 from repro_torch.serving import cache_pspecs, init_cache, make_serve_step
+from repro_torch.serving.engine import precompute_cross_kv
 
 HELPERS = os.path.join(os.path.dirname(__file__), "helpers")
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
@@ -63,7 +70,17 @@ FORWARD = {
     "hybrid": dict(family="hybrid", n_layers=2, d_model=64, n_heads=5,
                    n_kv_heads=5, d_ff=128, vocab=256, ssm_state=8,
                    ssm_headdim=16, ssm_chunk=8, tp_target=4, head_dim=16),
+    "vlm": dict(family="vlm", n_layers=4, d_model=64, n_heads=4,
+                n_kv_heads=4, d_ff=128, vocab=256, cross_attn_every=2,
+                tp_target=4),
+    "whisper": dict(family="audio", n_layers=2, d_model=64, n_heads=4,
+                    n_kv_heads=4, d_ff=128, vocab=256, norm="layernorm",
+                    mlp="gelu", encoder_layers=2, tp_target=4,
+                    tie_embeddings=True),
 }
+#: a vlm or audio case's frontend stub: (batch key, rows, batch spec)
+EXTRAS = {"vlm": ("image_embeds", 8, P(None, "data", None)),
+          "audio": ("frames", 16, P("model", "data", None))}
 
 #: tp2d_decode.py's configs, and the dense one at batch 1 (joint_kv)
 DECODE = {
@@ -81,6 +98,8 @@ DECODE = {
                  tp_target=4, capacity_factor=8.0, shared_expert_ff=64), 4),
     "dense-b1": (dict(family="dense", n_layers=2, d_model=64, n_heads=4,
                       n_kv_heads=4, d_ff=128, vocab=256, tp_target=4), 1),
+    "vlm": (FORWARD["vlm"], 4),
+    "whisper": (FORWARD["whisper"], 4),
 }
 S_DECODE = 16
 
@@ -92,7 +111,9 @@ def pconfig(name: str, fields: dict) -> ModelConfig:
 def draw_params(cfg: ModelConfig, seed: int):
     """(params, specs): the port's param tree with every drawn weight
     replaced by a numpy normal draw (σ = 1/sqrt(fan-in)); the ones and
-    zeros of norms and SSM vectors are kept."""
+    zeros of norms and SSM vectors are kept, but a vlm config's gates
+    (zero at init: the cross layers would add nothing) are drawn, |tanh|
+    0.3-0.7."""
     params, specs = build_model(cfg, device="cpu").init(0)
     rng = np.random.default_rng(seed)
 
@@ -108,7 +129,28 @@ def draw_params(cfg: ModelConfig, seed: int):
         if isinstance(node, dict):
             return {k: walk(v, spec[k]) for k, v in node.items()}
         return draw(node, spec)
-    return walk(params, specs), specs
+    out = walk(params, specs)
+    if "cross_layers" in out:
+        for k in ("gate_attn", "gate_mlp"):
+            n = out["cross_layers"][k].shape[0]
+            out["cross_layers"][k] = (rng.uniform(0.3, 0.9, n) * rng.choice(
+                [-1, 1], n)).astype(np.float32)
+    return out, specs
+
+
+def draw_extras(fields: dict, batch: int, seed: int) -> dict:
+    """A vlm or audio case's frontend stub, numpy float32 (rows, batch,
+    d); nothing for the other families."""
+    if fields["family"] not in EXTRAS:
+        return {}
+    key, rows, _ = EXTRAS[fields["family"]]
+    return {key: np.random.default_rng(seed).standard_normal(
+        (rows, batch, fields["d_model"])).astype(np.float32)}
+
+
+def extra_specs(extras: dict) -> dict:
+    return {k: next(sp for key, _, sp in EXTRAS.values() if key == k)
+            for k in extras}
 
 
 def flatten(tree, prefix):
@@ -152,6 +194,7 @@ def tp_data(tmp_path_factory):
             0, fields["vocab"], size=(32, 4)).astype(np.int32)
         data.update(flatten(params, "f-" + name))
         data["f-" + name + "/tokens"] = tok
+        data.update(flatten(draw_extras(fields, 4, 90 + i), "f-" + name))
         cases["f-" + name] = fields
     dcases = {}
     for i, (name, (fields, batch)) in enumerate(DECODE.items()):
@@ -160,6 +203,8 @@ def tp_data(tmp_path_factory):
             0, fields["vocab"], size=(S_DECODE, batch)).astype(np.int32)
         data.update(flatten(params, "d-" + name))
         data["d-" + name + "/tokens"] = tok
+        data.update(flatten(draw_extras(fields, batch, 95 + i),
+                            "d-" + name))
         dcases["d-" + name] = fields
     data.update(comm_inputs())
     np.savez(tmp / "in.npz", **data)
@@ -203,10 +248,19 @@ class _Results:
                 proc.communicate()
 
 
+def _is_input(key: str) -> bool:
+    return key.rsplit("/", 1)[-1] in ("tokens", "image_embeds", "frames")
+
+
+def _extras(data, prefix) -> dict:
+    return {k: torch.from_numpy(data[f"{prefix}/{k}"])
+            for k in ("image_embeds", "frames") if f"{prefix}/{k}" in data}
+
+
 def _params(data, prefix, specs):
     tree = {}
     for k, v in data.items():
-        if k.startswith(prefix + "/") and not k.endswith("/tokens"):
+        if k.startswith(prefix + "/") and not _is_input(k):
             node = tree
             parts = k[len(prefix) + 1:].split("/")
             for p in parts[:-1]:
@@ -222,9 +276,9 @@ def mesh():
 
 
 def _forward_rank(cfg):
-    def fn(comm, params, tokens):
+    def fn(comm, params, tokens, extras):
         x, aux = build_model(cfg, device="cpu").forward(
-            params, {"tokens": tokens}, comm)
+            params, {"tokens": tokens, **extras}, comm)
         return x, {k: v.reshape(1) for k, v in aux.items()}
     return fn
 
@@ -237,10 +291,12 @@ def test_forward_matches_reference(tp_data, mesh, name, mode):
     _, specs = build_model(cfg, device="cpu").init(0)
     params = _params(data, "f-" + name, specs)
     tokens = torch.from_numpy(data["f-" + name + "/tokens"])
+    extras = _extras(data, "f-" + name)
     x, aux = spmd_map(_forward_rank(cfg), mesh,
-                      (pspec_tree(specs), P("model", "data")),
+                      (pspec_tree(specs), P("model", "data"),
+                       extra_specs(extras)),
                       (P(None, "data"), P(("data", "model"))),
-                      config=CommConfig(mode=mode))(params, tokens)
+                      config=CommConfig(mode=mode))(params, tokens, extras)
     want = ref["forward"][f"f-{name}/{mode.value}/x"]
     np.testing.assert_allclose(x.numpy(), want, atol=1e-4, rtol=1e-4)
     for k, v in aux.items():
@@ -260,9 +316,25 @@ def _decode_rank(cfg, S, batch, tp2d):
     return fn
 
 
-def _local_decode(cfg, params, tokens):
+def _fresh_cache(cfg, params, extras, S, batch):
+    """A zeroed cache; a vlm or audio case's holds the cross-KV computed
+    at one rank (of the image embeddings, or of the encoder's memory)."""
+    if not extras:
+        return init_cache(cfg, S, batch, device="cpu")
+    if cfg.is_encdec:
+        mem = lm_mod._encode(params, extras, cfg, local_comm(),
+                             tp_plan(cfg, 1), remat=False)
+    else:
+        mem = extras["image_embeds"]
+    cache = init_cache(cfg, S, batch, n_memory=mem.shape[0], device="cpu")
+    cache.cross_k, cache.cross_v = precompute_cross_kv(params, mem, cfg)
+    return cache
+
+
+def _local_decode(cfg, params, tokens, extras):
     serve = make_serve_step(cfg)
-    cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], device="cpu")
+    cache = _fresh_cache(cfg, params, extras, tokens.shape[0],
+                         tokens.shape[1])
     preds = []
     for i in range(tokens.shape[0]):
         nxt, cache = serve(params, cache, tokens[i])
@@ -278,12 +350,13 @@ def test_decode_classic_and_tp2d_match_reference(tp_data, mesh, name):
     _, specs = build_model(cfg, device="cpu").init(0)
     params = _params(data, "d-" + name, specs)
     tokens = torch.from_numpy(data["d-" + name + "/tokens"])
-    oracle = _local_decode(cfg, params, tokens)
+    extras = _extras(data, "d-" + name)
+    oracle = _local_decode(cfg, params, tokens, extras)
     got = {}
     for tp2d in (False, True):
         cspecs = cache_pspecs(cfg, batch=batch, tp2d=tp2d)
         tok_spec = P(None, "data") if (batch > 1 and not tp2d) else P()
-        cache = init_cache(cfg, S_DECODE, batch, device="cpu")
+        cache = _fresh_cache(cfg, params, extras, S_DECODE, batch)
         got["tp2d" if tp2d else "classic"] = spmd_map(
             _decode_rank(cfg, S_DECODE, batch, tp2d), mesh,
             (pspec_tree(specs), cspecs, tok_spec), tok_spec,

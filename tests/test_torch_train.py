@@ -19,7 +19,7 @@ reference_compiled``):
   remat must not change a bit);
 * five steps of ``make_train_step`` against the reference's jitted step;
   ``tests/test_train.py``'s cases mirrored; the launcher (one rank,
-  ``--mesh 2x1``, the refused meshes and families, losses against the
+  ``--mesh 2x1``, the refused meshes, losses against the
   reference launcher's loop on carried params);
 * serving builds no graph, even with params that require a gradient.
 """
@@ -636,8 +636,10 @@ def test_launcher_runs_on_cpu(capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--arch", "olmo-1b", "--mesh", "2x2"], "tp > 1 training is not "
                                              r"ported \(A6c\)"),
-    (["--arch", "llama-3.2-vision-90b"], r"not ported \(A5\)"),
-    (["--arch", "whisper-tiny"], r"not ported \(A5\)"),
+    (["--arch", "llama-3.2-vision-90b", "--mesh", "2x2"],
+     r"tp > 1 training is not ported \(A6c\)"),
+    (["--arch", "whisper-tiny", "--mesh", "2x2"],
+     r"tp > 1 training is not ported \(A6c\)"),
 ])
 def test_launcher_refuses(argv, match):
     with pytest.raises(NotImplementedError, match=match):
