@@ -7,8 +7,10 @@ serving on the comm core (the reference's serve traffic), the in-graph
 collectives with tensor-parallel serving on rank threads, the recovery
 path (checkpoints, resharded restore, the 1F1B comm graph), training
 at tp = 1 (the four families, data parallel on rank threads, the
-pipeline, resume), and the vlm and audio families (whisper-tiny and
-llama-3.2-vision served through the cross-KV cache, and trained).
+pipeline, resume), the vlm and audio families (whisper-tiny and
+llama-3.2-vision served through the cross-KV cache, and trained), and
+training at tp > 1 on rank threads (FSDP and tensor parallelism, the
+sharded state, the launcher).
 
     python3 chip_smoke.py            # from the repository root; one card
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown
@@ -261,11 +263,28 @@ The phases:
    (rows, 384), timed beside the bound and the library call, and the
    recorded backward at the unmasked training signatures.  The phase
    prints each model's prefill ms, decode ms a step, training step ms
-   and peak memory beside the card's name and power limit.
+   and peak memory beside the card's name and power limit;
+21. training at tp > 1 on rank threads of the one card
+   (:func:`tp_training_phase`; the backward is the rank thread's tape,
+   ``distributed/spmd_autograd.py``: no collective runs in an autograd
+   node): a) every ``Comm`` method's transpose on P = 2 and 4 rank
+   threads, float32 and bf16, at 17a's sizes, against autograd of the
+   plain single-rank oracle, no host copy, host syncs counted
+   (:func:`tp_transpose_phase`); b) gemma3-1b at its full config on
+   (1, 2): a float32 step's loss and gradients against tp = 1's, a bf16
+   step's gradients against float32 (tp = 1's bf16 distance the
+   witness), then 3 launcher steps on the state cut over the mesh, the
+   B2 and B3 launches a rank thread exact, step ms, tokens/s, peak
+   memory (:func:`tp_train_gemma_phase`); c) olmoe-1b-7b, mamba2-370m
+   and hymba-1.5b at 2 layers on (2, 2) and whisper-tiny on (1, 2), a
+   float32 step against tp = 1 (:func:`tp_train_families_phase`); d)
+   the train launcher at ``--mesh 2x2`` and a checkpoint resharded from
+   (2, 2) to (4, 1) (:func:`tp_train_launch_phase`).  Every kernel call
+   of b-d is kept by signature and held against its plain version.
 
 The launch counts are set to 0 just before phases 4, 7, 10, 13, 14, 15,
-16 (after its kernel check), 17a, 17b, 18, 19b and 20a and read just
-after; the serving phases
+16 (after its kernel check), 17a, 17b, 18, 19b, 20a, 21a and 21b and
+read just after; the serving phases
 also record B3's launches by (rows, d) a prefill call and a decode
 step.  Every phase raises on failure;
 nothing is caught.  Each phase
@@ -4448,7 +4467,7 @@ def train_dp_phase(torch) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.launch.mesh import batch_pspecs
-    from repro_torch.launch.train import mesh_step
+    from repro_torch.launch.train import mesh_step, shard_state
     from repro_torch.models import lm
     from repro_torch.models.blocks import tp_plan
     from repro_torch.models.registry import build_model
@@ -4496,7 +4515,8 @@ def train_dp_phase(torch) -> dict:
             raise AssertionError(f"grad_sync copied through the host "
                                  f"(to_host, to_card) {host}")
         opt = AdamWConfig(lr=TRAIN_LR)
-        state = TrainState(params, adamw_init(params, opt))
+        state = shard_state(TrainState(params, adamw_init(params, opt)),
+                            specs, mesh)
         t = time.perf_counter()
         _, m2 = mesh_step(model, specs, opt, mesh, config,
                           batch=TRAIN_DP["batch"])(state, data)
@@ -5332,6 +5352,685 @@ def cross_phase(torch, counters, profile: bool) -> tuple:
         rms + checks["rmsnorm"], grads
 
 
+# ---------------------------------------------------------------------------
+# phase 21: training at tp > 1
+# ---------------------------------------------------------------------------
+
+#: 21a: every Comm method's transpose on P = 2 and on P = 4 rank threads
+TPT_P = (2, 4)
+#: 21b: gemma3-1b at its full config on a (1, 2) mesh, ``tp_target`` 2
+#: (its 4 heads shard, its one kv head does not: 17b's plan): float32,
+#: one step on 2 x 1024 tokens; bf16, 3 steps on 4 x 2048
+TPT_F32 = (1024, 2)
+TPT_BF16 = dict(seq=2048, batch=4, steps=3)
+#: 21c: (arch, layers, mesh) in float32 on 2 x 512 tokens: full width, 2
+#: layers on (2, 2); whisper-tiny at its full config on (1, 2)
+TPT_FAMILIES = (("olmoe-1b-7b", 2, (2, 2)), ("mamba2-370m", 2, (2, 2)),
+                ("hymba-1.5b", 2, (2, 2)), ("whisper-tiny", None, (1, 2)))
+TPT_SMALL = (512, 2)
+#: a float32 tp > 1 step against tp = 1's: the losses within this, every
+#: gradient leaf within this share of its largest |g| at tp = 1
+TPT_TOL = 1e-3
+#: 21d: the launcher on gemma3-1b's smoke config; then a float32
+#: checkpoint of it on (2, 2) continued on (4, 1) against on (2, 2)
+TPT_LAUNCH = dict(mesh="2x2", steps=4, seq=64, batch=8, elastic_steps=3,
+                  elastic_tol=2e-3)
+
+
+def _tpt_cases(torch, p):
+    """21a's cases: (name, mesh axis, fn(comm, *local) -> output,
+    in_specs, out_spec, whole inputs, whole cotangent, oracle(*whole) ->
+    whole output) at phase 17a's TP-boundary sizes, float32 on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import P
+    from repro_torch.models.moe import capacity
+    g = torch.Generator().manual_seed(SEED + 21)
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    s, b, d, ff = GEMMA_S, GEMMA_B, GEMMA_D, GEMMA_FF
+    cap = capacity((1024 // p) * 4, get_config("olmoe-1b-7b"))
+    x = normal(s, b, d)
+    w_in = normal(d, ff, scale=d ** -0.5)
+    h = normal(s, b, ff)
+    w_out = normal(ff, d, scale=ff ** -0.5)
+    xr = normal(p * s, b, d)              # a different (s, b, d) a rank
+    disp = normal(p * OLMOE_E, cap, OLMOE_D)
+
+    def a2a(x):
+        parts = torch.chunk(x, p, 0)
+        return torch.cat([torch.cat([torch.chunk(parts[src], p, 0)[r]
+                                     for src in range(p)], 1)
+                          for r in range(p)])
+
+    def total(x):
+        return sum(torch.chunk(x, p, 0))
+    M, D = "model", "data"
+    return [
+        ("ag_matmul", M, lambda c, x, w: c.ag_matmul(x, w),
+         (P(M), P(None, M)), P(None, None, M), (x, w_in),
+         normal(s, b, ff), lambda x, w: x @ w),
+        ("matmul_rs", M, lambda c, h, w: c.matmul_rs(h, w),
+         (P(None, None, M), P(M)), P(M), (h, w_out), normal(s, b, d),
+         lambda h, w: h @ w),
+        ("matmul_ar", M, lambda c, h, w: c.matmul_ar(h, w)[None],
+         (P(None, None, M), P(M)), P(M), (h, w_out), normal(p, s, b, d),
+         lambda h, w: (h @ w)[None].expand(p, s, b, d)),
+        ("ag_seq", M, lambda c, x: c.ag_seq(x)[None], (P(M),), P(M), (x,),
+         normal(p, s, b, d), lambda x: x[None].expand(p, s, b, d)),
+        ("rs_seq", M, lambda c, x: c.rs_seq(x), (P(M),), P(M), (xr,),
+         normal(s, b, d), total),
+        ("psum_model", M, lambda c, x: c.psum_model(x)[None], (P(M),),
+         P(M), (xr,), normal(p, s, b, d),
+         lambda x: total(x)[None].expand(p, s, b, d)),
+        ("psum_model_ge", M, lambda c, x: c.psum_model_ge(x), (P(M),), P(),
+         (xr,), normal(s, b, d), total),
+        ("a2a", M, lambda c, x: c.a2a(x, split_axis=0, concat_axis=1),
+         (P(M),), P(M), (disp,), normal(OLMOE_E, p * cap, OLMOE_D), a2a),
+        ("weight", D, lambda c, w: c.weight(w, fsdp_axis=1)[None],
+         (P(None, D),), P(D), (w_in,), normal(p, d, ff),
+         lambda w: w[None].expand(p, d, ff)),
+    ]
+
+
+def tp_transpose_phase(torch) -> dict:
+    """21a: every Comm method's backward (the transpose the reference's AD
+    derives, ``distributed/comm.py``) on P = 2 and P = 4 rank threads of
+    ``LocalCluster(P, device="cuda")``, float32 and bf16, LCI_DEDICATED,
+    at phase 17a's TP-boundary sizes (gemma3-1b's 2048 x 4 x 1152 rows,
+    its 6912-wide MLP, olmoe-1b-7b's dispatch): each rank's forward and
+    backward through the tape (``spmd_autograd.Tape``: the transposes on
+    the rank thread) against autograd of the plain single-rank oracle on
+    the whole float32 tensors (float32 within 1e-4 of the largest |ref|,
+    bf16 within :func:`_bf16_tol`); no payload byte through the host,
+    the host syncs of each call counted; wall ms of a call (forward and
+    backward, median of 3)."""
+    from repro_torch.core.modes import CommConfig, CommMode
+    from repro_torch.core.transport.wire import to_card, to_host
+    from repro_torch.distributed import Mesh, spmd_map
+    from repro_torch.distributed.spmd_autograd import Tape
+    from repro_torch.kernels.doorbell import stage_copy_rows
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = CommConfig(mode=CommMode.LCI_DEDICATED)
+
+    def rank(fn):
+        def run(comm, ct, *xs):
+            xs = [x.detach().clone().requires_grad_() for x in xs]
+            tape = Tape()
+            with tape.recording():
+                y = fn(comm, *xs)
+            tape.backward([y], [ct])
+            return (y.detach(),) + tuple(x.grad for x in xs)
+        return run
+
+    out = []
+    host0 = (to_host.copies, to_card.copies)
+    b1_0 = stage_copy_rows.launches
+    for p in TPT_P:
+        with Mesh((1, p), ("data", "model"), device=DEVICE) as mm, \
+                Mesh((p, 1), ("data", "model"), device=DEVICE) as dm:
+            for name, axis, fn, specs, ospec, args, ct, oracle in \
+                    _tpt_cases(torch, p):
+                f = spmd_map(rank(fn), dm if axis == "data" else mm,
+                             (ospec,) + specs, (ospec,) + specs,
+                             config=config)
+                for dt in (torch.float32, torch.bfloat16):
+                    dargs = [a.to(DEVICE, dt) for a in args]
+                    dct = ct.to(DEVICE, dt)
+                    xs = [a.detach().float().clone().requires_grad_()
+                          for a in dargs]
+                    want_y = oracle(*xs)
+                    want = torch.autograd.grad(want_y, xs, dct.float())
+                    torch.cuda.synchronize()
+                    with _SyncCount(torch) as syncs:
+                        got = f(dct, *dargs)
+                    torch.cuda.synchronize()
+                    times = []
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        f(dct, *dargs)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                    errs = []
+                    for label, a, w in [("y", got[0], want_y.detach())] + [
+                            (f"d{i}", g_, w_) for i, (g_, w_) in
+                            enumerate(zip(got[1:], want))]:
+                        err = float((a.float() - w).abs().max())
+                        tol = (1e-4 * float(w.abs().max())
+                               if dt == torch.float32 else _bf16_tol(w, p))
+                        if not err <= tol:
+                            raise AssertionError(
+                                f"21a {name} P={p} {dt} {label}: |err| "
+                                f"{err} > {tol}")
+                        errs.append({"of": label, "max_abs_err": err,
+                                     "tol": tol})
+                    out.append({"case": name, "ranks": p,
+                                "dtype": str(dt).split(".")[1],
+                                "mode": config.mode.value,
+                                "shape": [list(a.shape) for a in args],
+                                "ms": statistics.median(times) * 1e3,
+                                "host_syncs": syncs.calls,
+                                "host_sync_sites": syncs.where,
+                                "errors": errs})
+                    del dargs, dct, xs, want_y, want, got
+            torch.cuda.empty_cache()
+    host = (to_host.copies - host0[0], to_card.copies - host0[1])
+    if host != (0, 0):
+        raise AssertionError(f"21a: payload bytes crossed the host "
+                             f"(to_host, to_card copies {host})")
+    return {"cases": out, "host_copies": list(host),
+            "b1_launches": stage_copy_rows.launches - b1_0}
+
+
+def _thread_launches() -> list:
+    """B2's and B3's launches by thread so far."""
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    return [dict(f.launches_by_thread) for f in (flash_attention_bhsd,
+                                                 rmsnorm)]
+
+
+def _rank_thread_gate(label, before, want, ranks) -> dict:
+    """B2's and B3's launches on each of the rank threads since
+    ``before`` (:func:`_thread_launches`): raises unless each of
+    ``ranks`` threads launched exactly ``want`` (B2, B3) and no other
+    thread launched any."""
+    now = _thread_launches()
+    by = [{t: n - b0.get(t, 0) for t, n in f.items() if n != b0.get(t, 0)}
+          for f, b0 in zip(now, before)]
+    names = [f"spmd-rank{r}" for r in range(ranks)]
+    per = {t: (by[0].get(t, 0), by[1].get(t, 0)) for t in names}
+    others = sorted((set(by[0]) | set(by[1])) - set(names))
+    if any(v != tuple(want) for v in per.values()) or others:
+        raise AssertionError(f"{label}: (B2, B3) launches a rank thread "
+                             f"{per} (want {tuple(want)}), on threads "
+                             f"{others} too")
+    return {t: dict(zip(("flash", "rmsnorm"), v)) for t, v in per.items()}
+
+
+def _tpt_grads(torch, model, specs, params, data, mesh):
+    """One step's loss (meaned over the mesh) and ``grad_sync``'d
+    gradients, put together, on every rank of ``mesh`` (the step's
+    Comm, the rank thread's tape), LCI_DEDICATED; its wall ms (the cut of
+    the params and the gather of the gradients included)."""
+    import dataclasses
+    from repro_torch.core.modes import CommConfig, CommMode
+    from repro_torch.distributed import P, spmd_map
+    from repro_torch.launch.mesh import batch_pspecs
+    from repro_torch.optim import grad_sync
+    from repro_torch.train import loss_and_grads
+    pspecs = _tp_specs(specs)
+    bspec = batch_pspecs(model.cfg, "train", mesh,
+                         batch=data["tokens"].shape[1])
+
+    def rank(comm, p, b):
+        comm = dataclasses.replace(comm, fsdp=model.cfg.fsdp_params)
+        loss, _, g = loss_and_grads(model, p, b, comm)
+        return comm.pmean_all(loss), grad_sync(g, specs, comm)
+
+    f = spmd_map(rank, mesh, (pspecs, bspec), (P(), pspecs),
+                 config=CommConfig(mode=CommMode.LCI_DEDICATED))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss, grads = f(params, data)
+    torch.cuda.synchronize()
+    return float(loss), grads, (time.perf_counter() - t) * 1e3
+
+
+def _leaf_shares(got, want) -> dict:
+    """Each leaf's largest distance from ``want``'s, as a share of
+    ``want``'s largest |g|."""
+    from repro_torch.core.tree import leaves_with_paths
+    w_of = dict(leaves_with_paths(want))
+    out = {}
+    for path, g in leaves_with_paths(got):
+        w = w_of[path].float()
+        out[path] = float((g.float() - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+    return out
+
+
+def _leaf_rel_norms(got, want) -> dict:
+    """Each leaf's ‖got - want‖ / ‖want‖ (float32)."""
+    from repro_torch.core.tree import leaves_with_paths
+    w_of = dict(leaves_with_paths(want))
+    out = {}
+    for path, g in leaves_with_paths(got):
+        w = w_of[path].float()
+        out[path] = float((g.float() - w).norm() / w.norm().clamp_min(
+            1e-30))
+    return out
+
+
+def _worst(shares: dict) -> list:
+    path = max(shares, key=shares.get)
+    return [path, shares[path]]
+
+
+def _shard_check(state, specs, whole: dict, mesh) -> dict:
+    """Raises unless every rank's params, master, mu and nu leaf holds
+    exactly its ``ParamSpec`` shard of the ``whole`` leaf's elements (by
+    path); returns the bytes each rank holds and the whole state's."""
+    from repro_torch.core.tree import leaves_with_paths
+    spec_of = dict(leaves_with_paths(specs))
+
+    def ways(spec):
+        n = 1
+        for entry in spec.pspec():
+            for a in ((entry,) if isinstance(entry, str) else entry or ()):
+                n *= mesh.shape[mesh.names.index(a)]
+        return n
+
+    per_rank, whole_bytes = [], 0
+    for r, st in enumerate(state.ranks):
+        held = 0
+        for tree in (st.params, st.opt.master, st.opt.mu, st.opt.nu):
+            for path, t in leaves_with_paths(tree):
+                held += t.numel() * t.element_size()
+                if r == 0:
+                    whole_bytes += whole[path] * t.element_size()
+                if t.numel() * ways(spec_of[path]) != whole[path]:
+                    raise AssertionError(
+                        f"rank {r} holds {path} at {tuple(t.shape)}, not "
+                        f"its shard of {whole[path]} elements")
+        per_rank.append(held)
+    return {"bytes_per_rank": per_rank, "whole_state_bytes": whole_bytes}
+
+
+def tp_train_gemma_phase(torch) -> dict:
+    """21b: gemma3-1b at its full config (26 layers, d 1152, vocab
+    262144, ``tp_target`` 2) on a (1, 2) mesh of rank threads, remat on:
+    a) float32 (TF32 off), 2 x 1024 tokens: one step's loss and every
+    ``grad_sync``'d gradient leaf against tp = 1's on the same params
+    within :data:`TPT_TOL`; b) bf16, 4 x 2048 tokens: the first step's
+    gradients no further from the float32 tp = 1 gradients (the bf16
+    weights cast up) than twice the bf16 tp = 1 step's distance, leaf by
+    leaf, norm-wise (17b's and 20's witness rule); then 3 launcher steps
+    (``mesh_step`` on the state cut over the mesh: each rank holds only
+    its shard of params, master, mu and nu) on one fixed batch, the
+    losses finite and strictly falling.  Each step's B2 and B3 launches
+    a rank thread are exactly the forward's and the rank thread's remat
+    recompute's (52 and 209), on no other thread, every bf16 B2 launch
+    tensor-core; step ms, tokens/s, peak memory."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.modes import CommConfig, CommMode
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.distributed import Mesh, local_comm
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.launch.train import mesh_step, shard_state
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import TrainState, loss_and_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = dataclasses.replace(get_config("gemma3-1b"), tp_target=2)
+    want = _train_want("gemma3-1b")[:2]          # (52, 209) a step
+    out = {"config": base.name, "mesh": [1, 2], "tp_target": 2,
+           "mode": "lci_dedicated", "remat": True}
+    _free_card(torch)
+    with Mesh((1, 2), ("data", "model"), device=DEVICE) as mesh:
+        # a) float32, one step against tp = 1
+        cfg = dataclasses.replace(base, dtype=torch.float32)
+        model = build_model(cfg, device=DEVICE)
+        params, specs = model.init(SEED)
+        s, b = TPT_F32
+        data = SyntheticPipeline(vocab=cfg.vocab, seq_len=s,
+                                 global_batch=b).get_batch(0, device=DEVICE)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss1, _, g1 = loss_and_grads(model, params, data, local_comm())
+        loss1 = float(loss1)
+        ms1 = (time.perf_counter() - t) * 1e3
+        before = _thread_launches()
+        loss2, g2, ms2 = _tpt_grads(torch, model, specs, params, data, mesh)
+        launches = _rank_thread_gate("21b float32", before, want, 2)
+        shares = _leaf_shares(g2, g1)
+        worst = _worst(shares)
+        if not (abs(loss2 - loss1) <= TPT_TOL and worst[1] <= TPT_TOL):
+            raise AssertionError(f"21b float32 tp = 2: loss {loss2} (tp = 1 "
+                                 f"{loss1}), worst leaf {worst} (limit "
+                                 f"{TPT_TOL})")
+        out["float32"] = {"seq": s, "batch": b, "loss_tp1": loss1,
+                          "loss_tp2": loss2, "worst_leaf_share": worst,
+                          "leaf_shares": shares, "step_ms_tp1": ms1,
+                          "step_ms_tp2": ms2,
+                          "launches_per_rank_thread": launches}
+        del model, params, g1, g2
+        _free_card(torch)
+
+        # b) bf16: the witness rule, then 3 steps
+        model = build_model(base, device=DEVICE)
+        params, specs = model.init(SEED)
+        s, b = TPT_BF16["seq"], TPT_BF16["batch"]
+        data = SyntheticPipeline(vocab=base.vocab, seq_len=s,
+                                 global_batch=b).get_batch(0, device=DEVICE)
+        _, _, g32 = loss_and_grads(build_model(cfg, device=DEVICE),
+                                   _float_tree(params), data, local_comm())
+        _free_card(torch)
+        _, _, g16 = loss_and_grads(model, params, data, local_comm())
+        e1 = _leaf_rel_norms(g16, g32)
+        del g16
+        flash0 = (flash_attention_bhsd.launches,
+                  flash_attention_bhsd.launches_by_variant["tc"])
+        before = _thread_launches()
+        loss_g, g2, ms_g = _tpt_grads(torch, model, specs, params, data,
+                                      mesh)
+        _rank_thread_gate("21b bf16 gradients", before, want, 2)
+        e2 = _leaf_rel_norms(g2, g32)
+        del g2, g32
+        _free_card(torch)
+        over = {k: (e2[k], e1[k]) for k in e2 if not e2[k] <= 2 * e1[k]}
+        if over:
+            raise AssertionError(f"21b bf16 tp = 2 gradients further from "
+                                 f"float32 than twice tp = 1's bf16 "
+                                 f"distance: {over}")
+        whole = {p: t.numel() for p, t in leaves_with_paths(params)}
+        opt = AdamWConfig(lr=TRAIN_LR)
+        torch.cuda.reset_peak_memory_stats()
+        state = shard_state(TrainState(params, adamw_init(params, opt)),
+                            specs, mesh)
+        del params
+        _free_card(torch)
+        held = _shard_check(state, specs, whole, mesh)
+        step = mesh_step(model, specs, opt, mesh,
+                         CommConfig(mode=CommMode.LCI_DEDICATED), batch=b)
+        losses, times, per_step = [], [], []
+        for i in range(TPT_BF16["steps"]):
+            before = _thread_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, data)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            per_step.append(_rank_thread_gate(f"21b bf16 step {i}", before,
+                                              want, 2))
+        n_flash = flash_attention_bhsd.launches - flash0[0]
+        n_tc = flash_attention_bhsd.launches_by_variant["tc"] - flash0[1]
+        if n_tc != n_flash:
+            raise AssertionError(f"21b bf16: {n_flash - n_tc} of {n_flash} "
+                                 "flash-attention launches not tensor-core")
+        if not all(math.isfinite(x) for x in losses) or \
+                not all(b_ < a_ for a_, b_ in zip(losses, losses[1:])):
+            raise AssertionError(f"21b bf16 tp = 2 losses {losses} are not "
+                                 "finite and falling")
+        step_s = statistics.median(times[1:])
+        out["bfloat16"] = {
+            "seq": s, "batch": b, "first_step_loss": loss_g,
+            "first_step_grads_ms": ms_g,
+            "witness": {"rule": "per leaf |g - g32| / |g32| at tp = 2 "
+                                "<= 2 x tp = 1's (bf16 against float32 "
+                                "tp = 1)",
+                        "worst_ratio": max(e2[k] / max(e1[k], 1e-30)
+                                           for k in e2),
+                        "tp2": e2, "tp1": e1},
+            "losses": losses, "step_ms": step_s * 1e3,
+            "step_ms_all": [x * 1e3 for x in times],
+            "tokens_per_s": s * b / step_s,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "state": held, "launches_per_rank_thread_per_step": per_step,
+            "flash_launches_tc": n_tc}
+        del state
+    _free_card(torch)
+    return out
+
+
+def tp_train_families_phase(torch) -> dict:
+    """21c: olmoe-1b-7b (the all-to-all's backward, B4), mamba2-370m (the
+    ``psum_model`` backward, B5) and hymba-1.5b (Plan B attention and the
+    replicated SSM) at full width and 2 layers on a (2, 2) mesh (FSDP
+    over data and tp 2, four rank threads), whisper-tiny at its full
+    config on (1, 2); float32 (TF32 off), 2 x 512 tokens (whisper: the
+    launcher's 1504 stub frames): one step's loss and every synced
+    gradient leaf against tp = 1's on the same params within
+    :data:`TPT_TOL`.  olmoe runs at the capacity factor E / k, where no
+    expert overflows at either width, and with its router's load-balance
+    coefficient at 0: at tp > 1 the reference's ``aux_lb`` is the mean
+    over the ranks of each rank's term over its own tokens, another
+    function than tp = 1's over all tokens (``tests/test_torch_tp.py``
+    holds it to the reference's); its z-loss stays.  whisper's stacked
+    matrices are rescaled to std 1/sqrt(fan_in) (:func:`_fan_in_scaled_`,
+    as phase 20a): at the init's scale its float32 gradients are chaotic,
+    tp = 1's as far from float64 as tp = 2's (both ~1.2 of a leaf's
+    largest element at 64 x 2 tokens on the CPU; ~1e-6 when rescaled).
+    Step ms and peak memory."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.distributed import Mesh, local_comm
+    from repro_torch.launch.train import batch_extras
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import loss_and_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    s, b = TPT_SMALL
+    for arch, layers, shape in TPT_FAMILIES:
+        cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        if cfg.family == "moe":
+            cfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k,
+                router_aux_coef=0.0)
+        _free_card(torch)
+        model = build_model(cfg, device=DEVICE)
+        params, specs = model.init(SEED)
+        if cfg.is_encdec:
+            _fan_in_scaled_(params)
+        data = SyntheticPipeline(vocab=cfg.vocab, seq_len=s,
+                                 global_batch=b).get_batch(0, device=DEVICE)
+        data.update(batch_extras(cfg, b, 0, DEVICE))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss1, _, g1 = loss_and_grads(model, params, data, local_comm())
+        loss1 = float(loss1)
+        ms1 = (time.perf_counter() - t) * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        c0 = _counts()
+        with Mesh(shape, ("data", "model"), device=DEVICE) as mesh:
+            loss2, g2, ms2 = _tpt_grads(torch, model, specs, params, data,
+                                        mesh)
+        launches = dict(zip(("flash", "rmsnorm", "moe_gmm", "ssd_scan"), (
+            b_ - a_ for i, (a_, b_) in enumerate(zip(c0, _counts()))
+            if i in (0, 1, 2, 4))))
+        shares = _leaf_shares(g2, g1)
+        worst = _worst(shares)
+        rec = {"layers": cfg.n_layers, "mesh": list(shape), "seq": s,
+               "batch": b, "dtype": "float32",
+               "extras": {k: list(v.shape) for k, v in data.items()
+                          if k not in ("tokens", "labels")},
+               "loss_tp1": loss1, "loss_mesh": loss2,
+               "worst_leaf_share": worst, "step_ms_tp1": ms1,
+               "step_ms_mesh": ms2,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": launches}
+        if cfg.family == "moe":
+            rec.update(capacity_factor=cfg.capacity_factor,
+                       router_aux_coef=0.0)
+        if cfg.is_encdec:
+            rec["weights"] = "stacked matrices at std 1/sqrt(fan_in)"
+        out[arch] = rec
+        need = {"olmoe-1b-7b": ("flash", "rmsnorm", "moe_gmm"),
+                "mamba2-370m": ("rmsnorm", "ssd_scan"),
+                "hymba-1.5b": ("flash", "rmsnorm", "ssd_scan"),
+                "whisper-tiny": ("flash",)}[arch]
+        if not (abs(loss2 - loss1) <= TPT_TOL and worst[1] <= TPT_TOL) \
+                or any(launches[k] == 0 for k in need):
+            raise AssertionError(f"21c {arch} on {shape}: {rec}")
+        del model, params, g1, g2
+    _free_card(torch)
+    return out
+
+
+def tp_train_launch_phase(torch) -> dict:
+    """21d: ``python -m repro_torch.launch.train --arch gemma3-1b --smoke
+    --mesh 2x2 --steps 4`` (its ``main``, on the card): losses finite
+    and the last below the first.  Then the smoke config in float32 (the
+    reference's ``elastic_reshard.py`` case): 3 ``mesh_step`` steps on
+    (2, 2), a checkpoint of the state put together, its restore cut onto
+    (4, 1) and continued 3 steps, against the same restore continued on
+    (2, 2): the last losses within 2e-3."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.modes import CommConfig, CommMode
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.distributed import Mesh
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import state_from_tree, state_tree, \
+        train_state_init
+    t = time.perf_counter()
+    hist = launcher.main(["--arch", "gemma3-1b", "--smoke", "--mesh",
+                          TPT_LAUNCH["mesh"], "--steps",
+                          str(TPT_LAUNCH["steps"]), "--seq",
+                          str(TPT_LAUNCH["seq"]), "--batch",
+                          str(TPT_LAUNCH["batch"])])
+    launch_s = time.perf_counter() - t
+    losses = [r["loss"] for r in hist]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"21d launcher losses {losses} are not finite "
+                             "and falling")
+    cfg = dataclasses.replace(get_smoke("gemma3-1b"), dtype=torch.float32)
+    model = build_model(cfg, device=DEVICE)
+    opt = AdamWConfig(lr=TRAIN_LR)
+    state, specs = train_state_init(model, SEED, opt)
+    pipe = SyntheticPipeline(vocab=cfg.vocab, seq_len=TPT_LAUNCH["seq"],
+                             global_batch=TPT_LAUNCH["batch"])
+    n = TPT_LAUNCH["elastic_steps"]
+    config = CommConfig(mode=CommMode.LCI_DEDICATED)
+    tmp = tempfile.mkdtemp(prefix="phase21_ckpt_",
+                           dir=os.path.join(ROOT, "build"))
+    try:
+        with Mesh((2, 2), ("data", "model"), device=DEVICE) as mesh_a, \
+                Mesh((4, 1), ("data", "model"), device=DEVICE) as mesh_b:
+            step_a = launcher.mesh_step(model, specs, opt, mesh_a, config,
+                                        batch=TPT_LAUNCH["batch"])
+            step_b = launcher.mesh_step(model, specs, opt, mesh_b, config,
+                                        batch=TPT_LAUNCH["batch"])
+            st = launcher.shard_state(state, specs, mesh_a)
+            for i in range(n):
+                st, m = step_a(st, pipe.get_batch(i, device=DEVICE))
+            store = CheckpointStore(tmp)
+            store.save(n - 1, state_tree(st), meta={"next_step": n},
+                       blocking=True)
+
+            def continued(like, step_fn):
+                tree, manifest = store.restore(state_tree(like),
+                                               device=DEVICE)
+                cur = like.resharded(state_from_tree(tree))
+                for i in range(manifest["meta"]["next_step"], 2 * n):
+                    cur, m = step_fn(cur, pipe.get_batch(i, device=DEVICE))
+                return float(m["loss"])
+
+            loss_b = continued(launcher.shard_state(st.gather(), specs,
+                                                    mesh_b), step_b)
+            loss_a = continued(st, step_a)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not (math.isfinite(loss_b) and
+            abs(loss_a - loss_b) < TPT_LAUNCH["elastic_tol"]):
+        raise AssertionError(f"21d elastic: continued on (4, 1) {loss_b}, "
+                             f"on (2, 2) {loss_a}")
+    return {"launcher": {"argv": f"--arch gemma3-1b --smoke --mesh "
+                                 f"{TPT_LAUNCH['mesh']} --steps "
+                                 f"{TPT_LAUNCH['steps']}",
+                         "seq": TPT_LAUNCH["seq"],
+                         "batch": TPT_LAUNCH["batch"], "losses": losses,
+                         "seconds": launch_s},
+            "elastic": {"config": cfg.name, "dtype": "float32",
+                        "from": [2, 2], "to": [4, 1], "steps": [n, n],
+                        "loss_continued_4x1": loss_b,
+                        "loss_continued_2x2": loss_a,
+                        "abs_diff": abs(loss_a - loss_b),
+                        "limit": TPT_LAUNCH["elastic_tol"]}}
+
+
+def tp_training_phase(torch, counters) -> tuple:
+    """Phase 21: the counts set to 0 just before 21a and again before
+    21b, read just after 21a and 21d; every kernel call of 21b-d kept by
+    signature and each kernel held against its plain version at each one
+    after the counts are read.  Returns the launches of 21a-d by kernel
+    and the path checks by kernel."""
+    from repro_torch.kernels.doorbell import stage_copy_rows
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
+    t21 = time.perf_counter()
+    _free_card(torch)
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    transposes = tp_transpose_phase(torch)
+    a_doorbell = stage_copy_rows.launches
+    record("tp_train_transposes", seconds=time.perf_counter() - t0,
+           **transposes)
+    with _PathCalls() as path:
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        gemma = tp_train_gemma_phase(torch)
+        record("tp_train_gemma3", seconds=time.perf_counter() - t0,
+               **gemma)
+        t0 = time.perf_counter()
+        families = tp_train_families_phase(torch)
+        record("tp_train_families", seconds=time.perf_counter() - t0,
+               **families)
+        t0 = time.perf_counter()
+        launch = tp_train_launch_phase(torch)
+        record("tp_train_launcher", seconds=time.perf_counter() - t0,
+               **launch)
+        launches = {"flash_attention": flash_attention_bhsd.launches,
+                    "rmsnorm": rmsnorm.launches,
+                    "moe_gmm": moe_gmm.launches,
+                    "ssd_scan": ssd_scan_bhsp.launches,
+                    "doorbell": a_doorbell + stage_copy_rows.launches}
+        by_variant = {
+            "flash_attention": dict(flash_attention_bhsd.launches_by_variant),
+            "moe_gmm": dict(moe_gmm.launches_by_variant),
+            "ssd_scan": dict(ssd_scan_bhsp.launches_by_variant)}
+    if min(launches[k] for k in ("flash_attention", "rmsnorm", "moe_gmm",
+                                 "ssd_scan")) == 0:
+        raise AssertionError(f"the tp > 1 training path launched a kernel "
+                             f"no time: {launches}")
+    _free_card(torch)
+    t0 = time.perf_counter()
+    checks = path_kernel_checks(torch, path.calls, prefix="tp_train_path",
+                                b4_scaled=True)
+    del path
+    missing = [k for k, n_ in (("flash", launches["flash_attention"]),
+                               ("rmsnorm", launches["rmsnorm"]),
+                               ("moe_gmm", launches["moe_gmm"]),
+                               ("ssd_scan", launches["ssd_scan"]),
+                               ("doorbell", launches["doorbell"]
+                                - a_doorbell))
+               if n_ and not checks[k]]
+    if missing:
+        raise AssertionError(f"phase 21 launched {missing} at no signature "
+                             "that was kept")
+    record("phase21_kernel_checks", seconds=time.perf_counter() - t0,
+           signatures={k: len(v) for k, v in checks.items()}, cases=checks)
+    smi = _card_line()
+    bf = gemma["bfloat16"]
+    print(f"phase 21 gemma3-1b tp = 2 bf16 {TPT_BF16['batch']} x "
+          f"{TPT_BF16['seq']}: {bf['step_ms']:.1f} ms a step, "
+          f"{bf['tokens_per_s']:.0f} tokens/s, peak "
+          f"{bf['peak_memory_gb']:.2f} GB ({smi})", flush=True)
+    for arch, rec in families.items():
+        print(f"phase 21 {arch} on {tuple(rec['mesh'])} float32: "
+              f"{rec['step_ms_mesh']:.1f} ms a step (tp = 1: "
+              f"{rec['step_ms_tp1']:.1f}), peak {rec['peak_memory_gb']:.2f}"
+              f" GB ({smi})", flush=True)
+    record("phase21", seconds=time.perf_counter() - t21, launches=launches,
+           launches_by_variant=by_variant, card=smi)
+    return launches, checks
+
+
 def _card_line() -> str:
     """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5718,6 +6417,14 @@ def main(argv=None) -> int:
     grad_cases += x_grads
     flash_by["vlm and audio (phase 20)"] = x_by_variant
 
+    # 21. training at tp > 1 (:func:`tp_training_phase`)
+    p21_launches, p21_checks = tp_training_phase(torch, counters)
+    flash += p21_checks["flash"]
+    rms += p21_checks["rmsnorm"]
+    moe += p21_checks["moe_gmm"]
+    ssd += p21_checks["ssd_scan"]
+    cases += p21_checks["doorbell"]
+
     def grad_err(prefix):
         return max(c["max_abs_err"] for c in grad_cases
                    if c["case"].startswith(prefix))
@@ -5741,7 +6448,8 @@ def main(argv=None) -> int:
         "source": SOURCE, "replaces": REPLACES,
         "launches": launches + t_launches + p_launches + v_launches
         + v_ranks + c_launches + tp_launches["doorbell"]
-        + r_launches["doorbell"] + g_launches["doorbell"],
+        + r_launches["doorbell"] + g_launches["doorbell"]
+        + p21_launches["doorbell"],
         "launches_by_path": {"message path (phase 4)": launches,
                              "transports (phase 15)": t_launches,
                              "two processes (phase 15)": p_launches,
@@ -5752,7 +6460,9 @@ def main(argv=None) -> int:
                              "tensor parallel (phase 17b-d)":
                                  tp_launches["doorbell"],
                              "recovery (phase 18)": r_launches["doorbell"],
-                             "training (phase 19)": g_launches["doorbell"]},
+                             "training (phase 19)": g_launches["doorbell"],
+                             "training at tp > 1 (phase 21)":
+                                 p21_launches["doorbell"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": "bytes",
@@ -5769,7 +6479,8 @@ def main(argv=None) -> int:
         "replaces": FLASH_REPLACES,
         "launches": n_flash + m_flash + y_flash
         + tp_launches["flash_attention"] + r_launches["flash_attention"]
-        + g_launches["flash_attention"] + x_launches["flash_attention"],
+        + g_launches["flash_attention"] + x_launches["flash_attention"]
+        + p21_launches["flash_attention"],
         "launches_by_path": {"gemma3-1b": n_flash, "olmoe-1b-7b": m_flash,
                              "mamba2-370m": 0, "hymba-1.5b": y_flash,
                              "tensor parallel (phase 17)":
@@ -5779,7 +6490,9 @@ def main(argv=None) -> int:
                              "training (phase 19)":
                                  g_launches["flash_attention"],
                              "vlm and audio (phase 20)":
-                                 x_launches["flash_attention"]},
+                                 x_launches["flash_attention"],
+                             "training at tp > 1 (phase 21)":
+                                 p21_launches["flash_attention"]},
         "max_abs_err": max(c["max_abs_err"] for c in flash),
         "plain_backward_max_abs_err": grad_err("flash"),
         "backward": "autograd of flash_attention_ref (tc: P in bf16), "
@@ -5803,7 +6516,7 @@ def main(argv=None) -> int:
         "replaces": RMS_REPLACES,
         "launches": n_rms + m_rms + s_rms + y_rms + tp_launches["rmsnorm"]
         + r_launches["rmsnorm"] + g_launches["rmsnorm"]
-        + x_launches["rmsnorm"],
+        + x_launches["rmsnorm"] + p21_launches["rmsnorm"],
         "launches_by_path": {"gemma3-1b": n_rms, "olmoe-1b-7b": m_rms,
                              "mamba2-370m": s_rms, "hymba-1.5b": y_rms,
                              "tensor parallel (phase 17)":
@@ -5811,7 +6524,9 @@ def main(argv=None) -> int:
                              "recovery (phase 18)": r_launches["rmsnorm"],
                              "training (phase 19)": g_launches["rmsnorm"],
                              "vlm and audio (phase 20)":
-                                 x_launches["rmsnorm"]},
+                                 x_launches["rmsnorm"],
+                             "training at tp > 1 (phase 21)":
+                                 p21_launches["rmsnorm"]},
         "max_abs_err": max(c["max_abs_err"] for c in rms),
         "plain_backward_max_abs_err": grad_err("rmsnorm"),
         "backward": "autograd of rmsnorm_ref, recomputed from the saved "
@@ -5824,11 +6539,13 @@ def main(argv=None) -> int:
                           timed + ("copy_ms", "bound_share"))}, {
         "name": "moe_gmm", "route": "cuda", "source": MOE_SOURCE,
         "replaces": MOE_REPLACES, "launches": n_moe + tp_launches["moe_gmm"]
-        + g_launches["moe_gmm"],
+        + g_launches["moe_gmm"] + p21_launches["moe_gmm"],
         "launches_by_path": {"olmoe-1b-7b": n_moe,
                              "tensor parallel (phase 17)":
                                  tp_launches["moe_gmm"],
-                             "training (phase 19)": g_launches["moe_gmm"]},
+                             "training (phase 19)": g_launches["moe_gmm"],
+                             "training at tp > 1 (phase 21)":
+                                 p21_launches["moe_gmm"]},
         "max_abs_err": max(c["max_abs_err"] for c in moe),
         "plain_backward_max_abs_err": grad_err("moe_gmm"),
         "backward": "autograd of moe_gmm_ref (tc: h rounded to bf16 once "
@@ -5847,11 +6564,13 @@ def main(argv=None) -> int:
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
         "replaces": SSD_REPLACES,
         "launches": s_ssd + y_ssd + tp_launches["ssd_scan"]
-        + g_launches["ssd_scan"],
+        + g_launches["ssd_scan"] + p21_launches["ssd_scan"],
         "launches_by_path": {"mamba2-370m": s_ssd, "hymba-1.5b": y_ssd,
                              "tensor parallel (phase 17)":
                                  tp_launches["ssd_scan"],
-                             "training (phase 19)": g_launches["ssd_scan"]},
+                             "training (phase 19)": g_launches["ssd_scan"],
+                             "training at tp > 1 (phase 21)":
+                                 p21_launches["ssd_scan"]},
         "max_abs_err": max(c["max_abs_err"] for c in ssd),
         "plain_backward_max_abs_err": grad_err("ssd_scan"),
         "backward": "autograd of ssd_scan_tc_ref (tc) or ssd_scan_ref "

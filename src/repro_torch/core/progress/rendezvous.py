@@ -132,6 +132,9 @@ class RendezvousManager:
 
     def on_rdma_payload(self, engine, msg: WireMsg, dev) -> None:
         buf, comp, rdev = self.landing[msg.op_id]
+        # the zone is spent: drop its buffer (a collective's receive
+        # buffer on the card), keeping the indices of the zones in flight
+        self.landing[msg.op_id] = None
         engine.deliver_recv(buf, msg.payload, comp, msg.src, msg.tag, dev)
 
     def on_put(self, engine, msg: WireMsg, dev) -> None:

@@ -13,6 +13,39 @@ deployments of the same model code:
   in the mode ``CommConfig`` picks.  :func:`repro_torch.distributed.
   spmd_map.spmd_map` builds one such Comm per rank.
 
+Every collective whose input requires a gradient is differentiable, with
+the transpose that JAX's AD derives for the reference's ``Comm`` method
+under ``shard_map(check_vma=False)`` (the ``_*_t`` functions below):
+
+=================  ==========================  ===========================
+method             forward                     backward
+=================  ==========================  ===========================
+``ag_matmul``      ``all_gather(x) @ w``       dx = ``reduce_scatter(g
+                                               wᵀ)``, dw = ``all_gather(x)ᵀ
+                                               g``
+``matmul_rs``      ``reduce_scatter(x @ w)``   g' = ``all_gather(g)``: dx =
+                                               g' wᵀ, dw = xᵀ g'
+``matmul_ar``      ``psum(x @ w)``             ``psum(g)``, then the matmul's
+``ag_seq``         all-gather                  reduce-scatter
+``rs_seq``         reduce-scatter              all-gather
+``psum_model``     ``psum``                    ``psum``
+``psum_model_ge``  ``psum``                    identity
+``a2a``            all-to-all                  all-to-all, split and concat
+                                               swapped
+``weight``         all-gather over each data   reduce-scatter over each,
+                   axis, innermost first       innermost last
+=================  ==========================  ===========================
+
+``pmax_model`` has none: it is only ever taken on detached values.  The
+sums of a backward run on :mod:`repro_torch.core.collectives`' rings in
+the Comm's mode (``psum`` on the axis' own), float32 accumulation
+rounded once, as the forwards do.
+While a :class:`~repro_torch.distributed.spmd_autograd.Tape` records on
+the rank thread (training at tp > 1, or with FSDP gathers), each such
+call is a cut of the tape and its transpose runs on the rank thread in
+the tape's backward; otherwise it is an ``autograd.Function`` whose
+backward runs the transpose in its node.
+
 Axis conventions: ``model_axis`` = the TP/EP/SP axis; ``data_axis`` = the
 DP/FSDP axis (an Axis, or a tuple of Axes for a multi-axis data
 dimension, outermost first).
@@ -32,6 +65,7 @@ from ..core.modes import CommConfig, CommMode
 from ..core.progress import EndpointSpec
 from ..core.runtime import resolve_device
 from ..core.tree import tree_map
+from . import spmd_autograd
 
 AxisSpec = Union[Axis, Tuple[Axis, ...], None]
 
@@ -118,7 +152,10 @@ class Comm:
         ax = self._one_model_axis()
         if ax is None:
             return torch.matmul(x, w).to(x.dtype)
-        return C.all_gather_matmul(x, w, ax, self.cfg)
+        cfg = self.cfg
+        return _differentiable(
+            lambda x, w: C.all_gather_matmul(x, w, ax, cfg),
+            lambda ins, g: _ag_matmul_t(ax, cfg, ins, g), x, w)
 
     def matmul_rs(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``reduce_scatter(x @ w, axis=0 over model)`` — row-parallel exit.
@@ -126,7 +163,10 @@ class Comm:
         ax = self._one_model_axis()
         if ax is None:
             return torch.matmul(x, w).to(x.dtype)
-        return C.matmul_reduce_scatter(x, w, ax, self.cfg)
+        cfg = self.cfg
+        return _differentiable(
+            lambda x, w: C.matmul_reduce_scatter(x, w, ax, cfg),
+            lambda ins, g: _matmul_rs_t(ax, cfg, ins, g), x, w)
 
     def matmul_ar(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``allreduce(x @ w)`` — row-parallel exit without SP (decode,
@@ -135,7 +175,8 @@ class Comm:
         y = torch.matmul(x, w).to(x.dtype)
         if ax is None:
             return y
-        return ax.psum(y)
+        return _differentiable(ax.psum,
+                               lambda ins, g: _psum_t(ax, ins, g), y)
 
     # -- raw collectives over the model axis ---------------------------------
     def ag_seq(self, x: torch.Tensor, *, axis: int = 0) -> torch.Tensor:
@@ -143,19 +184,29 @@ class Comm:
         ax = self._one_model_axis()
         if ax is None:
             return x
-        return C.all_gather(x, ax, self.cfg, axis=axis)
+        cfg = self.cfg
+        return _differentiable(
+            lambda x: C.all_gather(x, ax, cfg, axis=axis),
+            lambda ins, g: _ag_seq_t(ax, cfg, axis, ins, g), x)
 
     def rs_seq(self, x: torch.Tensor, *, axis: int = 0) -> torch.Tensor:
         ax = self._one_model_axis()
         if ax is None:
             return x
-        return C.reduce_scatter(x, ax, self.cfg, axis=axis)
+        cfg = self.cfg
+        return _differentiable(
+            lambda x: C.reduce_scatter(x, ax, cfg, axis=axis),
+            lambda ins, g: _rs_seq_t(ax, cfg, axis, ins, g), x)
 
     def psum_model(self, x: torch.Tensor) -> torch.Tensor:
+        """psum over the model axis; its transpose is the psum (each
+        rank's operand feeds every rank's differing consumer, as the SSM
+        gated norm's sum of squares does)."""
         ax = self._one_model_axis()
         if ax is None:
             return x
-        return ax.psum(x)
+        return _differentiable(ax.psum,
+                               lambda ins, g: _psum_t(ax, ins, g), x)
 
     def psum_model_ge(self, x: torch.Tensor) -> torch.Tensor:
         """Gradient-exact psum over the model axis (router aux means, the
@@ -171,6 +222,8 @@ class Comm:
         return _PsumGradExact.apply(x, ax)
 
     def pmax_model(self, x: torch.Tensor) -> torch.Tensor:
+        """pmax over the model axis, of values no gradient flows through
+        (the loss's detached logit max, the decode combine's)."""
         ax = self._one_model_axis()
         if ax is None:
             return x
@@ -182,8 +235,12 @@ class Comm:
         ax = self._one_model_axis()
         if ax is None:
             return x
-        return C.all_to_all(x, ax, split_axis=split_axis,
-                            concat_axis=concat_axis, config=self.cfg)
+        cfg = self.cfg
+        return _differentiable(
+            lambda x: C.all_to_all(x, ax, split_axis=split_axis,
+                                   concat_axis=concat_axis, config=cfg),
+            lambda ins, g: _a2a_t(ax, cfg, split_axis, concat_axis, ins, g),
+            x)
 
     def model_index(self) -> int:
         ax = self._one_model_axis()
@@ -193,15 +250,23 @@ class Comm:
     def weight(self, w: torch.Tensor, *, fsdp_axis: Optional[int]
                ) -> torch.Tensor:
         """Gather a weight's FSDP-sharded dim back to full size (in LCI
-        modes a ring; innermost data axis first)."""
+        modes a ring; innermost data axis first); its transpose
+        reduce-scatters the gradient over the same axes, so an FSDP
+        leaf's gradient arrives summed over data."""
         if fsdp_axis is None or not self.fsdp:
             return w
         axes = _axes(self.data_axis)
         if not axes:
             return w
-        for a in reversed(axes):
-            w = C.all_gather(w, a, self.cfg, axis=fsdp_axis)
-        return w
+        cfg = self.cfg
+
+        def gather(w):
+            for a in reversed(axes):
+                w = C.all_gather(w, a, cfg, axis=fsdp_axis)
+            return w
+        return _differentiable(
+            gather, lambda ins, g: _weight_t(axes, cfg, fsdp_axis, ins, g),
+            w)
 
     # -- data-parallel reductions --------------------------------------------
     def psum_data(self, x: torch.Tensor) -> torch.Tensor:
@@ -251,6 +316,82 @@ class Comm:
         for a in _axes(self.data_axis):
             tok = tok * 0 + C.dissemination_barrier(a)
         return tok
+
+
+# ---------------------------------------------------------------------------
+# the transposes: ``(inputs, g) -> [cotangent of each input]``, the inputs
+# detached; each runs its collectives on the calling (rank) thread
+# ---------------------------------------------------------------------------
+
+def _weight_grad(x: torch.Tensor, g: torch.Tensor, dtype) -> torch.Tensor:
+    """``xᵀ g`` summed over every leading dim: (k, n)."""
+    k, n = x.shape[-1], g.shape[-1]
+    return torch.matmul(x.reshape(-1, k).t(), g.reshape(-1, n)).to(dtype)
+
+
+def _ag_matmul_t(ax, cfg, ins, g):
+    x, w = ins
+    dx = C.matmul_reduce_scatter(g, w.t(), ax, cfg)
+    xg = C.all_gather(x, ax, cfg, axis=0)
+    return [dx.to(x.dtype), _weight_grad(xg, g, w.dtype)]
+
+
+def _matmul_rs_t(ax, cfg, ins, g):
+    x, w = ins
+    gf = C.all_gather(g, ax, cfg, axis=0)
+    return [torch.matmul(gf, w.t()).to(x.dtype),
+            _weight_grad(x, gf, w.dtype)]
+
+
+def _psum_t(ax, ins, g):
+    return [ax.psum(g.contiguous())]
+
+
+def _ag_seq_t(ax, cfg, axis, ins, g):
+    return [C.reduce_scatter(g, ax, cfg, axis=axis)]
+
+
+def _rs_seq_t(ax, cfg, axis, ins, g):
+    return [C.all_gather(g, ax, cfg, axis=axis)]
+
+
+def _a2a_t(ax, cfg, split_axis, concat_axis, ins, g):
+    return [C.all_to_all(g, ax, split_axis=concat_axis,
+                         concat_axis=split_axis, config=cfg)]
+
+
+def _weight_t(axes, cfg, fsdp_axis, ins, g):
+    for a in axes:                    # outermost first: innermost last
+        g = C.reduce_scatter(g, a, cfg, axis=fsdp_axis)
+    return [g]
+
+
+class _Collective(torch.autograd.Function):
+    """``fwd(*inputs)`` with ``transpose(inputs, g)`` as its backward (run
+    in the backward node: the path without a tape)."""
+
+    @staticmethod
+    def forward(ctx, fwd, transpose, *inputs):
+        ctx.transpose = transpose
+        ctx.save_for_backward(*inputs)
+        return fwd(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None) + tuple(ctx.transpose(
+            [t.detach() for t in ctx.saved_tensors], g))
+
+
+def _differentiable(fwd, transpose, *inputs: torch.Tensor) -> torch.Tensor:
+    """``fwd(*inputs)``; where a gradient is wanted, a cut of the thread's
+    recording tape, or else a :class:`_Collective`."""
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in inputs)):
+        return fwd(*inputs)
+    tape = spmd_autograd.active()
+    if tape is not None:
+        return tape.cut(fwd, transpose, inputs)
+    return _Collective.apply(fwd, transpose, *inputs)
 
 
 class _PsumGradExact(torch.autograd.Function):

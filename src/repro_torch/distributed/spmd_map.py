@@ -28,7 +28,11 @@ unverified, as one H100 cannot hold two ranks of a communicator).
 Input leaves with a ``PartitionSpec`` (``P()`` included) reach each rank
 as its own contiguous copy, so a rank may update them in place; leaves
 whose spec is ``None`` are shared by the rank threads as they are and
-must be read only.  Ranks are numbered row-major over the mesh shape.
+must be read only.  An argument whose spec is :data:`PER_RANK` is a list
+of one tree a rank, each rank's already cut (a sharded train state
+between steps): rank ``r`` gets element ``r`` as it is; an output whose
+spec is :data:`PER_RANK` comes back as the list of the ranks' trees,
+ungathered.  Ranks are numbered row-major over the mesh shape.
 """
 from __future__ import annotations
 
@@ -62,6 +66,16 @@ class PartitionSpec(tuple):
 
 
 P = PartitionSpec
+
+
+class _PerRank:
+    def __repr__(self) -> str:
+        return "PER_RANK"
+
+
+#: the spec of an argument or output held as one tree a rank (no cut, no
+#: gather)
+PER_RANK = _PerRank()
 
 
 # ---------------------------------------------------------------------------
@@ -279,12 +293,15 @@ def tree_map2(fn: Callable, tree, spec):
     return _rebuild(tree, lambda k: tree_map2(fn, _get(tree, k), of(k)))
 
 
-def _gather_outputs(parts: List, spec, mesh: Mesh):
-    """Per-rank output trees -> the full output tree."""
+def unshard_tree(parts: List, spec, mesh: Mesh):
+    """Per-rank trees -> the full tree, each leaf put together by its
+    spec (``spec`` mirrors the trees or is one spec for a subtree)."""
+    if spec is PER_RANK:
+        return list(parts)
     if _is_leaf(parts[0]):
         return unshard(parts, spec, mesh)
     of = _spec_of(spec)
-    return _rebuild(parts[0], lambda k: _gather_outputs(
+    return _rebuild(parts[0], lambda k: unshard_tree(
         [_get(p, k) for p in parts], of(k), mesh))
 
 
@@ -318,7 +335,8 @@ def spmd_map(fn: Callable, mesh: Mesh, in_specs: Sequence, out_specs, *,
     config = config or CommConfig()
 
     def run(*args):
-        locals_ = [[tree_map2(lambda t, s: shard(t, s, mesh, r), a, sp)
+        locals_ = [[a[r] if sp is PER_RANK else
+                    tree_map2(lambda t, s: shard(t, s, mesh, r), a, sp)
                     for a, sp in zip(args, in_specs)]
                    for r in range(mesh.size)]
         if mesh.substrate == "lci":
@@ -327,7 +345,7 @@ def spmd_map(fn: Callable, mesh: Mesh, in_specs: Sequence, out_specs, *,
         else:
             outs = _run_processes(fn, mesh, locals_, config, model_axis,
                                   data_axis)
-        return _gather_outputs(outs, out_specs, mesh)
+        return unshard_tree(outs, out_specs, mesh)
 
     return run
 

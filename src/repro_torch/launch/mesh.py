@@ -6,7 +6,9 @@ The reference's mesh axes are ``("data", "model")`` (``("pod", "data",
 "model")`` across pods): ``data`` carries DP + FSDP, ``model`` TP/EP/SP.
 A port rank's Comm binds :class:`~repro_torch.core.axis.Axis` objects,
 so :func:`make_comm` takes the rank's bound axes (``mesh.lci_axes(r)``
-or ``dist_axes``); :func:`shard` cuts a whole tree for one rank.
+or ``dist_axes``); :func:`shard` cuts a whole tree for one rank;
+:func:`state_pspecs` gives a train state's specs (the reference
+launcher's ``sspecs``).
 """
 from __future__ import annotations
 
@@ -40,6 +42,18 @@ def shard(mesh: Mesh, tree, tree_pspecs, rank: int):
     matching tree, or one spec for the whole tree)."""
     return tree_map2(lambda t, s: _shard_leaf(t, s, mesh, rank), tree,
                      tree_pspecs)
+
+
+def state_pspecs(specs: Dict[str, Any]):
+    """A :class:`~repro_torch.train.TrainState`'s PartitionSpecs (the
+    reference launcher's ``sspecs``): params, mu, nu and the float32
+    master each by its param's ``ParamSpec.pspec()`` (tp over ``model``,
+    FSDP over ``data``), the step replicated."""
+    from ..core.tree import tree_map
+    from ..optim import OptState
+    from ..train import TrainState
+    pspecs = tree_map(lambda sp: sp.pspec(), specs)
+    return TrainState(pspecs, OptState(P(), pspecs, pspecs, pspecs))
 
 
 def batch_pspecs(cfg, shape_kind: str, mesh: Mesh, *, batch: int

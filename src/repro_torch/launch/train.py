@@ -4,22 +4,28 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
         --smoke --steps 50 --device cpu
 
-    # data parallel: 2 rank threads on one LocalCluster, the batch cut
-    # over them, the gradient meaned over the data axis after backward
+    # a (data 2, model 2) mesh: 4 rank threads on one LocalCluster,
+    # LCI-dedicated collectives
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
-        --smoke --steps 20 --mesh 2x1 --mode lci_dedicated --device cpu
+        --smoke --steps 20 --mesh 2x2 --mode lci_dedicated --device cpu
 
 The mirror of ``repro/launch/train.py`` with the reference's flags, plus
 ``--device {cuda,cpu}`` (default ``cuda``).  The weights are random,
 drawn from seed 0; the schedule is the reference's cosine over
-``--steps`` with 10 warmup steps.  ``--mesh Dx1`` runs D rank threads
-(``spmd_map`` on a ``(D, 1)`` mesh): every rank holds the whole state
-(no FSDP gather, so no collective inside forward or backward) and its
-batch shard (:func:`repro_torch.launch.mesh.batch_pspecs`), and the
-gradient is synced on the rank thread after backward.  ``--mesh DxM``
-with M > 1 raises: training at tp > 1 needs autograd through the
-model-axis collectives (ROADMAP A6c).  A vlm config's batches carry the
-stub image embeddings (``max(n_image_tokens, 4)`` rows), an audio
+``--steps`` with 10 warmup steps.  ``--mesh DxM`` runs D x M rank threads
+(``spmd_map`` on a ``(data D, model M)`` mesh), as the reference's
+``shard_map`` step runs: FSDP over ``data`` (``Comm(...,
+fsdp=cfg.fsdp_params)``: each weight gathered where it is used, its
+gradient reduce-scattered back), tensor, sequence and expert
+parallelism over ``model``.  The state lives as the ranks' shards
+between steps (:class:`~repro_torch.train.ShardedState`, cut by
+:func:`repro_torch.launch.mesh.state_pspecs`: params, master, mu and nu
+by their ``ParamSpec``), the batch by
+:func:`repro_torch.launch.mesh.batch_pspecs` (tokens and labels
+sequence over ``model``, batch over ``data``).  Every collective of a
+rank's backward runs on its rank thread
+(:mod:`repro_torch.distributed.spmd_autograd`).  A vlm config's batches
+carry the stub image embeddings (``max(n_image_tokens, 4)`` rows), an audio
 config's the stub frames (``n_audio_frames`` rounded up to 16, at least
 16), drawn per step as the reference's launcher draws them.
 Checkpoint/restart: pass ``--ckpt-dir``; rerunning resumes from
@@ -41,13 +47,14 @@ from ..configs import ARCH_NAMES, get_config, get_smoke
 from ..core.attrs import parse_attr_args
 from ..core.modes import _FIELD_TO_ATTR, CommConfig, parse_mode
 from ..data import SyntheticPipeline, stub_frames, stub_image_embeds
-from ..distributed.spmd_map import Mesh, P, spmd_map
+from ..distributed.spmd_map import PER_RANK, Mesh, P, spmd_map
 from ..models.common import ModelConfig
 from ..models.registry import build_model
 from ..optim import AdamWConfig, cosine_schedule
-from ..train import TrainState, make_train_step, train_state_init
+from ..train import (ShardedState, TrainState, make_train_step,
+                     train_state_init)
 from ..train.loop import LoopConfig, train_loop
-from .mesh import batch_pspecs
+from .mesh import batch_pspecs, state_pspecs
 
 #: the metrics a step returns
 METRIC_KEYS = ("loss", "ce", "ntok", "aux_lb", "aux_z", "dropped_frac",
@@ -55,12 +62,8 @@ METRIC_KEYS = ("loss", "ce", "ntok", "aux_lb", "aux_z", "dropped_frac",
 
 
 def parse_mesh(text: str):
-    """``"DxM"`` -> (D, M); raises for M > 1 (A6c)."""
+    """``"DxM"`` -> (D, M)."""
     d, m = (int(x) for x in text.split("x"))
-    if m > 1:
-        raise NotImplementedError(
-            f"--mesh {text}: tp > 1 training is not ported (A6c): it needs "
-            "autograd through the model-axis collectives")
     return d, m
 
 
@@ -87,31 +90,45 @@ def batch_extras(cfg: ModelConfig, batch: int, step: int, device
 
 def mesh_step(model, specs, opt: AdamWConfig, mesh: Mesh,
               config: CommConfig, *, batch: int, remat: bool = True):
-    """The step on every rank of a ``(D, 1)`` mesh: each rank takes its
-    whole copy of the state and its batch shard (``batch``, the global
-    batch, > 1 cuts a vlm or audio batch's extras over data too);
-    returns rank 0's updated state (every rank's is the same) and the
-    meaned metrics."""
+    """The step on every rank of a ``(D, M)`` mesh, the reference's
+    ``shard_map`` step: ``step(state, batch)`` takes a
+    :class:`ShardedState` (each rank its shard, updated in place) and
+    the global batch (cut by :func:`batch_pspecs`; ``batch``, the global
+    batch size, > 1 cuts a vlm or audio batch's extras over data too),
+    and returns the state and the metrics meaned over the mesh."""
     bspec = batch_pspecs(model.cfg, "train", mesh, batch=batch)
 
     def rank_step(comm, state, batch):
-        comm = dataclasses.replace(comm, fsdp=False)   # replicated state
+        comm = dataclasses.replace(comm, fsdp=model.cfg.fsdp_params)
         return make_train_step(model, specs, opt, comm, remat=remat)(
             state, batch)
 
-    return spmd_map(rank_step, mesh, in_specs=(P(), bspec),
-                    out_specs=(P(), {k: P() for k in METRIC_KEYS}),
-                    config=config)
+    run = spmd_map(rank_step, mesh, in_specs=(PER_RANK, bspec),
+                   out_specs=(PER_RANK, {k: P() for k in METRIC_KEYS}),
+                   config=config)
+
+    def step(state: ShardedState, batch):
+        ranks, metrics = run(state.ranks, batch)
+        return dataclasses.replace(state, ranks=ranks), metrics
+
+    return step
 
 
-def train(cfg: ModelConfig, state: TrainState, specs, *, steps: int,
+def shard_state(state: TrainState, specs, mesh: Mesh) -> ShardedState:
+    """``state`` cut over ``mesh`` by :func:`state_pspecs` (the caller
+    drops the whole state)."""
+    return ShardedState.cut(state, state_pspecs(specs), mesh)
+
+
+def train(cfg: ModelConfig, state, specs, *, steps: int,
           seq: int = 64, batch: int = 8, lr: float = 1e-3,
           mesh: Optional[Mesh] = None, config: Optional[CommConfig] = None,
           loop_cfg: Optional[LoopConfig] = None, remat: bool = True,
           device=None) -> List[Dict[str, Any]]:
     """The launcher's loop on ``state`` (donated): ``steps`` steps of
     ``SyntheticPipeline`` batches (seed 0), one device or every rank of
-    ``mesh``; returns the history of metric rows."""
+    ``mesh`` (``state`` then a :class:`ShardedState` on it,
+    :func:`shard_state`); returns the history of metric rows."""
     model = build_model(cfg, device=device)
     opt = opt_config(lr, steps)
     if mesh is None:
@@ -173,6 +190,8 @@ def main(argv=None) -> List[Dict[str, Any]]:
     model = build_model(cfg, device=args.device)
     opt = opt_config(args.lr, args.steps)
     state, specs = train_state_init(model, 0, opt)
+    if mesh is not None:
+        state = shard_state(state, specs, mesh)
     loop_cfg = LoopConfig(total_steps=args.steps,
                           ckpt_dir=args.ckpt_dir or None,
                           ckpt_every=args.ckpt_every,

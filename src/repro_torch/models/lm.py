@@ -13,15 +13,17 @@ image embeddings) and the audio family (whisper: an encoder over the
 frame embeddings, then decoder layers that cross-attend to its output).
 The layer stack is a Python loop over the stacked ``(L, ...)``
 parameters (the reference's ``lax.scan``); with ``remat`` and grad mode
-on, each layer, superblock or encoder layer runs under
-``torch.utils.checkpoint`` (the reference's per-layer
-``jax.checkpoint``), so backward recomputes it from its input.
+on, each layer, superblock or encoder layer is checkpointed (the
+reference's per-layer ``jax.checkpoint``), so backward recomputes it from
+its input: by ``torch.utils.checkpoint`` on one device, by the rank
+thread's tape (:mod:`repro_torch.distributed.spmd_autograd`) while one
+records, so that the recompute's collectives run on the rank thread.
 :func:`loss_and_metrics` is the training loss: the vocab-parallel
 cross-entropy over ``loss_chunk``-row chunks, each checkpointed so that
 one chunk's float32 logits are live at a time, plus the router terms.
 At tp > 1 every block runs the reference's tensor-parallel schedule
 through the :class:`Comm` (sequence-sharded activations, the ring
-collectives at the TP boundaries); training is ported at tp = 1.
+collectives at the TP boundaries), in serving and in training.
 
 Batch convention (seq-major local view):
     tokens  (s_local, b)   int
@@ -34,9 +36,9 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..distributed.comm import Comm
+from ..distributed.spmd_autograd import checkpoint
 from .blocks import (TPPlan, attention_op, init_attention, init_mlp,
                      swa_attention_op, tp_plan)
 from .common import ModelConfig, ParamFactory
@@ -243,11 +245,14 @@ def layer_params(params: Dict[str, Any], idx: int,
     return {k: v[idx] for k, v in params[key].items()}
 
 
-def _unbind(stack: Dict[str, torch.Tensor]) -> list:
+def _unbind(stack) -> list:
     """Each layer's params as views from one unbind of each stacked
     param, so the backward stacks the layers' gradients once (indexing
     layer idx would build a zero-filled stacked gradient a layer and add
-    them up: L adds of the whole stack)."""
+    them up: L adds of the whole stack).  A list is already one dict a
+    layer (the tape's per-layer leaves, ``spmd_autograd.param_leaves``)."""
+    if isinstance(stack, list):
+        return stack
     parts = {k: torch.unbind(v) for k, v in stack.items()}
     n = len(next(iter(parts.values())))
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
@@ -256,7 +261,7 @@ def _unbind(stack: Dict[str, torch.Tensor]) -> list:
 def _run(fn, remat: bool, *args):
     """``fn(*args)``, checkpointed when ``remat``."""
     if remat:
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args)
     return fn(*args)
 
 
@@ -331,8 +336,8 @@ def _encode(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
             remat: bool) -> torch.Tensor:
     """Whisper-style encoder over the stub frame embeddings (t_local, b,
     d) -> the full memory (t, b, d): sinusoidal positions, then
-    bidirectional self-attention layers (RoPE on, ``q_offset`` 0, as in
-    the reference), the final layernorm and a sequence gather."""
+    bidirectional self-attention layers (RoPE on, each query at its
+    global position), the final layernorm and a sequence gather."""
     frames = batch["frames"]                        # (t_local, b, d)
     t_l, _, d = frames.shape
     pos = sinusoidal_positions(t_l, d, offset=comm.model_index() * t_l,
@@ -341,8 +346,12 @@ def _encode(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
 
     def layer(xc, lp):
         h = apply_norm(cfg.norm, xc, lp.get("norm1"))
+        # the rank's frames start at t_l * index: with the heads
+        # replicated (Plan B) its queries are those rows (the reference
+        # passes 0 here, giving every rank's queries positions 0..t_l-1)
         xc = xc + attention_op(h, lp, cfg, comm, plan, window=0,
-                               q_offset=0, causal=False)
+                               q_offset=comm.model_index() * t_l,
+                               causal=False)
         h2 = apply_norm(cfg.norm, xc, lp.get("norm2"))
         return xc + _mlp_op(h2, lp, cfg, comm)
 
@@ -377,7 +386,7 @@ def loss_and_metrics(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     for i in range(0, s, ck):
         xb, lb = x[i:i + ck], labels[i:i + ck]
         if torch.is_grad_enabled():
-            total, n = checkpoint(chunk_loss, xb, lb, use_reentrant=False)
+            total, n = checkpoint(chunk_loss, xb, lb)
         else:
             total, n = chunk_loss(xb, lb)
         sums.append(total)

@@ -7,7 +7,9 @@ the step-indexed pipeline), async checkpointing off the critical path
 (the port's :class:`CheckpointStore`, whose files either package
 restores), per-step timing with z-score straggler flagging, and a
 metrics CSV.  Batches come from ``pipeline.get_batch(step, device=...)``
-on the state's device.
+on the state's device.  A :class:`~repro_torch.train.ShardedState` (the
+launcher's mesh path) is put together for a checkpoint and cut again on
+resume.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 from ..checkpoint import CheckpointStore
 from ..core.tree import leaves_with_paths
 from ..distributed.straggler import StepTimeMonitor
-from .step import TrainState, state_from_tree, state_tree
+from .step import ShardedState, TrainState, state_from_tree, state_tree
 
 
 @dataclasses.dataclass
@@ -42,7 +44,9 @@ def train_loop(state: TrainState, step_fn: Callable, pipeline,
     """Run the loop; returns (final_state, history list of metric dicts).
     ``step_fn`` donates the state it is given (the port's step updates
     it in place)."""
-    device = leaves_with_paths(state.params)[0][1].device
+    sharded = isinstance(state, ShardedState)
+    device = state.device if sharded else \
+        leaves_with_paths(state.params)[0][1].device
     start_step = 0
     store = None
     pending_save = None
@@ -50,7 +54,8 @@ def train_loop(state: TrainState, step_fn: Callable, pipeline,
         store = CheckpointStore(loop_cfg.ckpt_dir)
         if loop_cfg.resume and store.latest() is not None:
             tree, manifest = store.restore(state_tree(state), device=device)
-            state = state_from_tree(tree)
+            state = state.resharded(state_from_tree(tree)) if sharded \
+                else state_from_tree(tree)
             start_step = manifest["meta"].get("next_step",
                                               manifest["step"] + 1)
             print(f"[loop] resumed from step {manifest['step']}, "

@@ -2,14 +2,22 @@
 comm-local (the mirror of :mod:`repro.train.step`).
 
 One function serves one rank (``local_comm()``) and every rank of
-``spmd_map`` on a ``(D, 1)`` mesh: the loss and its gradient are taken
-on the rank's batch shard (``torch.autograd.grad`` of ``Model.loss``,
-each layer rematerialized), then :func:`grad_sync` means the gradient
-over the data axis on the rank thread, the global norm clips it, AdamW
-updates the float32 master and the params, and the metrics are meaned
-over every mesh axis.  The step donates its state: the returned
-:class:`TrainState` holds the same tensors, updated in place.
+``spmd_map`` on a ``(D, M)`` mesh: the loss and its gradient are taken
+on the rank's batch shard (each layer rematerialized), then
+:func:`grad_sync` adds the reductions the backward did not make, on the
+rank thread, the global norm clips the gradient, AdamW updates the
+float32 master and the params, and the metrics are meaned over every
+mesh axis.  Where the forward runs collectives with a gradient (tp > 1,
+or FSDP weights gathered over data at dp > 1) the backward is the rank
+thread's tape (:mod:`repro_torch.distributed.spmd_autograd`): every
+collective's transpose and every recompute runs on the rank thread;
+otherwise it is ``torch.autograd.grad`` of ``Model.loss``.  The step
+donates its state: the returned :class:`TrainState` holds the same
+tensors, updated in place.
 
+:class:`ShardedState` holds a state as its ranks' shards over a mesh
+between steps (the launcher's ``(D, M)`` path): no rank, and no caller,
+holds the whole state; it is put together only for a checkpoint.
 :func:`state_tree` / :func:`state_from_tree` give the state as the
 reference's ``TrainState`` pytree flattens, so a checkpoint of either
 package has the same leaf names (``0_<param>``, ``1_0`` the step,
@@ -19,12 +27,15 @@ the other's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..core.tree import leaves_with_paths, tree_from_paths, tree_map
+from ..distributed import spmd_autograd
 from ..distributed.comm import Comm, local_comm
+from ..distributed.elastic import reshard_state
+from ..distributed.spmd_map import Mesh, unshard_tree
 from ..models.registry import Model
 from ..optim import (AdamWConfig, OptState, adamw_init, adamw_update,
                      clip_by_global_norm, grad_sync)
@@ -36,9 +47,40 @@ class TrainState:
     opt: OptState
 
 
-def state_tree(state: TrainState) -> tuple:
+@dataclasses.dataclass
+class ShardedState:
+    """A :class:`TrainState` cut over ``mesh``: ``ranks[r]`` is rank
+    ``r``'s shard, each leaf cut by ``pspecs`` (a TrainState of
+    PartitionSpecs, ``launch/mesh.py::state_pspecs``)."""
+    ranks: List[TrainState]
+    pspecs: TrainState
+    mesh: Mesh
+
+    @classmethod
+    def cut(cls, state: TrainState, pspecs: TrainState, mesh: Mesh
+            ) -> "ShardedState":
+        """``state``'s shards on ``mesh``'s device (the caller drops the
+        whole state)."""
+        return cls(reshard_state(state, pspecs, mesh), pspecs, mesh)
+
+    def resharded(self, state: TrainState) -> "ShardedState":
+        """Another whole state cut as this one is."""
+        return ShardedState.cut(state, self.pspecs, self.mesh)
+
+    def gather(self) -> TrainState:
+        """The whole state, put together from the shards."""
+        return unshard_tree(self.ranks, self.pspecs, self.mesh)
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+
+def state_tree(state) -> tuple:
     """The state as the reference's pytree flattens it: ``(params, (step,
-    mu, nu, master))``."""
+    mu, nu, master))`` (a :class:`ShardedState` put together first)."""
+    if isinstance(state, ShardedState):
+        state = state.gather()
     o = state.opt
     return (state.params, (o.step, o.mu, o.nu, o.master))
 
@@ -58,7 +100,12 @@ def loss_and_grads(model: Model, params: Dict[str, Any],
                    batch: Dict[str, torch.Tensor], comm: Comm, *,
                    remat: bool = True):
     """(loss, metrics, grads): the loss of ``params`` on ``batch`` and its
-    gradient, a tree like ``params`` in their dtypes."""
+    gradient, a tree like ``params`` in their dtypes: by the rank thread's
+    tape where the forward runs collectives with a gradient (a model axis
+    wider than one rank, or FSDP weights gathered over data)."""
+    if comm.tp > 1 or (comm.fsdp and comm.dp > 1):
+        return spmd_autograd.loss_and_grads(
+            lambda p: model.loss(p, batch, comm, remat=remat), params)
     tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
     loss, metrics = model.loss(tracked, batch, comm, remat=remat)
     paths = leaves_with_paths(tracked)

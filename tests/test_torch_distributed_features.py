@@ -58,7 +58,7 @@ from repro_torch.distributed.compression import (compress_grad,
 from repro_torch.core.modes import CommMode
 from repro_torch.data import SyntheticPipeline
 from repro_torch.launch.mesh import batch_pspecs
-from repro_torch.launch.train import mesh_step
+from repro_torch.launch.train import mesh_step, shard_state
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import build_model, params_from_numpy
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, \
@@ -468,7 +468,8 @@ class TestDataParallel:
         """dp = 2 rank threads: the synced grads bitwise equal on both
         ranks, within 1e-4 of each leaf's largest element of the
         reference's (under ``shard_map``, FSDP on) and of dp = 1 on the
-        global batch; three launcher steps (``mesh_step``, lr 1e-3) leave
+        global batch; three launcher steps (``mesh_step``, lr 1e-3, on
+        the state cut over the mesh, FSDP on, put together after) leave
         the params within 3e-4 of the reference's and of dp = 1's (Adam
         divides by sqrt(nu), so float32 differences in tiny gradients
         move a param by a fraction of a step), the losses at 1e-5."""
@@ -492,11 +493,13 @@ class TestDataParallel:
             state = TrainState(params_from_numpy(pcfg, host, device="cpu"),
                                None)
             state.opt = adamw_init(state.params, opt)
+            state = shard_state(state, specs, mesh)
             step = mesh_step(model, specs, opt, mesh, CommConfig(), batch=4)
             losses = []
             for b in batches:
                 state, m = step(state, _tensors(b))
                 losses.append(float(m["loss"]))
+            state = state.gather()
         # dp = 1 on the global batch
         _, _, one = loss_and_grads(model, params_from_numpy(
             pcfg, host, device="cpu"), _tensors(batches[0]),

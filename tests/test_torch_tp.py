@@ -14,8 +14,8 @@ through ``spmd_map`` (``LciAxis``), every param cut by its spec's
   (None, "data", None), the gates drawn nonzero) and whisper (frames at
   ("model", "data", None)) — in BSP and LCI_DEDICATED: the hidden states
   at the float32 tolerance of ``test_torch_models.py`` (1e-4) and the
-  aux terms at 1e-5 (the gradient half of that helper waits for
-  training at tp > 1, ROADMAP A6c);
+  aux terms at 1e-5 (the gradient half of that helper is
+  ``test_torch_train_tp.py``'s);
 * ``tp2d_decode.py``'s four configs (dense, gqa-par, ssm, moe), the
   dense config at batch 1 (``joint_kv``), and the vlm and whisper
   configs above with their cross-KV computed at one rank and cut by

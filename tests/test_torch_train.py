@@ -19,7 +19,7 @@ reference_compiled``):
   remat must not change a bit);
 * five steps of ``make_train_step`` against the reference's jitted step;
   ``tests/test_train.py``'s cases mirrored; the launcher (one rank,
-  ``--mesh 2x1``, the refused meshes, losses against the
+  ``--mesh 2x1``, ``--mesh 2x2`` against ``--mesh 1x1``, losses against the
   reference launcher's loop on carried params);
 * serving builds no graph, even with params that require a gradient.
 """
@@ -633,17 +633,26 @@ def test_launcher_runs_on_cpu(capsys):
     assert "[train] olmo-1b-smoke on cpu" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--arch", "olmo-1b", "--mesh", "2x2"], "tp > 1 training is not "
-                                             r"ported \(A6c\)"),
-    (["--arch", "llama-3.2-vision-90b", "--mesh", "2x2"],
-     r"tp > 1 training is not ported \(A6c\)"),
-    (["--arch", "whisper-tiny", "--mesh", "2x2"],
-     r"tp > 1 training is not ported \(A6c\)"),
-])
-def test_launcher_refuses(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        p_launch.main(argv + ["--smoke", "--steps", "1", "--device", "cpu"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "llama-3.2-vision-90b",
+                                  "whisper-tiny"])
+def test_launcher_trains_on_a_2x2_mesh(arch):
+    """``--mesh 2x2 --smoke --device cpu``: 4 rank threads (FSDP over
+    data, tp 2, the state held as the ranks' shards) take the same global
+    batches as ``--mesh 1x1`` (the vlm and audio archs with their stub
+    image embeddings and frames cut over the mesh).  The first losses
+    agree at 1e-4 relative; the second at 1e-3: the smoke configs are
+    bf16, and tp = 2 rounds its partial sums in another order, so the
+    first update differs by bf16 roundings (whisper-tiny: 2.0e-4 relative
+    on the second loss; in float32 the two meshes' first gradients agree
+    within 4.4e-4 of each leaf's largest element)."""
+    argv = ["--arch", arch, "--smoke", "--steps", "2", "--device", "cpu",
+            "--seq", "16", "--batch", "4"]
+    one = p_launch.main(argv + ["--mesh", "1x1"])
+    four = p_launch.main(argv + ["--mesh", "2x2"])
+    assert len(one) == len(four) == 2
+    assert all(np.isfinite(r["loss"]) for r in four)
+    np.testing.assert_allclose(four[0]["loss"], one[0]["loss"], rtol=1e-4)
+    np.testing.assert_allclose(four[1]["loss"], one[1]["loss"], rtol=1e-3)
 
 
 def test_launcher_loop_matches_reference_launcher():
