@@ -280,10 +280,30 @@ The phases:
    float32 step against tp = 1 (:func:`tp_train_families_phase`); d)
    the train launcher at ``--mesh 2x2`` and a checkpoint resharded from
    (2, 2) to (4, 1) (:func:`tp_train_launch_phase`).  Every kernel call
-   of b-d is kept by signature and held against its plain version.
+   of b-d is kept by signature and held against its plain version;
+22. the analysis tools against the card (:func:`analysis_phase`): a)
+   the dry run (``launch/dryrun.py``, the meta device) against real
+   calls at a (1, 1) mesh (:func:`dryrun_card_case`): gemma3-1b's bf16
+   training step and prefill at 4 x 2048, olmoe-1b-7b's prefill at 4 x
+   1024 and mamba2-370m's at 4 x 2048; ``count_costs`` around the card's
+   call equals the meta count exactly (flops, dot_bytes, each kernel's
+   launches, flops and bytes), the argument bytes equal the real state's
+   exactly, and the predicted peak (arguments + temp) lies within
+   :data:`PEAK_BAND` of ``max_memory_allocated`` over the counted call;
+   the ms, the roofline bound and the counted FLOPs beside
+   :func:`model_flops` printed; b) one gemma3-1b bf16 step at tp = 2 on
+   (1, 2) rank threads: each rank's recorded collectives (bytes by kind,
+   ppermute bytes and steps by direction) equal the dry run's on an
+   abstract (1, 2) mesh (:func:`collectives_card_case`); c) ``dryrun
+   --all`` on both production meshes on the card's host, 33 cells ok
+   and 7 skipped on each, under :data:`DRYRUN_ALL_S` seconds; d) each
+   ``examples/torch_*.py`` on the card in a subprocess (``chip_smoke.py
+   --example``, which keeps its kernel calls by signature), printing
+   its OK line; every kernel call of a, b and d is held against its
+   plain version.
 
 The launch counts are set to 0 just before phases 4, 7, 10, 13, 14, 15,
-16 (after its kernel check), 17a, 17b, 18, 19b, 20a, 21a and 21b and
+16 (after its kernel check), 17a, 17b, 18, 19b, 20a, 21a, 21b and 22 and
 read just after; the serving phases
 also record B3's launches by (rows, d) a prefill call and a decode
 step.  Every phase raises on failure;
@@ -310,8 +330,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: H100 SXM HBM3 rate (NVIDIA data sheet), for the bandwidth bound
-HBM_BYTES_PER_S = 3.35e12
+# the card's peak figures (H100 SXM 80GB data sheet) live in one place:
+# HBM3's rate for the bandwidth bound, the dense bf16 / float32 rates
+from repro_torch.launch.costs import HBM_BYTES_PER_S, PEAK_FLOPS  # noqa: E402
 #: bytes of distinct inputs each timing cycles through, so repeated
 #: launches do not run out of the 50 MB L2 cache
 COLD_BYTES = 96 << 20
@@ -1821,9 +1842,6 @@ def serve_phase(torch, card):
 # phase 5: flash attention (B2) and RMSNorm (B3) against their plain versions
 # ---------------------------------------------------------------------------
 
-#: dense peak rates of one H100 SXM (NVIDIA data sheet; on-chip guide):
-#: bf16 on the tensor cores, float32 outside them
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:85"
 #: the variants of csrc/flash_attention.cu, for the kernels line
@@ -4188,6 +4206,18 @@ def model_flops(cfg, seq: int, batch: int) -> dict:
     return {"dense": dense, "attention": attn, "total": dense + attn}
 
 
+def counted_flops(cfg, seq: int, batch: int) -> float:
+    """The FLOPs ``launch/costs.py`` counts in one training step of
+    ``cfg`` at ``batch`` x ``seq`` (remat on), from a trace on the meta
+    device: every matmul the step dispatches and each kernel's formula,
+    the backward's recomputes included."""
+    from repro_torch.configs import Shape
+    from repro_torch.launch import dryrun
+    fn, args = dryrun.local_cell(cfg, Shape("train", "train", seq, batch),
+                                 device="meta")
+    return dryrun.trace_cell(fn, args)["costs"].flops
+
+
 def _grads(torch, fn, inputs, cts):
     """Gradients of ``fn(*inputs)`` (every floating input) pulled back
     from ``cts``."""
@@ -4411,6 +4441,7 @@ def train_run(torch, arch: str, layers, seq: int, batch: int, steps: int,
                              "finite and falling")
     step_s = statistics.median(times[-timed:])
     flops = model_flops(cfg, seq, batch)
+    counted = counted_flops(cfg, seq, batch)
     out = {"arch": arch, "layers": cfg.n_layers, "seq": seq, "batch": batch,
            "steps": steps, "losses": losses, "step_ms": step_s * 1e3,
            "step_ms_all": [t * 1e3 for t in times],
@@ -4425,6 +4456,9 @@ def train_run(torch, arch: str, layers, seq: int, batch: int, steps: int,
                 "flash_tc", "ssd_scan_tc"), want)),
            "model_flops": flops,
            "mfu": flops["total"] / step_s / PEAK_FLOPS["bfloat16"],
+           "flops_counted": counted,
+           "mfu_counted": counted / step_s / PEAK_FLOPS["bfloat16"],
+           "counted_over_model_flops": counted / flops["total"],
            "mfu_peak": "989 TFLOP/s, H100 SXM dense bf16 (data sheet)",
            "mfu_terms": "6 N T + 12 L h dh c T: N every param, T the "
                         "step's tokens, c a layer's context (s global, "
@@ -4734,6 +4768,11 @@ def training_phase(torch, counters, profile: bool) -> tuple:
                           TRAIN_GEMMA["steps"], TRAIN_GEMMA["timed"],
                           profile=profile, strict=True)
         record("train_gemma3", seconds=time.perf_counter() - t0, **gemma)
+        print(f"phase 19b gemma3-1b {gemma['batch']} x {gemma['seq']}: "
+              f"{gemma['step_ms']:.1f} ms a step, MFU {gemma['mfu']:.4f} "
+              f"of {gemma['model_flops']['total']:.6g} model_flops, "
+              f"{gemma['mfu_counted']:.4f} of {gemma['flops_counted']:.6g} "
+              f"counted FLOPs ({_card_line()})", flush=True)
         for arch, layers in TRAIN_FAMILIES:
             t0 = time.perf_counter()
             fam = train_run(torch, arch, layers, TRAIN_SMALL["seq"],
@@ -6031,6 +6070,434 @@ def tp_training_phase(torch, counters) -> tuple:
     return launches, checks
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the analysis tools (launch/costs.py, launch/dryrun.py) and the
+# examples against the card
+# ---------------------------------------------------------------------------
+
+#: 22a: (arch, step, seq, batch) of each dry-run cell held against the card:
+#: 19b's gemma3-1b step, phase 7's prefill, B4's and B5's formulas
+DRYRUN_CELLS = (("gemma3-1b", "train", 2048, 4),
+                ("gemma3-1b", "prefill", 2048, 4),
+                ("olmoe-1b-7b", "prefill", 1024, 4),
+                ("mamba2-370m", "prefill", 2048, 4))
+#: 22a: the predicted peak's largest distance from the card's, a share
+PEAK_BAND = 0.15
+#: 22c: the seconds ``dryrun --all`` may take on both meshes
+DRYRUN_ALL_S = 300.0
+#: 22d: each example, its arguments and the line it must print last; the
+#: ~100M-param model trains for 60 of its default 300 steps
+EXAMPLE_TRAIN_STEPS = 60
+EXAMPLES = (("torch_quickstart.py", (), "quickstart OK"),
+            ("torch_kmer_counting.py", (), "kmer example OK"),
+            ("torch_serve_demo.py", (), "serve demo OK"),
+            ("torch_train_100m.py", ("--steps", str(EXAMPLE_TRAIN_STEPS)),
+             "train_100m OK"))
+_COST_KEYS = ("flops", "dot_bytes")
+_DIRS = ("ppermute_fwd_bytes", "ppermute_bwd_bytes", "ppermute_fwd_steps",
+         "ppermute_bwd_steps")
+
+
+def _kernel_launches() -> dict:
+    """Each kernel's wrapper launch count, under the costs' names."""
+    from repro_torch.kernels.doorbell import (stage_copy, stage_copy_push,
+                                              stage_copy_rows)
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
+    return {"flash_attention": flash_attention_bhsd.launches,
+            "rmsnorm": rmsnorm.launches, "moe_gmm": moe_gmm.launches,
+            "ssd_scan": ssd_scan_bhsp.launches,
+            "stage_copy": stage_copy.launches,
+            "stage_copy_rows": stage_copy_rows.launches,
+            "stage_copy_push": stage_copy_push.launches}
+
+
+def dryrun_card_case(torch, arch: str, kind: str, seq: int, batch: int,
+                     smi: str) -> dict:
+    """22a: one cell traced on the meta device, then run on the card
+    (weights drawn from :data:`SEED`): a warm-up call, the call under
+    ``count_costs`` (peak memory from a reset), then timed calls without
+    the counter.  Gates: the counts equal, the argument bytes equal, the
+    predicted peak within :data:`PEAK_BAND` of the counted call's."""
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.costs import CostCounter
+    label = f"{arch} {kind} {batch} x {seq}"
+    shape = Shape(f"{kind}_{seq}x{batch}", kind, seq, batch)
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    fn, args = dryrun.local_cell(arch, shape, device="meta")
+    meta = dryrun.trace_cell(fn, args)
+    trace_s = time.perf_counter() - t0
+    want = meta["costs"]
+    predicted = meta["argument_size_in_bytes"] + meta["temp_size_in_bytes"]
+    del fn, args
+    _free_card(torch)
+    fn, args = dryrun.local_cell(arch, shape, device=DEVICE, seed=SEED)
+    arg_bytes = dryrun.storage_bytes(args)
+    out = fn(*args)                        # warm-up: the workspaces
+    del out
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - arg_bytes
+    torch.cuda.reset_peak_memory_stats()
+    before = _kernel_launches()
+    with CostCounter() as counter:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - resident
+    launched = {k: v - before[k] for k, v in _kernel_launches().items()
+                if v != before[k]}
+    del out
+    got = counter.costs
+    bad = [k for k in _COST_KEYS if getattr(got, k) != getattr(want, k)]
+    if bad or got.kernels != want.kernels:
+        raise AssertionError(
+            f"22a {label}: the card's counts {[getattr(got, k) for k in bad]}"
+            f" {got.kernels} differ from the dry run's "
+            f"{[getattr(want, k) for k in bad]} {want.kernels}")
+    if launched != {k: int(v["launches"]) for k, v in got.kernels.items()}:
+        raise AssertionError(f"22a {label}: the wrappers launched {launched},"
+                             f" the counter recorded {got.kernels}")
+    if arg_bytes != meta["argument_size_in_bytes"]:
+        raise AssertionError(f"22a {label}: the state holds {arg_bytes} "
+                             f"bytes, the dry run predicted "
+                             f"{meta['argument_size_in_bytes']}")
+    ratio = predicted / peak
+    if abs(ratio - 1) > PEAK_BAND:
+        raise AssertionError(f"22a {label}: predicted peak {predicted} "
+                             f"bytes, {ratio:.4f} of the card's {peak}")
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(1 if kind == "train" else 3):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        del out
+    plain_peak = torch.cuda.max_memory_allocated() - resident
+    ms = statistics.median(times) * 1e3
+    roof = dryrun.roofline(got, cfg, shape, 1)
+    mf = model_flops(cfg, seq, batch)["total"]
+    if kind != "train":
+        mf /= 3                            # a forward: a third of a step
+    rec = {"case": label, "arch": arch, "kind": kind, "seq": seq,
+           "batch": batch, "trace_s": trace_s, "flops": got.flops,
+           "dot_bytes": got.dot_bytes, "kernels": got.kernels,
+           "launches": launched, "argument_bytes": arg_bytes,
+           "predicted_peak_bytes": predicted,
+           "predicted_temp_bytes": predicted - arg_bytes,
+           "peak_bytes_counted_call": peak, "peak_ratio": ratio,
+           "peak_bytes_plain_call": plain_peak,
+           "peak_ratio_plain_call": predicted / plain_peak,
+           "ms": ms, "bound_ms": roof["bound_s"] * 1e3,
+           "bound_by": roof["dominant"],
+           "bound_over_measured": roof["bound_s"] * 1e3 / ms,
+           "model_flops": mf, "counted_over_model_flops": got.flops / mf,
+           "card": smi}
+    print(f"phase 22a {label}: counts equal ({got.flops:.6g} FLOPs, "
+          f"{got.dot_bytes:.6g} dot bytes), peak predicted "
+          f"{predicted / 1e9:.3f} GB = {ratio:.4f} of the counted call's "
+          f"{peak / 1e9:.3f} GB ({predicted / plain_peak:.4f} of a plain "
+          f"call's {plain_peak / 1e9:.3f}), {ms:.2f} ms, bound "
+          f"{roof['bound_s'] * 1e3:.2f} ms ({roof['dominant']}, "
+          f"{rec['bound_over_measured']:.3f} of it), counted / model_flops "
+          f"{rec['counted_over_model_flops']:.4f} ({smi})", flush=True)
+    del fn, args
+    _free_card(torch)
+    return rec
+
+
+def collectives_card_case(torch, smi: str) -> dict:
+    """22b: one gemma3-1b bf16 step (21b's: ``tp_target`` 2, 4 x 2048,
+    remat) on (1, 2) rank threads, each rank's step under
+    ``count_costs``: every rank's recorded collectives equal the dry
+    run's rank 0 on an abstract (1, 2) mesh."""
+    import dataclasses
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.core.modes import CommConfig
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.distributed import Mesh, spmd_map
+    from repro_torch.distributed.spmd_map import PER_RANK, P
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.costs import count_costs
+    from repro_torch.launch.mesh import batch_pspecs
+    from repro_torch.launch.train import shard_state
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step, train_state_init
+    cfg = dataclasses.replace(get_config("gemma3-1b"), tp_target=2)
+    seq, batch = TPT_BF16["seq"], TPT_BF16["batch"]
+    config = CommConfig()
+    t0 = time.perf_counter()
+    fn, args = dryrun.build_cell(cfg, Shape("train", "train", seq, batch),
+                                 dryrun.AbstractMesh((1, 2), ("data",
+                                                              "model")),
+                                 config.mode)
+    want = dryrun.trace_cell(fn, args)["costs"].as_dict()
+    trace_s = time.perf_counter() - t0
+    del fn, args
+    _free_card(torch)
+    model = build_model(cfg, device=DEVICE)
+    opt = AdamWConfig(lr=TRAIN_LR)
+    data = SyntheticPipeline(vocab=cfg.vocab, seq_len=seq,
+                             global_batch=batch).get_batch(0, device=DEVICE)
+    with Mesh((1, 2), ("data", "model"), device=DEVICE) as mesh:
+        state, specs = train_state_init(model, SEED, opt)
+        sharded = shard_state(state, specs, mesh)
+        del state
+        _free_card(torch)
+
+        def rank_step(comm, st, b):
+            comm = dataclasses.replace(comm, fsdp=cfg.fsdp_params)
+            step = make_train_step(model, specs, opt, comm)
+            (st, metrics), c = count_costs(step, st, b)
+            return float(metrics["loss"]), c.as_dict()
+        run = spmd_map(rank_step, mesh, in_specs=(
+            PER_RANK, batch_pspecs(cfg, "train", mesh, batch=batch)),
+            out_specs=(P(), PER_RANK), config=config)
+        t0 = time.perf_counter()
+        loss, per_rank = run(sharded.ranks, data)
+        step_s = time.perf_counter() - t0
+        del sharded
+    keys = ("coll_bytes_by_kind",) + _DIRS
+    for r, got in enumerate(per_rank):
+        if {k: got[k] for k in keys} != {k: want[k] for k in keys}:
+            raise AssertionError(
+                f"22b rank {r}: the card's collectives "
+                f"{ {k: got[k] for k in keys} } differ from the dry run's "
+                f"{ {k: want[k] for k in keys} }")
+    if not math.isfinite(loss):
+        raise AssertionError(f"22b: loss {loss}")
+    _free_card(torch)
+    print(f"phase 22b gemma3-1b tp = 2 bf16 {batch} x {seq}: both ranks' "
+          f"collectives equal the dry run's "
+          f"({want['coll_bytes_total']:.6g} bytes a rank, "
+          f"{want['ppermute_fwd_steps']:.0f} + "
+          f"{want['ppermute_bwd_steps']:.0f} ppermute steps), step "
+          f"{step_s * 1e3:.1f} ms under the counter ({smi})", flush=True)
+    return {"config": cfg.name, "mesh": [1, 2], "seq": seq, "batch": batch,
+            "mode": config.mode.value, "dryrun_trace_s": trace_s,
+            "loss": loss, "step_ms_counted": step_s * 1e3,
+            "collectives": {k: want[k] for k in keys},
+            "ranks_equal": len(per_rank), "card": smi}
+
+
+def dryrun_all_case(smi: str) -> dict:
+    """22c: ``python -m repro_torch.launch.dryrun --all --mesh both`` in a
+    subprocess on the card's host (one worker a core, up to 8), writing
+    to ``build/dryrun_torch_chip``: 33 cells ok and 7 skipped on each
+    production mesh, every ok cell with FLOPs, no unknown loop and every
+    roofline key, in under :data:`DRYRUN_ALL_S` seconds."""
+    import shutil
+    out = os.path.join(ROOT, "build", "dryrun_torch_chip")
+    shutil.rmtree(out, ignore_errors=True)
+    jobs = min(8, os.cpu_count() or 1)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--all", "--mesh", "both", "--force", "--jobs",
+                        str(jobs), "--out", out], capture_output=True,
+                       text=True, env=env, cwd=ROOT, timeout=2 * DRYRUN_ALL_S)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"22c: dryrun --all exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    roof_keys = ("compute_s", "memory_s", "collective_s", "dominant",
+                 "bound_s", "bsp_bound_s", "lci_bound_s", "overlap_speedup",
+                 "model_flops_per_device", "useful_flop_ratio",
+                 "roofline_fraction")
+    by_mesh, trace = {}, {}
+    for name in sorted(os.listdir(out)):
+        art = json.load(open(os.path.join(out, name)))
+        mesh = art["cell"].split("__")[2]
+        st = by_mesh.setdefault(mesh, {"ok": 0, "skipped": 0})
+        st[art["status"]] = st.get(art["status"], 0) + 1
+        if art["status"] != "ok":
+            continue
+        a = art["analytic"]
+        if not (a["flops"] > 0 and a["unknown_while"] == 0 and
+                all(k in art["roofline"] for k in roof_keys)):
+            raise AssertionError(f"22c: {art['cell']} lacks flops or a "
+                                 "roofline key, or left a loop unknown")
+        trace[art["cell"]] = art["trace_s"]
+    want = {"ok": 33, "skipped": 7}
+    if by_mesh != {"single": want, "multi": want}:
+        raise AssertionError(f"22c: cells by mesh {by_mesh}, want {want} "
+                             "on each")
+    if seconds > DRYRUN_ALL_S:
+        raise AssertionError(f"22c: dryrun --all took {seconds:.1f} s (limit"
+                             f" {DRYRUN_ALL_S:.0f})")
+    slowest = sorted(trace.items(), key=lambda kv: -kv[1])[:4]
+    print(f"phase 22c dryrun --all on (16, 16) and (2, 16, 16): 33 ok + 7 "
+          f"skipped on each in {seconds:.1f} s with {jobs} workers, slowest "
+          f"traces {slowest} ({smi})", flush=True)
+    return {"seconds": seconds, "jobs": jobs, "cells": by_mesh,
+            "trace_s_sum": sum(trace.values()), "slowest": slowest,
+            "card": smi}
+
+
+def _tuplify(x):
+    return tuple(_tuplify(v) for v in x) if isinstance(x, list) else x
+
+
+def _example_calls(torch, keys: dict) -> dict:
+    """The signatures an example child kept (JSON), as
+    :func:`path_kernel_checks` takes them: B2, B3 and B5 by key; B4 and
+    B1 on fresh draws at their shapes (the child's operands stay in the
+    child)."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    dt = {"torch.float32": torch.float32, "torch.bfloat16": torch.bfloat16}
+    calls = {"flash": {}, "rmsnorm": {}, "moe_gmm": {}, "ssd_scan": {},
+             "doorbell": {}}
+    for kind, ks in keys.items():
+        for k in map(_tuplify, ks):
+            if kind == "moe_gmm":
+                xs, w1s, w2s, dn, act, no_rows = k
+                x, w1, w2 = (torch.randn(s, generator=g, device=DEVICE,
+                                         dtype=dt[dn]) * 0.1
+                             for s in (xs, w1s, w2s))
+                rows = None if no_rows else torch.full(
+                    (xs[0],), xs[1], dtype=torch.int32, device=DEVICE)
+                calls[kind][k] = (x, w1, w2, act, rows)
+            elif kind == "doorbell":
+                n, shape, dn, wire = k
+                dtype = getattr(torch, dn.split(".")[1])
+                rows = [(torch.randn(shape, generator=g, device=DEVICE)
+                         .to(dtype) if dtype.is_floating_point else
+                         torch.randint(0, 100, shape, generator=g,
+                                       device=DEVICE, dtype=dtype))
+                        for _ in range(n)]
+                calls[kind][k] = (rows, wire)
+            else:
+                calls[kind][k] = k
+    return calls
+
+
+def example_child(name: str, report: str, argv) -> int:
+    """22d's child: run ``examples/<name>``'s ``main(argv)`` with every
+    kernel call kept by signature, then write the signatures and the
+    launches to ``report/<name>.json``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "example", os.path.join(ROOT, "examples", name))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    before = _kernel_launches()
+    with _PathCalls() as path:
+        mod.main(list(argv))
+    launched = {k: v - before[k] for k, v in _kernel_launches().items()}
+    keys = {kind: [list(map(lambda v: list(v) if isinstance(v, tuple)
+                            else v, k)) for k in got]
+            for kind, got in path.calls.items()}
+    with open(os.path.join(report, name + ".json"), "w") as f:
+        json.dump({"signatures": keys, "launches": launched}, f)
+    return 0
+
+
+def examples_case(torch, smi: str) -> tuple:
+    """22d: each example in a subprocess on the card, its OK line its last
+    line; returns the records and the kept signatures."""
+    import shutil
+    report = os.path.join(ROOT, "build", "examples_chip")
+    os.makedirs(report, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    recs, keys = [], {}
+    for name, args, ok in EXAMPLES:
+        argv = list(args)
+        if name == "torch_train_100m.py":
+            ckpt = os.path.join(ROOT, "build", "train_100m_chip")
+            shutil.rmtree(ckpt, ignore_errors=True)
+            argv += ["--ckpt-dir", ckpt]
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--example", name, "--report", report, "--",
+                            *argv], capture_output=True, text=True,
+                           env=env, cwd=ROOT, timeout=900)
+        seconds = time.perf_counter() - t0
+        lines = r.stdout.strip().splitlines()
+        if r.returncode != 0 or not lines or lines[-1] != ok:
+            raise AssertionError(f"22d {name} exited {r.returncode}, last "
+                                 f"line {lines[-1:]}:\n{r.stdout[-2000:]}\n"
+                                 f"{r.stderr[-3000:]}")
+        got = json.load(open(os.path.join(report, name + ".json")))
+        for kind, ks in got["signatures"].items():
+            keys.setdefault(kind, []).extend(ks)
+        recs.append({"example": name, "args": argv, "seconds": seconds,
+                     "ok_line": lines[-1], "launches": got["launches"],
+                     "tail": lines[-4:]})
+        print(f"phase 22d {name} {' '.join(argv)}: {lines[-1]} in "
+              f"{seconds:.1f} s, launches "
+              f"{ {k: v for k, v in got['launches'].items() if v} } ({smi})",
+              flush=True)
+    return recs, keys
+
+
+def analysis_phase(torch, counters) -> tuple:
+    """Phase 22: the counts set to 0 just before 22a and read just after
+    22d (the children's launches added); every kernel call of 22a, 22b
+    and 22d kept by signature and each kernel held against its plain
+    version at each one after the counts are read.  Returns the launches
+    by kernel and the path checks by kernel."""
+    t22 = time.perf_counter()
+    smi = _card_line()
+    _free_card(torch)
+    with _PathCalls() as path:
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        cells = [dryrun_card_case(torch, *c, smi) for c in DRYRUN_CELLS]
+        record("dryrun_vs_card", seconds=time.perf_counter() - t0,
+               cells=cells)
+        t0 = time.perf_counter()
+        coll = collectives_card_case(torch, smi)
+        record("collectives_vs_dryrun", seconds=time.perf_counter() - t0,
+               **coll)
+        own = _kernel_launches()
+    every = dryrun_all_case(smi)
+    record("dryrun_all", **every)
+    t0 = time.perf_counter()
+    examples, keys = examples_case(torch, smi)
+    record("examples", seconds=time.perf_counter() - t0, examples=examples)
+    children = {k: sum(e["launches"].get(k, 0) for e in examples)
+                for k in own}
+    launches = {"flash_attention": own["flash_attention"]
+                + children["flash_attention"],
+                "rmsnorm": own["rmsnorm"] + children["rmsnorm"],
+                "moe_gmm": own["moe_gmm"] + children["moe_gmm"],
+                "ssd_scan": own["ssd_scan"] + children["ssd_scan"],
+                "doorbell": own["stage_copy_rows"]
+                + children["stage_copy_rows"]}
+    if min(launches[k] for k in ("flash_attention", "rmsnorm", "moe_gmm",
+                                 "ssd_scan")) == 0:
+        raise AssertionError(f"phase 22 launched a kernel no time: "
+                             f"{launches}")
+    calls = path.calls
+    for kind, call in _example_calls(torch, keys).items():
+        for k, v in call.items():
+            calls[kind].setdefault(k, v)
+    _free_card(torch)
+    t0 = time.perf_counter()
+    checks = path_kernel_checks(torch, calls, prefix="analysis_path",
+                                b4_scaled=True)
+    del path, calls
+    missing = [k for k, n in (("flash", launches["flash_attention"]),
+                              ("rmsnorm", launches["rmsnorm"]),
+                              ("moe_gmm", launches["moe_gmm"]),
+                              ("ssd_scan", launches["ssd_scan"]),
+                              ("doorbell", launches["doorbell"]))
+               if n and not checks[k]]
+    if missing:
+        raise AssertionError(f"phase 22 launched {missing} at no signature "
+                             "that was kept")
+    record("phase22_kernel_checks", seconds=time.perf_counter() - t0,
+           signatures={k: len(v) for k, v in checks.items()}, cases=checks)
+    record("phase22", seconds=time.perf_counter() - t22, launches=launches,
+           launches_in_children=children, card=smi)
+    return launches, checks
+
+
 def _card_line() -> str:
     """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6080,6 +6547,12 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-cell", choices=("traffic", "burst"),
                     default="traffic",
                     help="the two-process serve cell --serve-rank runs")
+    ap.add_argument("--example", metavar="NAME",
+                    help="run examples/NAME with its kernel calls kept by "
+                         "signature (phase 22d starts it), reporting to "
+                         "--report; the example's arguments follow --")
+    ap.add_argument("--report", metavar="DIR")
+    ap.add_argument("example_args", nargs="*", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -6090,6 +6563,8 @@ def main(argv=None) -> int:
         return spmd_rank(args.spmd_rank)
     if args.serve_rank:
         return serve_rank(args.serve_rank, args.serve_cell)
+    if args.example:
+        return example_child(args.example, args.report, args.example_args)
     from repro_torch.kernels import _build
     from repro_torch.kernels.doorbell import (stage_copy, stage_copy_push,
                                               stage_copy_rows)
@@ -6425,6 +6900,14 @@ def main(argv=None) -> int:
     ssd += p21_checks["ssd_scan"]
     cases += p21_checks["doorbell"]
 
+    # 22. the analysis tools and the examples (:func:`analysis_phase`)
+    p22_launches, p22_checks = analysis_phase(torch, counters)
+    flash += p22_checks["flash"]
+    rms += p22_checks["rmsnorm"]
+    moe += p22_checks["moe_gmm"]
+    ssd += p22_checks["ssd_scan"]
+    cases += p22_checks["doorbell"]
+
     def grad_err(prefix):
         return max(c["max_abs_err"] for c in grad_cases
                    if c["case"].startswith(prefix))
@@ -6449,7 +6932,7 @@ def main(argv=None) -> int:
         "launches": launches + t_launches + p_launches + v_launches
         + v_ranks + c_launches + tp_launches["doorbell"]
         + r_launches["doorbell"] + g_launches["doorbell"]
-        + p21_launches["doorbell"],
+        + p21_launches["doorbell"] + p22_launches["doorbell"],
         "launches_by_path": {"message path (phase 4)": launches,
                              "transports (phase 15)": t_launches,
                              "two processes (phase 15)": p_launches,
@@ -6462,7 +6945,9 @@ def main(argv=None) -> int:
                              "recovery (phase 18)": r_launches["doorbell"],
                              "training (phase 19)": g_launches["doorbell"],
                              "training at tp > 1 (phase 21)":
-                                 p21_launches["doorbell"]},
+                                 p21_launches["doorbell"],
+                             "analysis tools and examples (phase 22)":
+                                 p22_launches["doorbell"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": "bytes",
@@ -6480,7 +6965,7 @@ def main(argv=None) -> int:
         "launches": n_flash + m_flash + y_flash
         + tp_launches["flash_attention"] + r_launches["flash_attention"]
         + g_launches["flash_attention"] + x_launches["flash_attention"]
-        + p21_launches["flash_attention"],
+        + p21_launches["flash_attention"] + p22_launches["flash_attention"],
         "launches_by_path": {"gemma3-1b": n_flash, "olmoe-1b-7b": m_flash,
                              "mamba2-370m": 0, "hymba-1.5b": y_flash,
                              "tensor parallel (phase 17)":
@@ -6492,7 +6977,9 @@ def main(argv=None) -> int:
                              "vlm and audio (phase 20)":
                                  x_launches["flash_attention"],
                              "training at tp > 1 (phase 21)":
-                                 p21_launches["flash_attention"]},
+                                 p21_launches["flash_attention"],
+                             "analysis tools and examples (phase 22)":
+                                 p22_launches["flash_attention"]},
         "max_abs_err": max(c["max_abs_err"] for c in flash),
         "plain_backward_max_abs_err": grad_err("flash"),
         "backward": "autograd of flash_attention_ref (tc: P in bf16), "
@@ -6516,7 +7003,8 @@ def main(argv=None) -> int:
         "replaces": RMS_REPLACES,
         "launches": n_rms + m_rms + s_rms + y_rms + tp_launches["rmsnorm"]
         + r_launches["rmsnorm"] + g_launches["rmsnorm"]
-        + x_launches["rmsnorm"] + p21_launches["rmsnorm"],
+        + x_launches["rmsnorm"] + p21_launches["rmsnorm"]
+        + p22_launches["rmsnorm"],
         "launches_by_path": {"gemma3-1b": n_rms, "olmoe-1b-7b": m_rms,
                              "mamba2-370m": s_rms, "hymba-1.5b": y_rms,
                              "tensor parallel (phase 17)":
@@ -6526,7 +7014,9 @@ def main(argv=None) -> int:
                              "vlm and audio (phase 20)":
                                  x_launches["rmsnorm"],
                              "training at tp > 1 (phase 21)":
-                                 p21_launches["rmsnorm"]},
+                                 p21_launches["rmsnorm"],
+                             "analysis tools and examples (phase 22)":
+                                 p22_launches["rmsnorm"]},
         "max_abs_err": max(c["max_abs_err"] for c in rms),
         "plain_backward_max_abs_err": grad_err("rmsnorm"),
         "backward": "autograd of rmsnorm_ref, recomputed from the saved "
@@ -6539,13 +7029,16 @@ def main(argv=None) -> int:
                           timed + ("copy_ms", "bound_share"))}, {
         "name": "moe_gmm", "route": "cuda", "source": MOE_SOURCE,
         "replaces": MOE_REPLACES, "launches": n_moe + tp_launches["moe_gmm"]
-        + g_launches["moe_gmm"] + p21_launches["moe_gmm"],
+        + g_launches["moe_gmm"] + p21_launches["moe_gmm"]
+        + p22_launches["moe_gmm"],
         "launches_by_path": {"olmoe-1b-7b": n_moe,
                              "tensor parallel (phase 17)":
                                  tp_launches["moe_gmm"],
                              "training (phase 19)": g_launches["moe_gmm"],
                              "training at tp > 1 (phase 21)":
-                                 p21_launches["moe_gmm"]},
+                                 p21_launches["moe_gmm"],
+                             "analysis tools and examples (phase 22)":
+                                 p22_launches["moe_gmm"]},
         "max_abs_err": max(c["max_abs_err"] for c in moe),
         "plain_backward_max_abs_err": grad_err("moe_gmm"),
         "backward": "autograd of moe_gmm_ref (tc: h rounded to bf16 once "
@@ -6564,13 +7057,16 @@ def main(argv=None) -> int:
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
         "replaces": SSD_REPLACES,
         "launches": s_ssd + y_ssd + tp_launches["ssd_scan"]
-        + g_launches["ssd_scan"] + p21_launches["ssd_scan"],
+        + g_launches["ssd_scan"] + p21_launches["ssd_scan"]
+        + p22_launches["ssd_scan"],
         "launches_by_path": {"mamba2-370m": s_ssd, "hymba-1.5b": y_ssd,
                              "tensor parallel (phase 17)":
                                  tp_launches["ssd_scan"],
                              "training (phase 19)": g_launches["ssd_scan"],
                              "training at tp > 1 (phase 21)":
-                                 p21_launches["ssd_scan"]},
+                                 p21_launches["ssd_scan"],
+                             "analysis tools and examples (phase 22)":
+                                 p22_launches["ssd_scan"]},
         "max_abs_err": max(c["max_abs_err"] for c in ssd),
         "plain_backward_max_abs_err": grad_err("ssd_scan"),
         "backward": "autograd of ssd_scan_tc_ref (tc) or ssd_scan_ref "

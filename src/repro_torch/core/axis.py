@@ -40,9 +40,18 @@ Two substrates:
   ``all_reduce``, ``reduce_scatter`` and ``all_to_all_single``.  It is
   tested over gloo on the CPU.  Over NCCL across several GPUs it is
   unverified: one H100 cannot hold two ranks of an NCCL communicator.
+
+Costs: every call of :meth:`~Axis.ppermute_start`, :meth:`~Axis.all_gather`,
+:meth:`~Axis.psum`, :meth:`~Axis.psum_scatter`, :meth:`~Axis.pmax` and
+:meth:`~Axis.all_to_all_n` (:meth:`~Axis.all_to_all`) on any subclass is
+recorded, once, into the cost counters active on the calling thread
+(:mod:`repro_torch.launch.costs`): the subclass' methods are wrapped
+when it is defined, and a call made inside another recorded call (a
+default method built on another) is not recorded again.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import threading
 import time
@@ -50,6 +59,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..kernels import cost_sinks
 from .post import CommDesc, CommKind, post_many, post_recv, post_send
 from .status import FatalError, done
 
@@ -72,6 +82,43 @@ class _Done:
         return self._out
 
 
+#: the recorded methods and the kind each records under
+RECORDED = {"ppermute_start": "ppermute", "all_gather": "all_gather",
+            "psum": "psum", "psum_scatter": "reduce_scatter",
+            "pmax": "pmax", "all_to_all": "all_to_all",
+            "all_to_all_n": "all_to_all"}
+_depth = threading.local()
+
+
+def _recorded(method, kind: str):
+    """``method`` recording each outermost call into the active cost
+    counters: ``(kind, operand bytes, axis size[, (src, dst) of the
+    first pair])`` an operand (``all_to_all_n``'s inputs each)."""
+    @functools.wraps(method)
+    def call(self, x, *args, **kwargs):
+        depth = getattr(_depth, "n", 0)
+        if depth == 0:
+            sinks = cost_sinks()
+            if sinks:
+                xs = x if kind == "all_to_all" and method.__name__ == \
+                    "all_to_all_n" else [x]
+                perm = args[0] if args else kwargs.get("perm")
+                pair = tuple(perm[0]) if kind == "ppermute" and perm \
+                    else None
+                n = max(max(p) for p in perm) + 1 if pair else 0
+                for sink in sinks:
+                    for t in xs:
+                        sink.collective(kind, t.numel() * t.element_size(),
+                                        self.size, pair, n)
+        _depth.n = depth + 1
+        try:
+            return method(self, x, *args, **kwargs)
+        finally:
+            _depth.n = depth
+    call.recorded = True
+    return call
+
+
 class Axis:
     """One rank's view of one mesh axis: ``size``, ``index`` (host ints),
     ``ppermute`` and the monolithic collectives."""
@@ -80,6 +127,13 @@ class Axis:
     index: int
     name: str = "axis"
     device: torch.device = torch.device("cpu")
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        for name, kind in RECORDED.items():
+            fn = cls.__dict__.get(name)
+            if fn is not None and not getattr(fn, "recorded", False):
+                setattr(cls, name, _recorded(fn, kind))
 
     # -- point to point ------------------------------------------------------
     def ppermute_start(self, x: torch.Tensor, perm: Perm, *,
@@ -125,6 +179,10 @@ class Axis:
         """``len(xs)`` independent tiled all-to-alls, posted together
         (the chunked all-to-all of the LCI modes)."""
         return [self.all_to_all(x, split_axis, concat_axis) for x in xs]
+
+
+for _name, _kind in RECORDED.items():
+    setattr(Axis, _name, _recorded(Axis.__dict__[_name], _kind))
 
 
 def _sum_in_rank_order(parts: Sequence[torch.Tensor], dtype) -> torch.Tensor:

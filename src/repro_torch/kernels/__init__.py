@@ -13,7 +13,19 @@ the saved inputs (:func:`plain_vjp`): the counterpart of the reference,
 whose JAX AD differentiates plain ``jnp``.  The backward launches no
 kernel.  With no input requiring a gradient the wrapper is the plain
 kernel call, with nothing saved.
+
+Costs: every wrapper records each call's work exactly once, whatever the
+device, with :func:`record_cost` (its formula: the FLOPs and bytes the
+hand-written kernel does on the card), into every cost counter active on
+the calling thread (:mod:`repro_torch.launch.costs`, found on the
+thread's dispatch-mode stack, which autograd carries to its worker
+threads).  On the CPU a wrapper runs its plain version inside
+:func:`cost_paused`, so the plain version's own matmuls are not counted
+a second time.  On the meta device a wrapper returns outputs of the
+kernel's shapes, dtypes and strides (and allocates the kernel's scratch
+there) and runs nothing: the dry run's third device, not a fallback.
 """
+import contextlib
 import threading
 
 import torch
@@ -27,6 +39,45 @@ def count_launch(fn, n: int = 1) -> None:
     by = fn.launches_by_thread
     name = threading.current_thread().name
     by[name] = by.get(name, 0) + n
+
+
+def cost_sinks() -> list:
+    """The cost counters active on this thread, innermost last."""
+    if not torch._C._len_torch_dispatch_stack():
+        return []
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    return [m for m in _get_current_dispatch_mode_stack()
+            if getattr(m, "is_cost_counter", False)]
+
+
+def record_cost(name: str, flops: float, nbytes: float,
+                launches: int = 1, reads=()) -> None:
+    """Record ``launches`` launches of kernel ``name`` doing ``flops`` and
+    moving ``nbytes`` in all, reading the tensors ``reads`` (None
+    skipped), into every active cost counter."""
+    for sink in cost_sinks():
+        sink.kernel(name, flops, nbytes, launches,
+                    [t for t in reads if t is not None])
+
+
+@contextlib.contextmanager
+def cost_paused():
+    """Count no matmul inside the block (a plain version standing in for
+    a kernel whose formula was recorded); memory is still tracked."""
+    sinks = cost_sinks()
+    for s in sinks:
+        s.paused += 1
+    try:
+        yield
+    finally:
+        for s in sinks:
+            s.paused -= 1
+
+
+def nbytes(*tensors) -> int:
+    """The bytes of ``tensors`` (None skipped), each counted whole."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def grad_wanted(*tensors) -> bool:

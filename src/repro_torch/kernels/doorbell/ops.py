@@ -10,7 +10,10 @@ Each wrapper counts its launches in a plain integer attribute
 ``stage_copy_push.launches``, and by thread in ``.launches_by_thread``)
 so that a run can show its main path went through the kernel.  The main path (a fused doorbell of CUDA tensors,
 ``core/progress/fabric.py::pack_payloads``) calls
-:func:`stage_copy_rows`.
+:func:`stage_copy_rows`.  On the meta device each wrapper returns the
+wire image's shape and runs nothing; every call records :func:`cost`
+(bytes only: the payload read once, the wire image written once) with
+the launches the card would make.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from operator import attrgetter, or_
 import torch
 
 from ...core.packet_pool import SlotPool, pool_get_n
-from .. import _build, count_launch
+from .. import _build, cost_paused, count_launch, record_cost
 from .ref import (stage_copy_push_ref, stage_copy_ref, stage_copy_rows_ref,
                   wire_rows)
 
@@ -62,8 +65,14 @@ def _check_payloads(x: torch.Tensor, name: str) -> None:
     if x.dim() != 2:
         raise ValueError(f"{name}: payloads must be (k, e), got shape "
                          f"{tuple(x.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def cost(read: int, written: int) -> tuple:
+    """(flops, bytes) of a copy: no products; ``read`` payload bytes and
+    ``written`` wire bytes."""
+    return 0, read + written
 
 
 def _launch(src: torch.Tensor, dst: torch.Tensor, ids, n_slots: int,
@@ -90,13 +99,18 @@ def stage_copy(payloads: torch.Tensor, *, wire_bf16: bool = False
     launch: the kernel applies the wire-dtype cast (f32 -> bf16 when
     ``wire_bf16``) as it copies.  The result is a fresh tensor."""
     _check_payloads(payloads, "stage_copy")
-    if payloads.device.type == "cpu":
-        return stage_copy_ref(payloads, wire_bf16=wire_bf16)
     cast, row_bytes = wire_rows(payloads, wire_bf16)
     k, e = payloads.shape
+    if k * row_bytes:
+        record_cost("stage_copy", *cost(
+            k * e * payloads.element_size(), k * row_bytes),
+            reads=(payloads,))
+    if payloads.device.type == "cpu":
+        with cost_paused():
+            return stage_copy_ref(payloads, wire_bf16=wire_bf16)
     out = torch.empty((k, row_bytes), dtype=torch.uint8,
                       device=payloads.device)
-    if out.numel():
+    if out.numel() and payloads.device.type == "cuda":
         # source and wire image are both contiguous: one flat segment
         total = k * row_bytes
         _launch(payloads, out, None, 1, 1, k * e * payloads.element_size(),
@@ -135,15 +149,20 @@ def stage_copy_rows(rows, *, wire_bf16: bool = False,
                 f"{tuple(getattr(r, 'shape', ()))} on "
                 f"{getattr(r, 'device', None)}" for r in rows})))
     first = rows[0]
-    if first.device.type == "cpu":
-        return stage_copy_rows_ref(rows, wire_bf16=wire_bf16)
-    if first.device.type != "cuda":
-        raise ValueError(f"stage_copy_rows: unsupported device "
-                         f"{first.device}")
     k = len(rows)
     cast, row_bytes = wire_rows(first.reshape(1, -1), wire_bf16)
+    if row_bytes:
+        record_cost("stage_copy_rows", *cost(
+            k * first.numel() * first.element_size(), k * row_bytes),
+            launches=-(-k // ROWS_PER_LAUNCH), reads=rows)
+    if first.device.type == "cpu":
+        with cost_paused():
+            return stage_copy_rows_ref(rows, wire_bf16=wire_bf16)
+    if first.device.type not in ("cuda", "meta"):
+        raise ValueError(f"stage_copy_rows: unsupported device "
+                         f"{first.device}")
     out = torch.empty((k, row_bytes), dtype=torch.uint8, device=first.device)
-    if not out.numel():
+    if not out.numel() or first.device.type == "meta":
         return out
     if not all(map(torch.Tensor.is_contiguous, rows)):
         rows = [r.contiguous() for r in rows]
@@ -176,12 +195,17 @@ def stage_copy_push(pool: SlotPool, buf: torch.Tensor, lane,
     :func:`repro_torch.core.packet_pool.pool_get_copy_n`'s contract — on
     a short grab only the allocated prefix is written."""
     _check_payloads(payloads, "stage_copy_push")
-    if payloads.device.type == "cpu":
-        return stage_copy_push_ref(pool, buf, lane, payloads, steal_seed,
-                                   wire_bf16=wire_bf16)
     k, e = payloads.shape
     n_packets, packet_bytes = buf.shape
     cast, row_bytes = wire_rows(payloads, wire_bf16)
+    if k and packet_bytes:
+        record_cost("stage_copy_push", *cost(
+            k * e * payloads.element_size(), k * packet_bytes),
+            reads=(payloads,))
+    if payloads.device.type == "cpu":
+        with cost_paused():
+            return stage_copy_push_ref(pool, buf, lane, payloads,
+                                       steal_seed, wire_bf16=wire_bf16)
     for name, t in (("buf", buf), ("pool.slots", pool.slots),
                     ("pool.count", pool.count)):
         if t.device != payloads.device:
@@ -197,7 +221,7 @@ def stage_copy_push(pool: SlotPool, buf: torch.Tensor, lane,
         raise ValueError("stage_copy_push: bf16 rows need 2-byte aligned "
                          "packets")
     pool, ids, got, status = pool_get_n(pool, lane, k, steal_seed)
-    if k and packet_bytes:
+    if k and packet_bytes and payloads.device.type == "cuda":
         _launch(payloads, buf, ids, n_packets, k,
                 e * payloads.element_size(), row_bytes, packet_bytes, cast)
         count_launch(stage_copy_push)

@@ -28,7 +28,9 @@ When q, k or v requires a gradient, a CUDA call records a backward: the
 autograd of the plain version of the variant that ran
 (``flash_attention_ref(..., p_dtype=torch.bfloat16)`` for ``"tc"``, the
 reference's arithmetic for ``"simt"``), recomputed from the saved q, k
-and v; it launches no kernel.
+and v; it launches no kernel.  On the meta device either wrapper
+returns q's shape and runs nothing; every call records :func:`cost`
+(package docstring).
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .. import _build, count_launch, grad_wanted, plain_vjp
+from .. import (_build, cost_paused, count_launch, grad_wanted, nbytes,
+               plain_vjp, record_cost)
 from .ref import flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -51,6 +54,11 @@ TC_HEAD_DIMS = (64, 128, 256)
 VARIANTS = ("simt", "tc")
 #: TMA and the simt kernel's vector loads need 16-byte addresses
 _ALIGN = 16
+#: (q rows, keys) of a tile, by variant and padded head dim
+#: (csrc/flash_attention.cu: tc::BM and Tc<DH>::BK; Tile<DH>)
+TILES = {"tc": {64: (128, 128), 128: (128, 128), 256: (128, 64)},
+         "simt": {16: (64, 64), 32: (64, 64), 64: (64, 64),
+                  128: (64, 32), 256: (32, 32)}}
 
 
 def _simt_kernel():
@@ -125,10 +133,10 @@ def _check(q, k, v) -> None:
     if k.shape[0] != b or k.shape[3] != dh or hq % k.shape[1]:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
                          f"fit q {tuple(q.shape)} (hq % hkv must be 0)")
-    if q.device.type != "cuda" or k.device != q.device or \
+    if q.device.type not in ("cuda", "meta") or k.device != q.device or \
             v.device != q.device:
         raise ValueError("flash_attention: q, k, v must be on one CUDA "
-                         "device")
+                         "device (or the meta device)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q, k, v must share float32 or "
                          f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -197,6 +205,9 @@ def _attend(q, k, v, out, *, causal: bool, window: int,
     dh) views ``k`` and ``v``, written into ``out`` (a view of q's shape
     whose head dim is contiguous); returns ``out``.  The one launch site
     of both wrappers: check, pad, variant, launch."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: a launch needs CUDA tensors, "
+                         f"got {q.device}")
     _check(q, k, v)
     if q.numel() == 0:
         return out
@@ -216,22 +227,90 @@ def _attend(q, k, v, out, *, causal: bool, window: int,
     return out
 
 
+def visited_pairs(sq: int, skv: int, bq: int, bk: int, *, causal: bool,
+                  window: int, q_offset: int) -> int:
+    """The (q, k) pairs of the tiles the kernel computes, partial tiles
+    counted whole: each q tile of ``bq`` rows visits the ``bk``-key tiles
+    that cover the union of its rows' visible ranges ``[q_pos - window +
+    1, q_pos]`` (causal; ``[.., skv - 1]`` unmasked), or every key tile
+    when one of its rows sees no key (csrc/flash_attention.cu's
+    ``visible_lo`` / ``visible_hi``)."""
+    def lo(p):
+        return max(p - window + 1, 0) if window > 0 else 0
+
+    def hi(p):
+        return p if causal and p < skv - 1 else skv - 1
+    n_kt = -(-skv // bk)
+    total = 0
+    for q0 in range(0, sq, bq):
+        first, last = q_offset + q0, q_offset + min(q0 + bq, sq) - 1
+        if window > 0 and last >= skv + window - 1:   # a row sees no key
+            nt = n_kt
+        else:
+            nt = hi(last) // bk - lo(first) // bk + 1
+        total += bq * nt * bk
+    return total
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, *, causal: bool, window: int,
+         q_offset: int, seq_major: bool) -> tuple:
+    """(flops, bytes) of one call.  FLOPs: ``4 b hq dk`` (two products of
+    ``2 dk`` a pair, ``dk`` the padded head dim the kernel runs at) times
+    :func:`visited_pairs` at the variant's tiles: the masked tiles the
+    kernel skips are not counted, partial tiles are counted whole.
+    Bytes: q, k and v read once, the output written once."""
+    if seq_major:
+        sq, b, hq, dh = q.shape
+        skv = k.shape[0]
+    else:
+        b, hq, sq, dh = q.shape
+        skv = k.shape[2]
+    dk = padded_head_dim(dh) if 0 < dh <= HEAD_DIMS[-1] else dh
+    kind = variant(q, k, k)
+    bq, bk = TILES[kind].get(dk, (64, 64))
+    pairs = visited_pairs(sq, skv, bq, bk, causal=causal, window=window,
+                          q_offset=q_offset)
+    return 4 * b * hq * dk * pairs, nbytes(q, k, k, q)
+
+
+def _record(q, k, v, causal, window, q_offset, seq_major) -> None:
+    if q.numel() and k.numel():
+        record_cost("flash_attention", *cost(
+            q, k, causal=causal, window=window, q_offset=q_offset,
+            seq_major=seq_major), reads=(q, k, v))
+
+
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
                          q_offset: int = 0) -> torch.Tensor:
     """q (b, hq, sq, dh); k/v (b, hkv, skv, dh) -> (b, hq, sq, dh) in
     q.dtype.  ``window`` > 0 limits key j to ``j > q_pos - window``;
     ``q_offset`` is the global position of q row 0."""
+    _record(q, k, v, causal, window, q_offset, False)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
+        with cost_paused():
+            return flash_attention_ref(q, k, v, causal=causal,
+                                       window=window, q_offset=q_offset)
     if grad_wanted(q, k, v):
         return _FlashFn.apply(q, k, v, causal, window, q_offset, False)
     return _bhsd_call(q, k, v, causal=causal, window=window,
                       q_offset=q_offset)
 
 
+def _meta_scratch(q, k, v) -> None:
+    """On the meta device, the padded copies a call whose head dim is not
+    instantiated makes (q, k, v and the output, at the padded dh)."""
+    dh = q.shape[-1]
+    if 0 < dh <= HEAD_DIMS[-1] and padded_head_dim(dh) != dh:
+        dk = padded_head_dim(dh)
+        [t.new_empty(t.shape[:-1] + (dk,)) for t in (q, k, v, q)]
+
+
 def _bhsd_call(q, k, v, *, causal, window, q_offset):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        _check(q, k, v)
+        _meta_scratch(q, k, v)
+        return out
     return _attend(q, k, v, out, causal=causal, window=window,
                    q_offset=q_offset)
 
@@ -243,11 +322,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     and writes the output in place through their strides (but a padded
     head dim); on ``"simt"`` the operands and the output are copied
     through the kernel layout."""
+    _record(q, k, v, causal, window, q_offset, True)
     if q.device.type == "cpu":
-        out = flash_attention_ref(*(t.permute(1, 2, 0, 3).contiguous()
-                                    for t in (q, k, v)),
-                                  causal=causal, window=window,
-                                  q_offset=q_offset)
+        with cost_paused():
+            out = flash_attention_ref(*(t.permute(1, 2, 0, 3).contiguous()
+                                        for t in (q, k, v)),
+                                      causal=causal, window=window,
+                                      q_offset=q_offset)
         return out.permute(2, 0, 1, 3)
     if grad_wanted(q, k, v):
         return _FlashFn.apply(q, k, v, causal, window, q_offset, True)
@@ -257,6 +338,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def _seq_call(q, k, v, *, causal, window, q_offset):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        _check(*(t.permute(1, 2, 0, 3) for t in (q, k, v)))
+        _meta_scratch(q, k, v)
+        return out
     _attend(*(t.permute(1, 2, 0, 3) for t in (q, k, v, out)),
             causal=causal, window=window, q_offset=q_offset)
     return out

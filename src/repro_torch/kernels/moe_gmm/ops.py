@@ -16,7 +16,10 @@ variant and ``moe_gmm.launches_by_thread`` by thread.
 When x, w1 or w2 requires a gradient, a CUDA call records a backward: the
 autograd of the plain version of the variant that ran (``moe_gmm_ref``
 with h rounded once to bf16 after the float32 activation for ``"tc"``, h
-in float32 for ``"simt"``), recomputed from the saved operands.
+in float32 for ``"simt"``), recomputed from the saved operands.  On the
+meta device it returns the ``(E, C, d)`` output (and allocates the
+scratch ``h`` there) after the launch's checks and runs nothing; every
+call records :func:`cost` (package docstring).
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ from typing import Optional
 
 import torch
 
-from .. import _build, count_launch, grad_wanted, plain_vjp
+from .. import (_build, cost_paused, count_launch, grad_wanted, nbytes,
+               plain_vjp, record_cost)
 from .ref import ACTS, moe_gmm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -48,12 +52,14 @@ def _kernel():
 
 
 def _check(x, w1, w2, act, rows) -> int:
-    """Validate a CUDA call; returns f (the expert FFN width)."""
+    """Validate a CUDA (or meta) call; returns f (the expert FFN
+    width)."""
     if act not in _ACT:
         raise ValueError(f"moe_gmm: act must be one of {ACTS}, got {act!r}")
-    if x.device.type != "cuda" or w1.device != x.device or \
+    if x.device.type not in ("cuda", "meta") or w1.device != x.device or \
             w2.device != x.device:
-        raise ValueError("moe_gmm: x, w1, w2 must be on one CUDA device")
+        raise ValueError("moe_gmm: x, w1, w2 must be on one CUDA device "
+                         "(or the meta device)")
     if x.dtype not in _DTYPES or w1.dtype != x.dtype or w2.dtype != x.dtype:
         raise ValueError(f"moe_gmm: x, w1, w2 must share float32 or "
                          f"bfloat16, got {x.dtype}, {w1.dtype}, {w2.dtype}")
@@ -86,10 +92,14 @@ def variant(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> str:
     f multiples of 8 (16-byte rows, which ``cp.async`` needs) and
     16-byte-aligned tensors, else ``"simt"``."""
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, w1, w2))
-    if x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0 and \
-            w2.shape[1] % 8 == 0 and aligned:
-        return "tc"
-    return "simt"
+    return "tc" if _tc_dtype(x, w2) and aligned else "simt"
+
+
+def _tc_dtype(x: torch.Tensor, w2: torch.Tensor) -> bool:
+    """bf16 with d and f multiples of 8: the dtype and shape half of the
+    variant rule."""
+    return x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0 and \
+        w2.shape[1] % 8 == 0
 
 
 def moe_gmm(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
@@ -102,11 +112,40 @@ def moe_gmm(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
     reads it itself, with no host sync.  ``block_c`` is the reference's
     TPU tiling hint; the CUDA kernel picks its own tile from C."""
     del block_c
+    if x.numel():
+        record_cost("moe_gmm", *cost(x, w1, w2, act),
+                    reads=(x, w1, w2, rows))
     if x.device.type == "cpu":
-        return moe_gmm_ref(x, w1, w2, act=act, rows=rows)
+        with cost_paused():
+            return moe_gmm_ref(x, w1, w2, act=act, rows=rows)
     if grad_wanted(x, w1, w2):
         return _MoeGmmFn.apply(x, w1, w2, act, rows)
-    return _launch(x, w1, w2, act, rows)
+    return _run(x, w1, w2, act, rows)
+
+
+def cost(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+         act: str) -> tuple:
+    """(flops, bytes) of one call.  FLOPs: ``2 E C d f`` a product, three
+    products for a gated activation (swiglu, geglu: ``w1`` holds gate
+    and up) and two otherwise, over all ``C`` capacity rows: the data
+    decides which rows ``rows`` lets the card skip, so the count does not
+    follow it, and a meta count equals a card count.  Bytes: x, w1 and w2
+    read once, the output written once (the scratch ``h`` not counted)."""
+    e, c, d = x.shape
+    f = w2.shape[1]
+    mult = 3 if act in ("swiglu", "geglu") else 2
+    return 2 * e * c * d * f * mult, nbytes(x, w1, w2, x)
+
+
+def _run(x, w1, w2, act, rows):
+    """The kernel call, or on the meta device its output and scratch."""
+    if x.device.type != "meta":
+        return _launch(x, w1, w2, act, rows)
+    _check(x, w1, w2, act, rows)
+    e, c, _ = x.shape
+    torch.empty((e, c, w2.shape[1]), device=x.device,
+                dtype=torch.bfloat16 if _tc_dtype(x, w2) else torch.float32)
+    return torch.empty_like(x)
 
 
 class _MoeGmmFn(torch.autograd.Function):
@@ -119,7 +158,7 @@ class _MoeGmmFn(torch.autograd.Function):
         ctx.h_dtype = (torch.bfloat16 if variant(x, w1, w2) == "tc"
                        else None)
         ctx.save_for_backward(x, w1, w2, rows)
-        return _launch(x, w1, w2, act, rows)
+        return _run(x, w1, w2, act, rows)
 
     @staticmethod
     def backward(ctx, go):
@@ -135,6 +174,9 @@ class _MoeGmmFn(torch.autograd.Function):
 def _launch(x, w1, w2, act, rows) -> torch.Tensor:
     """One call of the variant :func:`variant` picks (two launches in one
     C call), or raise."""
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_gmm: a launch needs CUDA tensors, got "
+                         f"{x.device}")
     f = _check(x, w1, w2, act, rows)
     e, c, d = x.shape
     out = torch.empty_like(x)

@@ -26,7 +26,10 @@ When x, dt, a_log, b, c, d_skip or h0 requires a gradient, a CUDA call
 records a backward: the autograd of the plain version of the variant
 that ran (:func:`.ref.ssd_scan_tc_ref` for ``"tc"``, the per-step
 :func:`.ref.ssd_scan_ref` for ``"simt"``), recomputed from the saved
-inputs, for y and the final state alike.
+inputs, for y and the final state alike.  On the meta device either
+wrapper returns y and the float32 final state ``(bs, h, n, p)`` (and
+allocates the "tc" scratch there) and runs nothing; every call records
+:func:`cost` (package docstring).
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build, count_launch, grad_wanted, plain_vjp
+from .. import (_build, cost_paused, count_launch, grad_wanted, nbytes,
+               plain_vjp, record_cost)
 from .ref import ssd_scan_ref, ssd_scan_tc_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -45,6 +49,9 @@ MAX_N = 256
 VARIANTS = ("simt", "tc")
 #: the tensor-core variant's chunk length (csrc/ssd_scan.cu, tc::kL)
 TC_CHUNK = 128
+#: the CUDA-core variant's chunk length (csrc/ssd_scan.cu, kL) and the
+#: state columns one of its blocks owns (each block recomputes C.B^T)
+SIMT_CHUNK, SIMT_COLS = 64, 32
 #: the largest head dim and state size the tensor-core variant takes
 TC_MAX_P, TC_MAX_N = 128, 256
 #: cp.async moves 16 bytes from a 16-byte address
@@ -108,6 +115,55 @@ def tc_scratch_bytes(bs: int, h: int, s: int, p: int, g: int,
                  4 * bs * h)
 
 
+def cost(x, dt, a_log, b, c, d_skip, h0, *, seq_major: bool) -> tuple:
+    """(flops, bytes) of one call: the chunked algorithm's products at the
+    variant's chunk L (:data:`TC_CHUNK` on "tc", :data:`SIMT_CHUNK` on
+    "simt"), a ragged last chunk counted whole and every product over its
+    whole L x L tile (the kernel skips tiles above the diagonal, which are
+    counted): a chunk's ``C Bᵀ`` (``2 L² n``, once a group on "tc", once
+    a block of :data:`SIMT_COLS` state columns of a head on "simt"), and
+    for each head its state ``Bᵀ (w x)`` and ``C H_in`` (``2 L n p``
+    each) and ``M x`` (``2 L² p``).  Bytes: every input read once, y and
+    the final state written once (the "tc" scratch not counted)."""
+    if seq_major:
+        s, bs, h, p = x.shape
+    else:
+        bs, h, s, p = x.shape
+    g, n = (b.shape[2] if seq_major else b.shape[1]), b.shape[3]
+    tc = variant(x, b) == "tc"
+    L = TC_CHUNK if tc else SIMT_CHUNK
+    nc = -(-s // L)
+    cb = g if tc else h * -(-p // SIMT_COLS)
+    flops = 2 * bs * nc * (cb * L * L * n + h * (2 * L * n * p + L * L * p))
+    moved = nbytes(x, dt, a_log, b, c, d_skip, h0, x) + 4 * bs * h * n * p
+    return flops, moved
+
+
+def _record(x, dt, a_log, b, c, d_skip, h0, seq_major) -> None:
+    if x.numel():
+        record_cost("ssd_scan", *cost(x, dt, a_log, b, c, d_skip, h0,
+                                      seq_major=seq_major),
+                    reads=(x, dt, a_log, b, c, d_skip, h0))
+
+
+def _meta(x, b) -> torch.Tensor:
+    """On the meta device: the final state, and the "tc" scratch of
+    :func:`tc_scratch_bytes` (allocated and dropped, as a call does)."""
+    bs, h, s, p = x.shape
+    g, n = b.shape[1], b.shape[3]
+    h_final = torch.empty((bs, h, n, p), dtype=torch.float32,
+                          device=x.device)
+    if variant(x, b) == "tc":
+        nc = -(-s // TC_CHUNK)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        [torch.empty((bs, h, nc, n, p), **f32),
+         torch.empty((bs, h, nc, n, p), dtype=torch.bfloat16,
+                     device=x.device),
+         torch.empty((bs, g, nc, TC_CHUNK, TC_CHUNK), **f32),
+         torch.empty((bs, h, nc), **f32)]
+    return h_final
+
+
 def _strides(*ts) -> ctypes.Array:
     """The tensors' element strides, outermost first, a dim of size 1 at
     stride 0 (never stepped along, so any stride reads the same)."""
@@ -117,12 +173,14 @@ def _strides(*ts) -> ctypes.Array:
 
 
 def _check(x, dt, a_log, b, c, d_skip, h0) -> None:
-    """Validate a CUDA call on the kernel's layout (views allowed)."""
+    """Validate a CUDA (or meta) call on the kernel's layout (views
+    allowed)."""
     dev = x.device
-    if dev.type != "cuda" or any(t.device != dev for t in
-                                 (dt, a_log, b, c, d_skip)) or \
-            (h0 is not None and h0.device != dev):
-        raise ValueError("ssd_scan: every tensor must be on one CUDA device")
+    if dev.type not in ("cuda", "meta") or any(t.device != dev for t in
+                                               (dt, a_log, b, c, d_skip)) \
+            or (h0 is not None and h0.device != dev):
+        raise ValueError("ssd_scan: every tensor must be on one CUDA device "
+                         "(or the meta device)")
     if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
         raise ValueError(f"ssd_scan: x, b, c must share float32 or "
                          f"bfloat16, got {x.dtype}, {b.dtype}, {c.dtype}")
@@ -160,6 +218,9 @@ def _launch(x, dt, a_log, b, c, d_skip, h0, y) -> torch.Tensor:
     p)-shaped views; writes ``y`` (x's shape and dtype, a fresh
     allocation or a permuted view of one) and returns h_final.  The one
     launch site of both wrappers."""
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: a launch needs CUDA tensors, got "
+                         f"{x.device}")
     _check(x, dt, a_log, b, c, d_skip, h0)
     bs, h, s, p = x.shape
     g, n = b.shape[1], b.shape[3]
@@ -208,8 +269,10 @@ def ssd_scan_bhsp(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     d_skip (h,) float32; h0 (bs, h, n, p) float32 or None -> (y (bs, h,
     s, p) in x.dtype, h_final (bs, h, n, p) float32)."""
     del chunk
+    _record(x, dt, a_log, b, c, d_skip, h0, False)
     if x.device.type == "cpu":
-        return ssd_scan_ref(x, dt, a_log, b, c, d_skip, h0=h0)
+        with cost_paused():
+            return ssd_scan_ref(x, dt, a_log, b, c, d_skip, h0=h0)
     if grad_wanted(x, dt, a_log, b, c, d_skip, h0):
         return _SsdScanFn.apply(x, dt, a_log, b, c, d_skip, h0, False)
     return _bhsp_call(x, dt, a_log, b, c, d_skip, h0)
@@ -217,6 +280,9 @@ def ssd_scan_bhsp(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 def _bhsp_call(x, dt, a_log, b, c, d_skip, h0):
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.device.type == "meta":
+        _check(x, dt, a_log, b, c, d_skip, h0)
+        return y, _meta(x, b)
     return y, _launch(x, dt, a_log, b, c, d_skip, h0, y)
 
 
@@ -229,10 +295,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     h_final (bs, h, n, p)).  The reference's adapter returns y alone; the
     final state comes along here because the model's scan returns it."""
     del chunk
+    _record(x, dt, a_log, b, c, d_skip, h0, True)
     if x.device.type == "cpu":
         xt, dtt, bt, ct = _seq_major(x, dt, b, c)
-        y, h_final = ssd_scan_ref(xt, dtt, a_log, bt, ct, d_skip, h0=h0)
-        return y.permute(2, 0, 1, 3).contiguous(), h_final
+        with cost_paused():
+            y, h_final = ssd_scan_ref(xt, dtt, a_log, bt, ct, d_skip,
+                                      h0=h0)
+            return y.permute(2, 0, 1, 3).contiguous(), h_final
     if grad_wanted(x, dt, a_log, b, c, d_skip, h0):
         return _SsdScanFn.apply(x, dt, a_log, b, c, d_skip, h0, True)
     return _seq_call(x, dt, a_log, b, c, d_skip, h0)
@@ -247,6 +316,9 @@ def _seq_major(x, dt, b, c):
 def _seq_call(x, dt, a_log, b, c, d_skip, h0):
     xt, dtt, bt, ct = _seq_major(x, dt, b, c)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.device.type == "meta":
+        _check(xt, dtt, a_log, bt, ct, d_skip, h0)
+        return y, _meta(xt, bt)
     h_final = _launch(xt, dtt, a_log, bt, ct, d_skip, h0,
                       y.permute(1, 2, 0, 3))
     return y, h_final

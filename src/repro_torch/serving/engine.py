@@ -104,9 +104,11 @@ def init_cache(cfg: ModelConfig, seq_len: int, batch: int, *,
     ``device`` (default ``cuda``): K/V for every family with attention
     (a vlm config's self-attention layers only), the SSM state and conv
     tail for ssm and hybrid, and with ``n_memory`` the cross-KV of each
-    cross-attention layer over ``n_memory`` memory rows."""
+    cross-attention layer over ``n_memory`` memory rows (``"meta"``: the
+    shapes alone, for the dry run)."""
     lm_mod.require_ported(cfg, "init_cache")
-    dev = resolve_device(device)
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
     c = DecodeCache(length=0)
     if cfg.family != "ssm":
         n_self = cfg.n_layers - (cfg.n_cross_layers if cfg.family == "vlm"

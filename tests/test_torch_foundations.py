@@ -3,7 +3,8 @@
 * the attribute registry and status codes are the reference's, row for
   row (one config means the same thing to both packages);
 * the LCQ no-lost/no-dup MPMC stress passes on the port;
-* ``repro_torch`` imports neither ``jax``, ``repro`` nor ``ml_dtypes``
+* ``repro_torch`` (and ``examples/torch_*.py``) imports neither ``jax``,
+  ``repro`` nor ``ml_dtypes``
   (checked in a fresh interpreter and by an AST walk of every file);
 * every ``repro_torch`` package ``__init__`` exports exactly what it
   imports (the drift guard ``tests/test_public_api.py`` keeps for the
@@ -172,6 +173,16 @@ def _top_imports(path):
 def test_no_file_imports_jax_or_reference(path):
     bad = [m for m in _top_imports(path) if m in _FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, SRC)} imports {bad}"
+
+
+_EXAMPLES = sorted(glob.glob(os.path.join(os.path.dirname(SRC), "examples",
+                                          "torch_*.py")))
+
+
+@pytest.mark.parametrize("path", _EXAMPLES, ids=os.path.basename)
+def test_no_torch_example_imports_jax_or_reference(path):
+    bad = [m for m in _top_imports(path) if m in _FORBIDDEN]
+    assert not bad, f"{os.path.basename(path)} imports {bad}"
 
 
 def test_chip_smoke_imports_nothing_of_the_reference():

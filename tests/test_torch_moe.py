@@ -159,14 +159,19 @@ def test_moe_gmm_variant_choice():
 
 
 def test_moe_gmm_refuses_what_it_does_not_take():
-    """Off the CPU the wrapper launches the kernel or raises: a tensor on
-    another device, or an unknown activation, never reaches the plain
-    version."""
+    """Off the CPU the wrapper launches the kernel, takes the meta
+    device's dispatch (the dry run's: the kernel's output, after the
+    launch's checks) or raises: a tensor on the meta device never reaches
+    the plain version nor a CUDA launch, and an unknown activation
+    raises."""
+    import repro_torch.kernels.moe_gmm.ops as moe_ops
     x = torch.empty(2, 8, 16, device="meta")
     w1 = torch.empty(2, 16, 32, device="meta")
     w2 = torch.empty(2, 16, 16, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        moe_gmm(x, w1, w2)
+        moe_ops._launch(x, w1, w2, "swiglu", None)
+    out = moe_gmm(x, w1, w2)
+    assert out.is_meta and out.shape == x.shape and out.dtype == x.dtype
     with pytest.raises(ValueError, match="act"):
         moe_gmm(x, w1, w2, act="tanh")
     with pytest.raises(ValueError, match="unknown activation"):
