@@ -8,9 +8,11 @@ collectives with tensor-parallel serving on rank threads, the recovery
 path (checkpoints, resharded restore, the 1F1B comm graph), training
 at tp = 1 (the four families, data parallel on rank threads, the
 pipeline, resume), the vlm and audio families (whisper-tiny and
-llama-3.2-vision served through the cross-KV cache, and trained), and
+llama-3.2-vision served through the cross-KV cache, and trained),
 training at tp > 1 on rank threads (FSDP and tensor parallelism, the
-sharded state, the launcher).
+sharded state, the launcher), the analysis tools, and olmo-1b,
+minitron-8b, moonshot-v1-16b-a3b and command-r-plus-104b served at full
+width.
 
     python3 chip_smoke.py            # from the repository root; one card
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown
@@ -300,11 +302,25 @@ The phases:
    ``examples/torch_*.py`` on the card in a subprocess (``chip_smoke.py
    --example``, which keeps its kernel calls by signature), printing
    its OK line; every kernel call of a, b and d is held against its
-   plain version.
+   plain version;
+23. the four configs no earlier phase ran, at full width
+   (:func:`configs_phase`): olmo-1b (LayerNorm without weights, tied
+   head), minitron-8b (GQA 32 / 8 at head dim 128, LayerNorm, relu2),
+   moonshot-v1-16b-a3b (64 experts of f = 1408, top-6, the shared
+   expert) and command-r-plus-104b (GQA 96 / 8, the parallel block,
+   ``rope_theta`` 7.5e7, the tied 256000-row head): each through phase
+   6's float32 gates at :data:`CONFIGS23`'s depth, then phase 7's bf16
+   prefill (4 x 2048; moonshot 4 x 1024) and launcher loop, launches
+   exact a prefill call and a decode step, every B2 and B4 launch "tc",
+   no payload copy to the host; the depth cuts (:data:`CUTS23`; bf16
+   moonshot the layers that fit, drawn by :func:`layerwise_init`), the
+   prefill and decode ms and the peak memory printed beside the card's
+   name and power limit; every kernel call held against its plain
+   version after each run.
 
 The launch counts are set to 0 just before phases 4, 7, 10, 13, 14, 15,
-16 (after its kernel check), 17a, 17b, 18, 19b, 20a, 21a, 21b and 22 and
-read just after; the serving phases
+16 (after its kernel check), 17a, 17b, 18, 19b, 20a, 21a, 21b, 22 and
+each run of 23 and read just after; the serving phases
 also record B3's launches by (rows, d) a prefill call and a decode
 step.  Every phase raises on failure;
 nothing is caught.  Each phase
@@ -2172,12 +2188,12 @@ def _parity_gate(label: str, res: dict) -> None:
                              "forward's last position")
 
 
-def model_parity_phase(torch, arch: str = "gemma3-1b"):
-    """``arch``'s full config in float32, the port's own seeded init on
-    the card: teacher-forced ``make_serve_step`` over 32 positions (plain
-    decode attention) against ``forward``'s greedy tokens (the
-    flash-attention kernel), and ``make_prefill_step``'s token against
-    forward's last position.
+def model_parity_phase(torch, arch: str = "gemma3-1b", layers=None):
+    """``arch``'s full config in float32 (``layers``: its first layers
+    only), the port's own seeded init on the card: teacher-forced
+    ``make_serve_step`` over 32 positions (plain decode attention)
+    against ``forward``'s greedy tokens (the flash-attention kernel), and
+    ``make_prefill_step``'s token against forward's last position.
 
     A moe config routes forward's 64 tokens with capacity(64) slots an
     expert and a decode step's 2 tokens with capacity(2): forward may drop
@@ -2192,6 +2208,8 @@ def model_parity_phase(torch, arch: str = "gemma3-1b"):
     from repro_torch.models.registry import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     params, _ = build_model(cfg, device=DEVICE).init(SEED)
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
     tokens = torch.randint(0, cfg.vocab, (PARITY_S, PARITY_B), generator=g,
@@ -2242,6 +2260,108 @@ SERVING = {
     "mamba2-370m": dict(batch=4, seq=2048, flash=0, rms=97, moe=0, ssd=48),
     "hymba-1.5b": dict(batch=4, seq=2048, flash=32, rms=161, moe=0, ssd=32),
 }
+
+
+#: phase 23's configs: the prefill batch and prompt length; the kernel
+#: launches of a prefill call a layer (B2, B3, B4; B3 adds the final norm
+#: where the config's norm is RMSNorm); the layers of the float32 parity
+#: run and of the bf16 run (None: all, the port's own init; "fit": as
+#: many as the card holds, reckoned from its free memory by
+#: :func:`_fitting_layers`), each cut named in :data:`CUTS23`
+CONFIGS23 = {
+    "olmo-1b": dict(batch=4, seq=2048, flash=1, rms=0, moe=0,
+                    f32_layers=None, bf16_layers=None),
+    "minitron-8b": dict(batch=4, seq=2048, flash=1, rms=0, moe=0,
+                        f32_layers=None, bf16_layers=None),
+    "moonshot-v1-16b-a3b": dict(batch=4, seq=1024, flash=1, rms=2, moe=1,
+                                f32_layers=12, bf16_layers="fit"),
+    "command-r-plus-104b": dict(batch=4, seq=2048, flash=1, rms=0, moe=0,
+                                f32_layers=4, bf16_layers=8),
+}
+#: why each config's depth is cut (the card's 80 GB)
+CUTS23 = {
+    "moonshot-v1-16b-a3b": "float32: 12 of 48 layers (2.35 GB a layer, "
+                           "~31 GB with the embeddings); bf16: the layers "
+                           "that fit beside 12 GB of working memory",
+    "command-r-plus-104b": "float32: 4 of 64 layers (6.3 GB a layer, the "
+                           "tied 256000-row head 12.6 GB: ~38 GB); bf16: 8 "
+                           "of 64 (3.15 GB a layer, ~32 GB with the head; "
+                           "all 64 would be 208 GB)",
+}
+WORK23_BYTES = 12 << 30       # working memory kept free beside the weights
+
+
+def _serving_want(arch: str, n_layers: int) -> dict:
+    """A serving path's batch, prompt length and kernel launches a
+    prefill call (phases 7, 10, 13, 14 at full depth; phase 23 at
+    ``n_layers``)."""
+    if arch in SERVING:
+        return SERVING[arch]
+    w = CONFIGS23[arch]
+    return dict(batch=w["batch"], seq=w["seq"], flash=w["flash"] * n_layers,
+                rms=w["rms"] * n_layers + (1 if w["rms"] else 0),
+                moe=w["moe"] * n_layers, ssd=0)
+
+
+def _layer_bytes(torch, cfg):
+    """(bytes of one layer's params, of the rest, of one layer's init
+    draw at its peak: the float32 draw and its scaled copy beside the
+    result) for ``cfg``, from its meta shapes."""
+    import dataclasses
+    from repro_torch.models.registry import build_model
+    one, _ = build_model(dataclasses.replace(cfg, n_layers=1),
+                         device="meta").abstract_params()
+    layer = sum(t.numel() * t.element_size()
+                for t in one["layers"].values())
+    rest = sum(t.numel() * t.element_size() for k, t in one.items()
+               if k != "layers")
+    draw = max(t.numel() for t in one["layers"].values()) * (
+        8 + torch.tensor([], dtype=cfg.dtype).element_size())
+    return layer, rest, draw
+
+
+def _fitting_layers(torch, cfg) -> int:
+    """The most of ``cfg``'s layers whose params, drawn by
+    :func:`layerwise_init`, fit in the card's free memory beside
+    ``WORK23_BYTES`` of working memory."""
+    layer, rest, draw = _layer_bytes(torch, cfg)
+    free, _ = torch.cuda.mem_get_info()
+    fit = (free - WORK23_BYTES - rest - draw - layer) // layer
+    return max(1, min(cfg.n_layers, int(fit)))
+
+
+def layerwise_init(torch, cfg, seed: int):
+    """``cfg``'s params, each layer drawn by the port's init of a one-layer
+    stack (``models/lm.py::_init_layer_stack``, layer ``i`` from seed
+    ``seed + i``; the embeddings, head, final norm and layer 0 from
+    ``build_model(...).init(seed)`` of a one-layer config) into the
+    stacked buffers: at its peak the full-depth params and one layer's
+    draw, where one draw of every stacked tensor holds each in float32
+    twice (``models/common.py``'s truncated normal) and moonshot's
+    48-layer expert stacks would need ~93 GB."""
+    import dataclasses
+    from repro_torch.models import lm
+    from repro_torch.models.common import ParamFactory
+    from repro_torch.models.registry import build_model
+    params, _ = build_model(dataclasses.replace(cfg, n_layers=1),
+                            device=DEVICE).init(seed)
+    first = params["layers"]
+    stacks = {k: torch.empty((cfg.n_layers,) + tuple(v.shape[1:]),
+                             dtype=v.dtype, device=DEVICE)
+              for k, v in first.items()}
+    for k, v in first.items():
+        stacks[k][0].copy_(v[0])
+    params["layers"] = stacks
+    del first
+    for i in range(1, cfg.n_layers):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + i)
+        one = lm._init_layer_stack(ParamFactory(gen, cfg.dtype,
+                                                fsdp=cfg.fsdp_params),
+                                   cfg, 1)
+        for k, v in one.items():
+            stacks[k][i].copy_(v[0])
+        del one
+    return params
 
 
 def _rms_by_shape(before: dict) -> dict:
@@ -2304,28 +2424,35 @@ class _FillLog:
                 "empty_expert_share": float((rows == 0).float().mean())}
 
 
-def serving_phase(torch, arch: str, profile: bool):
+def serving_phase(torch, arch: str, profile: bool, layers=None):
     """``make_prefill_step`` on the config's prompts, then the serve
     launcher's loop (``ServeScheduler`` + ``make_serve_step``), with
-    ``arch``'s full config in bf16.  Launch counts are checked per
-    prefill call and per decode step."""
+    ``arch``'s full config in bf16 (``layers``: its first layers only,
+    drawn layer by layer: :func:`layerwise_init`).  Launch counts are
+    checked per prefill call and per decode step."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.launch.serve import PROMPT_LEN, serve
     from repro_torch.models.registry import build_model
     from repro_torch.serving import make_prefill_step
-    want = SERVING[arch]
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    want = _serving_want(arch, cfg.n_layers)
     pb, ps = want["batch"], want["seq"]
     # every B2, B4 and B5 launch of a bf16 path takes the tensor-core
     # variant
     per_call = (want["flash"], want["rms"], want["moe"], want["moe"],
                 want["ssd"], want["flash"], want["ssd"])
-    cfg = get_config(arch)
     model = build_model(cfg, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params, _ = model.init(SEED)
+    params = (layerwise_init(torch, cfg, SEED) if layers is not None
+              else model.init(SEED)[0])
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
     tokens = torch.randint(0, cfg.vocab, (ps, pb), generator=g,
                            device=DEVICE, dtype=torch.int32)
@@ -2391,7 +2518,7 @@ def serving_phase(torch, arch: str, profile: bool):
                              "with max_new valid tokens")
     rec = {"config": cfg.name, "dtype": "bfloat16", "layers": cfg.n_layers,
            "params": sum(int(t.numel()) for t in _leaves(params)),
-           "init_s": init_s,
+           "init_s": init_s, "init_peak_memory_bytes": init_peak,
            "prefill": {"batch": pb, "seq": ps,
                        "calls_timed": PREFILL_CALLS, "ms": prefill_ms,
                        "ms_each": [t * 1e3 for t in times],
@@ -3209,8 +3336,8 @@ class _PathCalls:
     code calls the wrapper: B2's and B5's seq-major wrappers, B3 and B4 at
     the model code's imports, B1's gather where the fabric stages a
     doorbell's rows (``fabric._stage_rows``).
-    B1's rows and B4's activations and row counts are cloned, as the
-    checks rerun the kernel on them; the others keep their shapes.  Every
+    B1's rows and B4's activations, weights and row counts are cloned, as
+    the checks rerun the kernel on them; the others keep their shapes.  Every
     call goes on to the real wrapper once, so launch counts are those of
     the path."""
 
@@ -3266,7 +3393,10 @@ class _PathCalls:
     def _moe_gmm(x, w1, w2, *, act="swiglu", block_c=128, rows=None):
         key = (tuple(x.shape), tuple(w1.shape), tuple(w2.shape),
                str(x.dtype), act, rows is None)
-        return key, (x.detach().clone(), w1.detach(), w2.detach(), act,
+        # the weights cloned too: a layer's view would keep the whole
+        # stacked param alive after its run
+        return key, (x.detach().clone(), w1.detach().clone(),
+                     w2.detach().clone(), act,
                      None if rows is None else rows.clone())
 
     @staticmethod
@@ -6498,6 +6628,130 @@ def analysis_phase(torch, counters) -> tuple:
     return launches, checks
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the four configs no earlier phase ran, at full width
+# ---------------------------------------------------------------------------
+
+def _config_run(torch, counters, label: str, run):
+    """``run()`` with the counts set to 0 just before and read just after,
+    every kernel call kept by signature; then (the run's weights freed)
+    each kernel held against its plain version at each signature (B4 as
+    the training paths hold it: on fresh draws at the path's shapes and
+    row counts under phase 8's tolerance, and on the path's own operands
+    relative to their scale: the init's 1/sqrt(L) weights put moonshot's
+    expert outputs near 2e3, where a float32 sum in another order moves a
+    small element past 1e-4).
+    Returns (run's record, launches by kernel, B2's and B4's launches by
+    variant, the checks)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    _free_card(torch)
+    with _PathCalls() as path:
+        _zero_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec = run()
+        rec["seconds"] = time.perf_counter() - t0
+        rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        own = _kernel_launches()
+        by = {"flash_attention":
+              dict(flash_attention_bhsd.launches_by_variant),
+              "moe_gmm": dict(moe_gmm.launches_by_variant)}
+    calls = path.calls
+    del path
+    _free_card(torch)
+    checks = path_kernel_checks(torch, calls, prefix=label, b4_scaled=True)
+    del calls
+    launches = {"flash_attention": own["flash_attention"],
+                "rmsnorm": own["rmsnorm"], "moe_gmm": own["moe_gmm"],
+                "ssd_scan": own["ssd_scan"],
+                "doorbell": own["stage_copy_rows"]}
+    missing = [k for k, n in (("flash", launches["flash_attention"]),
+                              ("rmsnorm", launches["rmsnorm"]),
+                              ("moe_gmm", launches["moe_gmm"]))
+               if n and not checks[k]]
+    if missing:
+        raise AssertionError(f"{label} launched {missing} at no signature "
+                             "that was kept")
+    if launches["ssd_scan"] or launches["doorbell"]:
+        raise AssertionError(f"{label} launched the SSD scan or the gather: "
+                             f"{launches}")
+    return rec, launches, by, checks
+
+
+def configs_phase(torch, counters, profile: bool) -> tuple:
+    """Phase 23: olmo-1b, minitron-8b, moonshot-v1-16b-a3b and
+    command-r-plus-104b at full width, each through phase 6's float32
+    gates (decode against forward > 0.95, the prefill token forward's
+    last; moonshot at capacity factor E / k, its own 1.25 reported) at
+    ``CONFIGS23``'s depth, then phase 7's bf16 prefill and launcher loop
+    (launches exact a prefill call and a decode step, every B2 and B4
+    launch "tc", none of B2 in decode), each run under
+    :func:`_config_run`.  No payload byte crosses to the host
+    (``transport/wire.py``'s copies).  Returns the launches by kernel,
+    the checks by kernel and B2's and B4's launches by variant."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.transport.wire import to_card, to_host
+    t23 = time.perf_counter()
+    smi = _card_line()
+    total = dict.fromkeys(("flash_attention", "rmsnorm", "moe_gmm",
+                           "ssd_scan", "doorbell"), 0)
+    checks = {k: [] for k in ("flash", "rmsnorm", "moe_gmm", "ssd_scan",
+                              "doorbell")}
+    by_variant = {"flash_attention": {}, "moe_gmm": {}}
+    for arch, want in CONFIGS23.items():
+        short = arch.split("-")[0]
+        host0 = (to_host.copies, to_card.copies)
+        parity, l32, _, c32 = _config_run(
+            torch, counters, f"p23_{short}_f32",
+            lambda: model_parity_phase(torch, arch, want["f32_layers"]))
+        _free_card(torch)
+        layers = want["bf16_layers"]
+        if layers == "fit":
+            layers = _fitting_layers(torch, get_config(arch))
+        served, l16, by, c16 = _config_run(
+            torch, counters, f"p23_{short}_bf16",
+            lambda: serving_phase(torch, arch, profile, layers=layers))
+        host = (to_host.copies - host0[0], to_card.copies - host0[1])
+        if host != (0, 0):
+            raise AssertionError(f"{arch}: payload copies (to_host, to_card) "
+                                 f"{host} on the path")
+        for k in ("flash_attention", "moe_gmm"):
+            if by[k]["tc"] != l16[k]:
+                raise AssertionError(f"{arch} bf16: {k} launches {by[k]} "
+                                     "not all tensor-core")
+            by_variant[k][arch] = by[k]
+        for k in total:
+            total[k] += l32[k] + l16[k]
+        for k in checks:
+            checks[k] += c32[k] + c16[k]
+        full = get_config(arch)
+        record("config23", config=arch, card=smi,
+               layers={"float32": parity["layers"],
+                       "bfloat16": served["layers"],
+                       "published": full.n_layers},
+               depth_cut=CUTS23.get(arch, "none"),
+               width={"d_model": full.d_model, "heads": full.n_heads,
+                      "kv_heads": full.n_kv_heads, "d_ff": full.d_ff,
+                      "vocab": full.vocab, "experts": full.n_experts},
+               float32=parity, bfloat16=served,
+               prefill_ms=served["prefill"]["ms"],
+               prefill_tokens_per_s=served["prefill"]["tokens_per_s"],
+               decode_ms_per_step=served["decode"]["ms_per_step"],
+               peak_memory_bytes={"float32": parity["peak_memory_bytes"],
+                                  "bfloat16": served["peak_memory_bytes"]},
+               launches={"float32": l32, "bfloat16": l16},
+               signatures={k: [c["case"] for c in c32[k] + c16[k]]
+                           for k in checks if c32[k] or c16[k]})
+        del parity, served
+    if min(total[k] for k in ("flash_attention", "moe_gmm")) == 0:
+        raise AssertionError(f"phase 23 launched a kernel no time: {total}")
+    record("phase23", seconds=time.perf_counter() - t23, launches=total,
+           launches_by_variant=by_variant, card=smi,
+           signatures={k: len(v) for k, v in checks.items()})
+    return total, checks, by_variant
+
+
 def _card_line() -> str:
     """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6533,8 +6787,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of one prefill "
-                         "call and 8 decode steps to phases 7, 10, 13 and "
-                         "14 and to phase 20's whisper-tiny and "
+                         "call and 8 decode steps to phases 7, 10, 13, "
+                         "14 and 23 and to phase 20's whisper-tiny and "
                          "llama-3.2-vision prefill and decode (20a-b), "
                          "and of one training step to phases 19b-c")
     ap.add_argument("--spmd-rank", metavar="DIR",
@@ -6908,9 +7162,22 @@ def main(argv=None) -> int:
     ssd += p22_checks["ssd_scan"]
     cases += p22_checks["doorbell"]
 
+    # 23. the four configs no earlier phase ran (:func:`configs_phase`)
+    p23_launches, p23_checks, p23_by = configs_phase(torch, counters,
+                                                     args.profile)
+    flash += p23_checks["flash"]
+    rms += p23_checks["rmsnorm"]
+    moe += p23_checks["moe_gmm"]
+    flash_by["four configs (phase 23)"] = {
+        k: sum(by[k] for by in p23_by["flash_attention"].values())
+        for k in FLASH_DESIGN}
+
     def grad_err(prefix):
         return max(c["max_abs_err"] for c in grad_cases
                    if c["case"].startswith(prefix))
+
+    def p23_signatures(kind):
+        return [c["case"] for c in p23_checks[kind]]
 
     # the kernels line: headline numbers at each main path's shape
     head = next(c for c in cases if c["case"] == "rows_f32_64x16384_bf160")
@@ -6932,7 +7199,8 @@ def main(argv=None) -> int:
         "launches": launches + t_launches + p_launches + v_launches
         + v_ranks + c_launches + tp_launches["doorbell"]
         + r_launches["doorbell"] + g_launches["doorbell"]
-        + p21_launches["doorbell"] + p22_launches["doorbell"],
+        + p21_launches["doorbell"] + p22_launches["doorbell"]
+        + p23_launches["doorbell"],
         "launches_by_path": {"message path (phase 4)": launches,
                              "transports (phase 15)": t_launches,
                              "two processes (phase 15)": p_launches,
@@ -6947,7 +7215,9 @@ def main(argv=None) -> int:
                              "training at tp > 1 (phase 21)":
                                  p21_launches["doorbell"],
                              "analysis tools and examples (phase 22)":
-                                 p22_launches["doorbell"]},
+                                 p22_launches["doorbell"],
+                             "four configs (phase 23)":
+                                 p23_launches["doorbell"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": "bytes",
@@ -6965,7 +7235,8 @@ def main(argv=None) -> int:
         "launches": n_flash + m_flash + y_flash
         + tp_launches["flash_attention"] + r_launches["flash_attention"]
         + g_launches["flash_attention"] + x_launches["flash_attention"]
-        + p21_launches["flash_attention"] + p22_launches["flash_attention"],
+        + p21_launches["flash_attention"] + p22_launches["flash_attention"]
+        + p23_launches["flash_attention"],
         "launches_by_path": {"gemma3-1b": n_flash, "olmoe-1b-7b": m_flash,
                              "mamba2-370m": 0, "hymba-1.5b": y_flash,
                              "tensor parallel (phase 17)":
@@ -6979,7 +7250,10 @@ def main(argv=None) -> int:
                              "training at tp > 1 (phase 21)":
                                  p21_launches["flash_attention"],
                              "analysis tools and examples (phase 22)":
-                                 p22_launches["flash_attention"]},
+                                 p22_launches["flash_attention"],
+                             "four configs (phase 23)":
+                                 p23_launches["flash_attention"]},
+        "signatures_phase23": p23_signatures("flash"),
         "max_abs_err": max(c["max_abs_err"] for c in flash),
         "plain_backward_max_abs_err": grad_err("flash"),
         "backward": "autograd of flash_attention_ref (tc: P in bf16), "
@@ -7004,7 +7278,7 @@ def main(argv=None) -> int:
         "launches": n_rms + m_rms + s_rms + y_rms + tp_launches["rmsnorm"]
         + r_launches["rmsnorm"] + g_launches["rmsnorm"]
         + x_launches["rmsnorm"] + p21_launches["rmsnorm"]
-        + p22_launches["rmsnorm"],
+        + p22_launches["rmsnorm"] + p23_launches["rmsnorm"],
         "launches_by_path": {"gemma3-1b": n_rms, "olmoe-1b-7b": m_rms,
                              "mamba2-370m": s_rms, "hymba-1.5b": y_rms,
                              "tensor parallel (phase 17)":
@@ -7016,7 +7290,10 @@ def main(argv=None) -> int:
                              "training at tp > 1 (phase 21)":
                                  p21_launches["rmsnorm"],
                              "analysis tools and examples (phase 22)":
-                                 p22_launches["rmsnorm"]},
+                                 p22_launches["rmsnorm"],
+                             "four configs (phase 23)":
+                                 p23_launches["rmsnorm"]},
+        "signatures_phase23": p23_signatures("rmsnorm"),
         "max_abs_err": max(c["max_abs_err"] for c in rms),
         "plain_backward_max_abs_err": grad_err("rmsnorm"),
         "backward": "autograd of rmsnorm_ref, recomputed from the saved "
@@ -7030,7 +7307,7 @@ def main(argv=None) -> int:
         "name": "moe_gmm", "route": "cuda", "source": MOE_SOURCE,
         "replaces": MOE_REPLACES, "launches": n_moe + tp_launches["moe_gmm"]
         + g_launches["moe_gmm"] + p21_launches["moe_gmm"]
-        + p22_launches["moe_gmm"],
+        + p22_launches["moe_gmm"] + p23_launches["moe_gmm"],
         "launches_by_path": {"olmoe-1b-7b": n_moe,
                              "tensor parallel (phase 17)":
                                  tp_launches["moe_gmm"],
@@ -7038,7 +7315,11 @@ def main(argv=None) -> int:
                              "training at tp > 1 (phase 21)":
                                  p21_launches["moe_gmm"],
                              "analysis tools and examples (phase 22)":
-                                 p22_launches["moe_gmm"]},
+                                 p22_launches["moe_gmm"],
+                             "four configs (phase 23)":
+                                 p23_launches["moe_gmm"]},
+        "signatures_phase23": p23_signatures("moe_gmm"),
+        "launches_by_variant_phase23": p23_by["moe_gmm"],
         "max_abs_err": max(c["max_abs_err"] for c in moe),
         "plain_backward_max_abs_err": grad_err("moe_gmm"),
         "backward": "autograd of moe_gmm_ref (tc: h rounded to bf16 once "

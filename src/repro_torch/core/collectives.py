@@ -45,7 +45,7 @@ binomial-tree broadcast and reduce — on the same ppermute substrate.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -150,30 +150,50 @@ def _ring_all_gather(x: torch.Tensor, ra: Axis, *, axis: int,
 # all-gather matmul:  Y = allgather(X) @ W   (column-parallel TP with SP)
 # ---------------------------------------------------------------------------
 
+class Chunks(NamedTuple):
+    """The shards of x that an all-gather ring moved to this rank, kept
+    for its transpose (the residuals JAX's AD keeps): ``fwd[j-1]`` came
+    ``j`` hops along the +1 ring (shard ``idx - j``), ``bwd[j-1]`` ``j``
+    hops along the −1 ring (shard ``idx + j``); in BSP ``gathered`` is
+    the monolithic gather's result."""
+    fwd: List[torch.Tensor]
+    bwd: List[torch.Tensor]
+    gathered: Optional[torch.Tensor] = None
+
+
 def all_gather_matmul(x: torch.Tensor, w: torch.Tensor, rank_axis: Axis,
-                      config: CommConfig = DEFAULT) -> torch.Tensor:
+                      config: CommConfig = DEFAULT, *,
+                      keep_chunks: bool = False):
     """``x``: (m_shard, ..., k) sharded on dim 0 over ``rank_axis``; ``w``:
-    (k, n) local.  Returns (m_shard*P, ..., n) = ``allgather(x) @ w``.
+    (k, n) local.  Returns (m_shard*P, ..., n) = ``allgather(x) @ w``, and
+    with ``keep_chunks`` also the :class:`Chunks` the ring moved (for
+    :func:`all_gather_matmul_t`).
 
     LCI modes compute ``x_i @ w`` while the ring moves ``x_{i+1}`` (the
     collective-matmul overlap: matmul i waits only on shard i's
     arrival)."""
+    out, chunks = _all_gather_matmul(x, w, rank_axis, config)
+    return (out, chunks) if keep_chunks else out
+
+
+def _all_gather_matmul(x, w, rank_axis, config):
     if config.mode == CommMode.BSP:
         xg = rank_axis.all_gather(x, 0)
-        return torch.matmul(xg, w).to(x.dtype)
+        return torch.matmul(xg, w).to(x.dtype), Chunks([], [], xg)
 
     ra = rank_axis
     p, idx = ra.size, ra.index
     m_shard = x.shape[0]
     out = torch.empty((m_shard * p,) + tuple(x.shape[1:-1]) + (w.shape[1],),
                       dtype=x.dtype, device=x.device)
+    chunks = Chunks([], [])
 
     def mm(cur):
         return _mm32(cur, w)
 
     if p == 1:
         _put(out, mm(x).to(x.dtype), 0, 0)
-        return out
+        return out, chunks
 
     sf = (p - 1 + 1) // 2
     sb = (p - 1) - sf
@@ -187,7 +207,8 @@ def all_gather_matmul(x: torch.Tensor, w: torch.Tensor, rank_axis: Axis,
             _put(out, mm(cur).to(x.dtype), 0, ((idx - i) % p) * m_shard)
             if nxt is not None:
                 cur = nxt.wait()
-        return out
+                chunks.fwd.append(cur)
+        return out, chunks
 
     # dedicated: counter-rotating rings, a matmul per arrival
     hf = ra.ppermute_start(x, _ring_perm(p, +1), channel=0)
@@ -195,15 +216,17 @@ def all_gather_matmul(x: torch.Tensor, w: torch.Tensor, rank_axis: Axis,
     _put(out, mm(x).to(x.dtype), 0, idx * m_shard)
     for j in range(1, sf + 1):
         cf = hf.wait()
+        chunks.fwd.append(cf)
         hf = (ra.ppermute_start(cf, _ring_perm(p, +1), channel=0)
               if j < sf else None)
         _put(out, mm(cf).to(x.dtype), 0, ((idx - j) % p) * m_shard)
         if j <= sb:
             cb = hb.wait()
+            chunks.bwd.append(cb)
             hb = (ra.ppermute_start(cb, _ring_perm(p, -1), channel=1)
                   if j < sb else None)
             _put(out, mm(cb).to(x.dtype), 0, ((idx + j) % p) * m_shard)
-    return out
+    return out, chunks
 
 
 # ---------------------------------------------------------------------------
@@ -216,14 +239,8 @@ def _reduce_rings(ra: Axis, config: CommConfig, rings: Sequence) -> List:
     piece) side by side: every step posts each ring's hop, then adds the
     next contributions while the hops move.  Returns each ring's float32
     accumulator."""
-    p, idx = ra.size, ra.index
-
-    def dst(i, direction):
-        if direction == +1:
-            return (idx + p - 1 - i) % p
-        return (idx + i + 1) % p
-
-    accs = [contrib(dst(0, d)) for contrib, d in rings]
+    p = ra.size
+    accs = [contrib(_dst(ra, 0, d)) for contrib, d in rings]
     wire = torch.bfloat16 if config.wire_bf16 else None
     for i in range(1, p):
         hs = []
@@ -231,9 +248,17 @@ def _reduce_rings(ra: Axis, config: CommConfig, rings: Sequence) -> List:
             payload = acc.to(wire) if wire is not None else acc
             hs.append(ra.ppermute_start(payload, _ring_perm(p, d),
                                         channel=_channel(config, d)))
-        nxt = [contrib(dst(i, d)) for contrib, d in rings]
+        nxt = [contrib(_dst(ra, i, d)) for contrib, d in rings]
         accs = [h.wait().float() + c for h, c in zip(hs, nxt)]
     return accs
+
+
+def _dst(ra: Axis, i: int, direction: int) -> int:
+    """The rank whose piece a reduce ring's step ``i`` contribution is."""
+    p, idx = ra.size, ra.index
+    if direction == +1:
+        return (idx + p - 1 - i) % p
+    return (idx + i + 1) % p
 
 
 def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor,
@@ -304,6 +329,208 @@ def all_reduce(x: torch.Tensor, rank_axis: Axis,
         return rank_axis.psum(x)
     scattered = reduce_scatter(x, rank_axis, config, axis=0)
     return all_gather(scattered, rank_axis, config, axis=0)
+
+
+# ---------------------------------------------------------------------------
+# the transposes: what JAX's AD makes of the reference's rings
+# ---------------------------------------------------------------------------
+#
+# A ring's transpose runs the reverse ring (each ``ppermute`` with its
+# inverse permutation, on the channel of its own direction) and carries
+# the cotangents of what the forward sent: a gather ring's in the
+# shards' dtype, summed at each rank in that dtype; a reduce ring's in
+# its accumulator's (float32, or bf16 under ``wire_bf16``), relayed.
+
+def _gather_chains(ra: Axis, config: CommConfig, at: Callable) -> List:
+    """The chains of a gather ring's transpose: ``(contrib, hops,
+    direction)`` a ring that moved shards here, ``contrib(j)`` the
+    cotangent of the shard that came ``j`` hops (``at(pos)``: that of
+    shard ``pos``)."""
+    p, idx = ra.size, ra.index
+    sf = p // 2
+    sb = p - 1 - sf
+    if config.mode != CommMode.LCI_DEDICATED or sb == 0:
+        return [(lambda j: at((idx - j) % p), p - 1, +1)]
+    return [(lambda j: at((idx - j) % p), sf, +1),
+            (lambda j: at((idx + j) % p), sb, -1)]
+
+
+def _reverse_gather_rings(ra: Axis, config: CommConfig, chains: Sequence,
+                          own: torch.Tensor) -> torch.Tensor:
+    """``own`` plus what each chain of :func:`_gather_chains` delivers
+    back here: the cotangent of its farthest shard goes back along the
+    reverse ring, and each rank adds its own for the next shard before
+    passing it on (the next one is computed while the hop moves)."""
+    p = ra.size
+    accs = [None] * len(chains)
+    for t in range(max([h for _, h, _ in chains] or [0]), 0, -1):
+        hs = []
+        for k, (contrib, hops, d) in enumerate(chains):
+            if hops < t:
+                hs.append(None)
+                continue
+            if accs[k] is None:
+                accs[k] = contrib(t)
+            hs.append(ra.ppermute_start(accs[k], _ring_perm(p, -d),
+                                        channel=_channel(config, -d)))
+        nxt = [contrib(t - 1) if h is not None and t > 1 else None
+               for (contrib, _, _), h in zip(chains, hs)]
+        for k, h in enumerate(hs):
+            if h is not None:
+                got = h.wait()
+                accs[k] = got if nxt[k] is None else got + nxt[k]
+    for acc in accs:
+        if acc is not None:            # a chain of no hop (P = 1)
+            own = own + acc
+    return own
+
+
+def _reverse_reduce_rings(ra: Axis, config: CommConfig, rings: Sequence
+                          ) -> None:
+    """The transpose of :func:`_reduce_rings`: ``rings`` holds ``(g,
+    direction, use)`` a ring, ``g`` the cotangent of its accumulator's
+    columns of the output.  Each ring relays the float32 cotangent back
+    along the reverse ring (bf16 on the wire under ``wire_bf16``), and
+    ``use(dst, c)`` takes the cotangent ``c`` of this rank's contribution
+    to rank ``dst``'s piece while the next hop moves."""
+    p = ra.size
+    wire = torch.bfloat16 if config.wire_bf16 else None
+    cs = [g.float() for g, _, _ in rings]
+    for i in range(p - 1, 0, -1):
+        hs = [ra.ppermute_start(c.to(wire) if wire is not None else c,
+                                _ring_perm(p, -d),
+                                channel=_channel(config, -d))
+              for c, (_, d, _) in zip(cs, rings)]
+        for c, (_, d, use) in zip(cs, rings):
+            use(_dst(ra, i, d), c)
+        cs = [h.wait().float() for h in hs]
+    for c, (_, d, use) in zip(cs, rings):
+        use(_dst(ra, 0, d), c)
+
+
+def _wgrad32(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``xᵀ g`` over every leading dim, float32 accumulation: (k, n)."""
+    return _mm32(x.reshape(-1, x.shape[-1]).t(), g.reshape(-1, g.shape[-1]))
+
+
+def all_gather_t(g: torch.Tensor, rank_axis: Axis,
+                 config: CommConfig = DEFAULT, *, axis: int = 0
+                 ) -> torch.Tensor:
+    """The transpose of :func:`all_gather`: BSP a ``psum_scatter``; the
+    LCI modes the reverse rings, g's slices summed in g's dtype."""
+    ra = rank_axis
+    axis %= g.ndim
+    if config.mode == CommMode.BSP:
+        return ra.psum_scatter(g, axis)
+    shard = g.shape[axis] // ra.size
+
+    def at(pos):
+        return g.narrow(axis, pos * shard, shard)
+    return _reverse_gather_rings(ra, config, _gather_chains(ra, config, at),
+                                 at(ra.index))
+
+
+def all_gather_matmul_t(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                        chunks: Chunks, rank_axis: Axis,
+                        config: CommConfig = DEFAULT):
+    """``(dx, dw)`` of :func:`all_gather_matmul` from the output's
+    cotangent ``g`` and the ring's :class:`Chunks`: dx runs the reverse
+    rings (the cotangents in x's dtype), dw sums ``chunkᵀ g`` over the
+    shards the forward ring moved (float32, rounded once); no second
+    gather."""
+    ra = rank_axis
+    wt = w.t()
+    if config.mode == CommMode.BSP:
+        dxg = torch.matmul(g, wt).to(x.dtype)
+        return (ra.psum_scatter(dxg, 0),
+                _wgrad32(chunks.gathered, g).to(w.dtype))
+    p, idx = ra.size, ra.index
+    m = x.shape[0]
+
+    def rows(pos):
+        return g.narrow(0, pos * m, m)
+
+    def dx_at(pos):
+        return _mm32(rows(pos), wt).to(x.dtype)
+
+    dw = _wgrad32(x, rows(idx))
+    for j, c in enumerate(chunks.fwd, 1):
+        dw += _wgrad32(c, rows((idx - j) % p))
+    for j, c in enumerate(chunks.bwd, 1):
+        dw += _wgrad32(c, rows((idx + j) % p))
+    dx = _reverse_gather_rings(ra, config, _gather_chains(ra, config, dx_at),
+                               dx_at(idx))
+    return dx, dw.to(w.dtype)
+
+
+def matmul_reduce_scatter_t(x: torch.Tensor, w: torch.Tensor,
+                            g: torch.Tensor, rank_axis: Axis,
+                            config: CommConfig = DEFAULT):
+    """``(dx, dw)`` of :func:`matmul_reduce_scatter`: BSP all-gathers g;
+    the LCI modes relay g along the reverse rings in the accumulators'
+    dtype, each arrival multiplied in place (dx's pieces summed in x's
+    dtype, dw in float32, rounded once)."""
+    ra = rank_axis
+    if config.mode == CommMode.BSP:
+        gf = ra.all_gather(g, 0)
+        return (torch.matmul(gf, w.t()).to(x.dtype),
+                _wgrad32(x, gf).to(w.dtype))
+    p = ra.size
+    ms = x.shape[0] // p
+    n = w.shape[1]
+    dx = torch.zeros_like(x)
+    dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+
+    def use(lo, hi):
+        wt = w[:, lo:hi].t()
+
+        def take(d, c):
+            c = c.to(g.dtype)         # g's own values: exact
+            dx.narrow(0, d * ms, ms).add_(_mm32(c, wt).to(x.dtype))
+            dw[:, lo:hi] += _wgrad32(x.narrow(0, d * ms, ms), c)
+        return take
+
+    if config.mode == CommMode.LCI_DEDICATED and p > 1 and n % 2 == 0:
+        h = n // 2
+        _reverse_reduce_rings(ra, config, [(g[..., :h], +1, use(0, h)),
+                                           (g[..., h:], -1, use(h, n))])
+    else:
+        _reverse_reduce_rings(ra, config, [(g, +1, use(0, n))])
+    return dx, dw.to(w.dtype)
+
+
+def reduce_scatter_t(g: torch.Tensor, rank_axis: Axis,
+                     config: CommConfig = DEFAULT, *, axis: int = 0
+                     ) -> torch.Tensor:
+    """The transpose of :func:`reduce_scatter`: BSP an ``all_gather``; the
+    LCI modes relay g along the reverse rings in float32 (bf16 under
+    ``wire_bf16``), each arrival one piece of the result."""
+    ra = rank_axis
+    axis %= g.ndim
+    if config.mode == CommMode.BSP:
+        return ra.all_gather(g, axis)
+    p, shard = ra.size, g.shape[axis]
+    dx = torch.empty(g.shape[:axis] + (shard * p,) + g.shape[axis + 1:],
+                     dtype=g.dtype, device=g.device)
+    feat = g.ndim - 1
+
+    def use(lo, hi):
+        def take(d, c):
+            dx.narrow(axis, d * shard, shard).narrow(
+                feat, lo, hi - lo).copy_(c)
+        return take
+
+    n = g.shape[feat]
+    if (config.mode == CommMode.LCI_DEDICATED and p > 1
+            and feat != axis and n % 2 == 0):
+        h = n // 2
+        _reverse_reduce_rings(ra, config, [(g.narrow(feat, 0, h), +1,
+                                            use(0, h)),
+                                           (g.narrow(feat, h, h), -1,
+                                            use(h, n))])
+    else:
+        _reverse_reduce_rings(ra, config, [(g, +1, use(0, n))])
+    return dx
 
 
 # ---------------------------------------------------------------------------

@@ -20,31 +20,39 @@ under ``shard_map(check_vma=False)`` (the ``_*_t`` functions below):
 =================  ==========================  ===========================
 method             forward                     backward
 =================  ==========================  ===========================
-``ag_matmul``      ``all_gather(x) @ w``       dx = ``reduce_scatter(g
-                                               wᵀ)``, dw = ``all_gather(x)ᵀ
-                                               g``
-``matmul_rs``      ``reduce_scatter(x @ w)``   g' = ``all_gather(g)``: dx =
-                                               g' wᵀ, dw = xᵀ g'
+``ag_matmul``      ``all_gather(x) @ w``       dx: the reverse rings of
+                                               ``g wᵀ`` in x's dtype; dw:
+                                               Σ ``chunkᵀ g`` over the
+                                               shards the ring moved
+``matmul_rs``      ``reduce_scatter(x @ w)``   g relayed on the reverse
+                                               rings in the accumulator's
+                                               dtype: dx = g' wᵀ, dw = xᵀ g'
 ``matmul_ar``      ``psum(x @ w)``             ``psum(g)``, then the matmul's
-``ag_seq``         all-gather                  reduce-scatter
-``rs_seq``         reduce-scatter              all-gather
+``ag_seq``         all-gather                  the reverse rings, g's
+                                               slices summed in g's dtype
+``rs_seq``         reduce-scatter              g relayed on the reverse
+                                               rings in float32
 ``psum_model``     ``psum``                    ``psum``
 ``psum_model_ge``  ``psum``                    identity
 ``a2a``            all-to-all                  all-to-all, split and concat
                                                swapped
-``weight``         all-gather over each data   reduce-scatter over each,
+``weight``         all-gather over each data   ``ag_seq``'s over each,
                    axis, innermost first       innermost last
 =================  ==========================  ===========================
 
-``pmax_model`` has none: it is only ever taken on detached values.  The
-sums of a backward run on :mod:`repro_torch.core.collectives`' rings in
-the Comm's mode (``psum`` on the axis' own), float32 accumulation
-rounded once, as the forwards do.
+``pmax_model`` has none: it is only ever taken on detached values.  Each
+transpose sends what JAX's AD of the reference's ring sends, message for
+message (:mod:`repro_torch.core.collectives`' ``*_t``): the reverse
+ring, on the channel of its own direction, in the dtype the forward's
+hop carried; a BSP collective's transpose is the monolithic one.
 While a :class:`~repro_torch.distributed.spmd_autograd.Tape` records on
 the rank thread (training at tp > 1, or with FSDP gathers), each such
 call is a cut of the tape and its transpose runs on the rank thread in
 the tape's backward; otherwise it is an ``autograd.Function`` whose
-backward runs the transpose in its node.
+backward runs the transpose in its node.  Every collective's forward
+goes through :func:`~repro_torch.distributed.spmd_autograd.
+run_collective`, so a remat segment's recompute can leave out the ones
+its backward does not read.
 
 Axis conventions: ``model_axis`` = the TP/EP/SP axis; ``data_axis`` = the
 DP/FSDP axis (an Axis, or a tuple of Axes for a multi-axis data
@@ -64,6 +72,7 @@ from ..core.axis import Axis
 from ..core.modes import CommConfig, CommMode
 from ..core.progress import EndpointSpec
 from ..core.runtime import resolve_device
+from ..kernels import apply
 from ..core.tree import tree_map
 from . import spmd_autograd
 
@@ -154,8 +163,10 @@ class Comm:
             return torch.matmul(x, w).to(x.dtype)
         cfg = self.cfg
         return _differentiable(
-            lambda x, w: C.all_gather_matmul(x, w, ax, cfg),
-            lambda ins, g: _ag_matmul_t(ax, cfg, ins, g), x, w)
+            lambda x, w: C.all_gather_matmul(x, w, ax, cfg,
+                                             keep_chunks=True),
+            lambda ins, g, chunks: _ag_matmul_t(ax, cfg, ins, g, chunks),
+            x, w, reads=True, residual=True)
 
     def matmul_rs(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``reduce_scatter(x @ w, axis=0 over model)`` — row-parallel exit.
@@ -166,7 +177,8 @@ class Comm:
         cfg = self.cfg
         return _differentiable(
             lambda x, w: C.matmul_reduce_scatter(x, w, ax, cfg),
-            lambda ins, g: _matmul_rs_t(ax, cfg, ins, g), x, w)
+            lambda ins, g, _: _matmul_rs_t(ax, cfg, ins, g), x, w,
+            reads=True)
 
     def matmul_ar(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``allreduce(x @ w)`` — row-parallel exit without SP (decode,
@@ -176,7 +188,7 @@ class Comm:
         if ax is None:
             return y
         return _differentiable(ax.psum,
-                               lambda ins, g: _psum_t(ax, ins, g), y)
+                               lambda ins, g, _: _psum_t(ax, ins, g), y)
 
     # -- raw collectives over the model axis ---------------------------------
     def ag_seq(self, x: torch.Tensor, *, axis: int = 0) -> torch.Tensor:
@@ -187,7 +199,7 @@ class Comm:
         cfg = self.cfg
         return _differentiable(
             lambda x: C.all_gather(x, ax, cfg, axis=axis),
-            lambda ins, g: _ag_seq_t(ax, cfg, axis, ins, g), x)
+            lambda ins, g, _: _ag_seq_t(ax, cfg, axis, ins, g), x)
 
     def rs_seq(self, x: torch.Tensor, *, axis: int = 0) -> torch.Tensor:
         ax = self._one_model_axis()
@@ -196,7 +208,7 @@ class Comm:
         cfg = self.cfg
         return _differentiable(
             lambda x: C.reduce_scatter(x, ax, cfg, axis=axis),
-            lambda ins, g: _rs_seq_t(ax, cfg, axis, ins, g), x)
+            lambda ins, g, _: _rs_seq_t(ax, cfg, axis, ins, g), x)
 
     def psum_model(self, x: torch.Tensor) -> torch.Tensor:
         """psum over the model axis; its transpose is the psum (each
@@ -206,7 +218,7 @@ class Comm:
         if ax is None:
             return x
         return _differentiable(ax.psum,
-                               lambda ins, g: _psum_t(ax, ins, g), x)
+                               lambda ins, g, _: _psum_t(ax, ins, g), x)
 
     def psum_model_ge(self, x: torch.Tensor) -> torch.Tensor:
         """Gradient-exact psum over the model axis (router aux means, the
@@ -219,7 +231,9 @@ class Comm:
         ax = self._one_model_axis()
         if ax is None:
             return x
-        return _PsumGradExact.apply(x, ax)
+        if torch.is_grad_enabled() and x.requires_grad:
+            return apply(_PsumGradExact, x, ax)
+        return spmd_autograd.run_collective(_plain(ax.psum), [x])[0]
 
     def pmax_model(self, x: torch.Tensor) -> torch.Tensor:
         """pmax over the model axis, of values no gradient flows through
@@ -227,7 +241,7 @@ class Comm:
         ax = self._one_model_axis()
         if ax is None:
             return x
-        return ax.pmax(x)
+        return spmd_autograd.run_collective(_plain(ax.pmax), [x])[0]
 
     def a2a(self, x: torch.Tensor, *, split_axis: int, concat_axis: int
             ) -> torch.Tensor:
@@ -239,8 +253,8 @@ class Comm:
         return _differentiable(
             lambda x: C.all_to_all(x, ax, split_axis=split_axis,
                                    concat_axis=concat_axis, config=cfg),
-            lambda ins, g: _a2a_t(ax, cfg, split_axis, concat_axis, ins, g),
-            x)
+            lambda ins, g, _: _a2a_t(ax, cfg, split_axis, concat_axis, ins,
+                                     g), x)
 
     def model_index(self) -> int:
         ax = self._one_model_axis()
@@ -265,8 +279,8 @@ class Comm:
                 w = C.all_gather(w, a, cfg, axis=fsdp_axis)
             return w
         return _differentiable(
-            gather, lambda ins, g: _weight_t(axes, cfg, fsdp_axis, ins, g),
-            w)
+            gather,
+            lambda ins, g, _: _weight_t(axes, cfg, fsdp_axis, ins, g), w)
 
     # -- data-parallel reductions --------------------------------------------
     def psum_data(self, x: torch.Tensor) -> torch.Tensor:
@@ -319,28 +333,19 @@ class Comm:
 
 
 # ---------------------------------------------------------------------------
-# the transposes: ``(inputs, g) -> [cotangent of each input]``, the inputs
-# detached; each runs its collectives on the calling (rank) thread
+# the transposes: ``(inputs, g[, residual]) -> [cotangent of each input]``,
+# the inputs detached; each runs its collectives on the calling (rank)
+# thread
 # ---------------------------------------------------------------------------
 
-def _weight_grad(x: torch.Tensor, g: torch.Tensor, dtype) -> torch.Tensor:
-    """``xᵀ g`` summed over every leading dim: (k, n)."""
-    k, n = x.shape[-1], g.shape[-1]
-    return torch.matmul(x.reshape(-1, k).t(), g.reshape(-1, n)).to(dtype)
-
-
-def _ag_matmul_t(ax, cfg, ins, g):
+def _ag_matmul_t(ax, cfg, ins, g, chunks):
     x, w = ins
-    dx = C.matmul_reduce_scatter(g, w.t(), ax, cfg)
-    xg = C.all_gather(x, ax, cfg, axis=0)
-    return [dx.to(x.dtype), _weight_grad(xg, g, w.dtype)]
+    return list(C.all_gather_matmul_t(x, w, g, chunks, ax, cfg))
 
 
 def _matmul_rs_t(ax, cfg, ins, g):
     x, w = ins
-    gf = C.all_gather(g, ax, cfg, axis=0)
-    return [torch.matmul(gf, w.t()).to(x.dtype),
-            _weight_grad(x, gf, w.dtype)]
+    return list(C.matmul_reduce_scatter_t(x, w, g, ax, cfg))
 
 
 def _psum_t(ax, ins, g):
@@ -348,11 +353,11 @@ def _psum_t(ax, ins, g):
 
 
 def _ag_seq_t(ax, cfg, axis, ins, g):
-    return [C.reduce_scatter(g, ax, cfg, axis=axis)]
+    return [C.all_gather_t(g, ax, cfg, axis=axis)]
 
 
 def _rs_seq_t(ax, cfg, axis, ins, g):
-    return [C.all_gather(g, ax, cfg, axis=axis)]
+    return [C.reduce_scatter_t(g, ax, cfg, axis=axis)]
 
 
 def _a2a_t(ax, cfg, split_axis, concat_axis, ins, g):
@@ -362,36 +367,50 @@ def _a2a_t(ax, cfg, split_axis, concat_axis, ins, g):
 
 def _weight_t(axes, cfg, fsdp_axis, ins, g):
     for a in axes:                    # outermost first: innermost last
-        g = C.reduce_scatter(g, a, cfg, axis=fsdp_axis)
+        g = C.all_gather_t(g, a, cfg, axis=fsdp_axis)
     return [g]
 
 
+def _plain(fwd):
+    """``fwd`` as a forward with no residual: ``(out, None)``."""
+    return lambda *xs: (fwd(*xs), None)
+
+
 class _Collective(torch.autograd.Function):
-    """``fwd(*inputs)`` with ``transpose(inputs, g)`` as its backward (run
-    in the backward node: the path without a tape)."""
+    """``fwd(*inputs)`` with ``transpose(inputs, g, residual)`` as its
+    backward (run in the backward node: the path without a tape)."""
 
     @staticmethod
     def forward(ctx, fwd, transpose, *inputs):
         ctx.transpose = transpose
         ctx.save_for_backward(*inputs)
-        return fwd(*inputs)
+        out, ctx.residual = fwd(*inputs)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         return (None, None) + tuple(ctx.transpose(
-            [t.detach() for t in ctx.saved_tensors], g))
+            [t.detach() for t in ctx.saved_tensors], g, ctx.residual))
 
 
-def _differentiable(fwd, transpose, *inputs: torch.Tensor) -> torch.Tensor:
-    """``fwd(*inputs)``; where a gradient is wanted, a cut of the thread's
-    recording tape, or else a :class:`_Collective`."""
+def _differentiable(fwd, transpose, *inputs: torch.Tensor,
+                    reads: bool = False, residual: bool = False
+                    ) -> torch.Tensor:
+    """``fwd(*inputs)`` (returning ``(out, residual)`` when ``residual``,
+    the transpose's third argument); where a gradient is wanted, a cut
+    of the thread's recording tape, or else a :class:`_Collective`.
+    ``reads``: the transpose reads the inputs' values (a matmul's), for
+    :func:`~repro_torch.distributed.spmd_autograd.run_collective`."""
+    run = fwd if residual else _plain(fwd)
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in inputs)):
-        return fwd(*inputs)
+        return spmd_autograd.run_collective(run, inputs, reads=reads,
+                                            residual=residual)[0]
     tape = spmd_autograd.active()
     if tape is not None:
-        return tape.cut(fwd, transpose, inputs)
-    return _Collective.apply(fwd, transpose, *inputs)
+        return tape.cut(run, transpose, inputs, reads=reads,
+                        residual=residual)
+    return _Collective.apply(run, transpose, *inputs)
 
 
 class _PsumGradExact(torch.autograd.Function):
@@ -399,7 +418,7 @@ class _PsumGradExact(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, axis):
-        return axis.psum(x)
+        return spmd_autograd.run_collective(_plain(axis.psum), [x])[0]
 
     @staticmethod
     def backward(ctx, g):

@@ -42,12 +42,15 @@ def count_launch(fn, n: int = 1) -> None:
 
 
 def cost_sinks() -> list:
-    """The cost counters active on this thread, innermost last."""
+    """The cost sinks active on this thread, innermost last: the cost
+    counters, and a remat segment's liveness tracker
+    (:mod:`repro_torch.distributed.spmd_autograd`), which reads a
+    kernel call's inputs from its record."""
     if not torch._C._len_torch_dispatch_stack():
         return []
     from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
     return [m for m in _get_current_dispatch_mode_stack()
-            if getattr(m, "is_cost_counter", False)]
+            if getattr(m, "cost_sink", False)]
 
 
 def record_cost(name: str, flops: float, nbytes: float,
@@ -85,6 +88,18 @@ def grad_wanted(*tensors) -> bool:
     one of ``tensors`` requiring a gradient."""
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def apply(fn, *args):
+    """``fn.apply(*args)`` (an ``autograd.Function``) as a torch function,
+    so the torch-function modes active on the thread see its tensor
+    arguments (the training tape's junctions:
+    :mod:`repro_torch.distributed.spmd_autograd`)."""
+    tensors = tuple(a for a in args if isinstance(a, torch.Tensor))
+    if torch.overrides.has_torch_function(tensors):
+        return torch.overrides.handle_torch_function(apply, tensors, fn,
+                                                     *args)
+    return fn.apply(*args)
 
 
 def plain_vjp(plain, inputs, wanted, cotangents):

@@ -41,8 +41,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .. import (_build, cost_paused, count_launch, grad_wanted, nbytes,
-               plain_vjp, record_cost)
+from .. import (_build, apply, cost_paused, count_launch, grad_wanted, nbytes,
+                plain_vjp, record_cost)
 from .ref import flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -291,7 +291,7 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
             return flash_attention_ref(q, k, v, causal=causal,
                                        window=window, q_offset=q_offset)
     if grad_wanted(q, k, v):
-        return _FlashFn.apply(q, k, v, causal, window, q_offset, False)
+        return apply(_FlashFn, q, k, v, causal, window, q_offset, False)
     return _bhsd_call(q, k, v, causal=causal, window=window,
                       q_offset=q_offset)
 
@@ -331,7 +331,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                       q_offset=q_offset)
         return out.permute(2, 0, 1, 3)
     if grad_wanted(q, k, v):
-        return _FlashFn.apply(q, k, v, causal, window, q_offset, True)
+        return apply(_FlashFn, q, k, v, causal, window, q_offset, True)
     return _seq_call(q, k, v, causal=causal, window=window,
                      q_offset=q_offset)
 

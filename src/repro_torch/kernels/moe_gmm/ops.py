@@ -28,8 +28,8 @@ from typing import Optional
 
 import torch
 
-from .. import (_build, cost_paused, count_launch, grad_wanted, nbytes,
-               plain_vjp, record_cost)
+from .. import (_build, apply, cost_paused, count_launch, grad_wanted, nbytes,
+                plain_vjp, record_cost)
 from .ref import ACTS, moe_gmm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -119,7 +119,7 @@ def moe_gmm(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
         with cost_paused():
             return moe_gmm_ref(x, w1, w2, act=act, rows=rows)
     if grad_wanted(x, w1, w2):
-        return _MoeGmmFn.apply(x, w1, w2, act, rows)
+        return apply(_MoeGmmFn, x, w1, w2, act, rows)
     return _run(x, w1, w2, act, rows)
 
 

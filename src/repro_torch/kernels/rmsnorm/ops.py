@@ -18,8 +18,8 @@ from typing import Optional
 
 import torch
 
-from .. import (_build, cost_paused, count_launch, grad_wanted, nbytes,
-               plain_vjp, record_cost)
+from .. import (_build, apply, cost_paused, count_launch, grad_wanted, nbytes,
+                plain_vjp, record_cost)
 from .ref import rmsnorm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -66,7 +66,7 @@ def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor] = None, *,
         with cost_paused():
             return rmsnorm_ref(x, w, eps=eps)
     if grad_wanted(x, w):
-        return _RmsNormFn.apply(x, w, eps)
+        return apply(_RmsNormFn, x, w, eps)
     return _run(x, w, eps)
 
 

@@ -38,8 +38,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import (_build, cost_paused, count_launch, grad_wanted, nbytes,
-               plain_vjp, record_cost)
+from .. import (_build, apply, cost_paused, count_launch, grad_wanted, nbytes,
+                plain_vjp, record_cost)
 from .ref import ssd_scan_ref, ssd_scan_tc_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -274,7 +274,7 @@ def ssd_scan_bhsp(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         with cost_paused():
             return ssd_scan_ref(x, dt, a_log, b, c, d_skip, h0=h0)
     if grad_wanted(x, dt, a_log, b, c, d_skip, h0):
-        return _SsdScanFn.apply(x, dt, a_log, b, c, d_skip, h0, False)
+        return apply(_SsdScanFn, x, dt, a_log, b, c, d_skip, h0, False)
     return _bhsp_call(x, dt, a_log, b, c, d_skip, h0)
 
 
@@ -303,7 +303,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                                       h0=h0)
             return y.permute(2, 0, 1, 3).contiguous(), h_final
     if grad_wanted(x, dt, a_log, b, c, d_skip, h0):
-        return _SsdScanFn.apply(x, dt, a_log, b, c, d_skip, h0, True)
+        return apply(_SsdScanFn, x, dt, a_log, b, c, d_skip, h0, True)
     return _seq_call(x, dt, a_log, b, c, d_skip, h0)
 
 

@@ -148,7 +148,7 @@ class CostCounter(TorchDispatchMode):
     counts; ``paused`` > 0 stops matmul counting (a kernel's plain version
     running on the CPU after its formula was recorded)."""
 
-    is_cost_counter = True
+    cost_sink = True
 
     def __init__(self):
         super().__init__()
@@ -156,7 +156,10 @@ class CostCounter(TorchDispatchMode):
         self.paused = 0
         self.live_bytes = 0
         self.peak_bytes = 0
-        self._lock = threading.Lock()
+        # reentrant: a storage's finalizer (``_free``) can run on this
+        # thread inside the counter's own bookkeeping, when the
+        # collector runs there
+        self._lock = threading.RLock()
         self._made = WeakIdKeyDictionary()
         self._written = WeakIdKeyDictionary()
         self._read = WeakIdKeyDictionary()

@@ -370,7 +370,9 @@ def loss_and_metrics(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     ``loss_chunk`` sequence rows (the largest divisor of s not above it,
     as the reference picks); with grad mode on each chunk is
     checkpointed, so backward recomputes its float32 logits and only one
-    chunk's are live at a time."""
+    chunk's are live at a time, but keeps its collectives' outputs (the
+    reference, which does not remat the chunk, keeps them as
+    residuals)."""
     x, aux = forward(params, batch, cfg, comm, remat=remat)
     labels = comm.ag_seq(batch["labels"])              # (s, b)
     head = comm.weight(params.get("lm_head", params["emb"]), fsdp_axis=1)
@@ -386,7 +388,7 @@ def loss_and_metrics(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     for i in range(0, s, ck):
         xb, lb = x[i:i + ck], labels[i:i + ck]
         if torch.is_grad_enabled():
-            total, n = checkpoint(chunk_loss, xb, lb)
+            total, n = checkpoint(chunk_loss, xb, lb, keep=True)
         else:
             total, n = chunk_loss(xb, lb)
         sums.append(total)

@@ -15,6 +15,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -329,3 +330,21 @@ def test_counter_is_per_thread_and_nests():
         t.join()
     assert inner.costs.flops == 2 * 4 ** 3
     assert outer.costs.flops == 2 * 4 ** 3
+
+
+def test_a_storage_freed_inside_the_counters_lock_does_not_deadlock():
+    """A storage's finalizer (``CostCounter._free``) can run on the
+    counting thread while the counter holds its lock (the collector runs
+    inside ``_track``'s bookkeeping): the lock is reentrant, so the
+    thread goes on instead of waiting on itself."""
+    counter = CostCounter()
+    done = threading.Event()
+
+    def bookkeeping():
+        with counter._lock:
+            counter._free(0)
+        done.set()
+    t = threading.Thread(target=bookkeeping, daemon=True)
+    t.start()
+    t.join(5)
+    assert done.is_set()

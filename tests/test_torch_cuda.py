@@ -509,6 +509,8 @@ def _tol(dtype):
     (2, 4, 2, 48, 48, 12, True, 0, 0),        # minitron smoke's dh, padded
     (2, 4, 4, 33, 33, 24, True, 0, 0),        # the moe smoke configs' dh
     (1, 4, 2, 64, 64, 96, True, 16, 0),       # dh 96, padded to 128
+    (1, 8, 2, 128, 128, 128, True, 0, 0),     # minitron's group 4
+    (1, 24, 2, 128, 128, 128, True, 0, 0),    # command-r-plus's group 12
 ])
 def test_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, dh,
                                        causal, window, q_offset, dtype):
@@ -716,7 +718,7 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
 #: the two mix norms and norm2 on hymba
 RMS_PER_LAYER = {"gemma3-1b": 4, "command-r-plus-104b": 0, "olmoe-1b-7b": 4,
                  "moonshot-v1-16b-a3b": 2, "mamba2-370m": 2,
-                 "hymba-1.5b": 5}
+                 "hymba-1.5b": 5, "olmo-1b": 0, "minitron-8b": 0}
 
 
 @pytest.mark.parametrize("arch", list(RMS_PER_LAYER))
@@ -813,6 +815,7 @@ TILE_EDGES = [(3, 1, 64, 64), (3, 1, 24, 8), (2, 9, 64, 128),
     (3, 20, 40, 16),                          # ragged C (no tile divides it)
     (2, 5, 100, 8),                           # C < 8, d not a vector multiple
     (4, 8, 256, 64),                          # the decode tile (C <= 8)
+    (2, 40, 128, 1408),                       # moonshot's f, not % 256
     *TILE_EDGES,
 ])
 def test_moe_gmm_matches_plain(cuda, e, cap, d, f, act, dtype):

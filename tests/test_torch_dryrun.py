@@ -28,19 +28,35 @@ The named differences (each a ROADMAP §C row):
   (``2 b h n p`` FLOPs a call); the port's is a broadcast product;
 * ``ssm_pad``: the port pads the SSM mixer's fused ``[z | x | dt]``
   projection to a multiple of 64 columns (16-byte aligned rows for the
-  GEMM), ``2 rows d pad`` FLOPs a prefill layer;
+  GEMM), ``2 rows d pad`` FLOPs a prefill layer (a training layer: its
+  forward, its recompute and the backward's two products);
 * ``length``: ``DecodeCache.length`` is a host int in the port, a 4-byte
   int32 argument in the reference;
 * ``unused``: ``jax.jit`` prunes arguments the step never reads (the
   encoder or vision weights at decode); the port's argument bytes count
   every shard it is handed (``unused_argument_bytes``).
 
-The train cells' collectives and flops are not compared: the rank's tape
-recomputes whole remat segments (the reference's remat drops the
-recomputed collectives whose outputs the backward does not read), its
-transposes accumulate in float32 and ``ag_matmul``'s re-gathers x for
-the weight gradient (ROADMAP §C); their params and argument bytes are.
+Train cells (``train_s``, and gemma3-1b's in float32 too: ``dtype``)
+add two named differences, each a ROADMAP §C row:
+
+* ``loss_remat``: the port checkpoints each loss chunk (one chunk's
+  float32 logits live at a time) and recomputes its logits in backward,
+  ``2 rows d V_local`` a chunk; the reference keeps the chunks'
+  residuals (its ``lax.map`` is not rematerialized).  The recompute
+  reuses the chunk's collectives' outputs, so it sends nothing;
+* ``vjp``: a kernel wrapper's backward is the autograd of its plain
+  version recomputed from the saved inputs (the flops counted inside
+  ``plain_vjp``: the plain forward and its backward); the reference's is
+  JAX's AD of its own jnp code, counted without its forward: flash
+  ``8 b hq sq skv dh`` a call (four products), moe ``2 x`` its two
+  einsums, ssd the walker's count of ``jax.vjp``'s pullback of
+  ``repro.models.ssm.ssd_scan`` at ``cfg.ssm_chunk``, rmsnorm 0.
+
+Their collectives are equal: the tape's remat leaves out what the
+reference's leaves out, and each transpose sends what JAX's AD of the
+reference's ring sends.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -54,6 +70,7 @@ import torch
 from repro.launch.costs import count_costs as ref_count
 from repro.models.ssm import ssd_scan as ref_ssd_scan
 
+import repro_torch.models.lm as port_lm
 import repro_torch.models.ssm as port_ssm
 import repro_torch.serving.engine as port_engine
 from repro_torch.configs import Shape, get_smoke
@@ -61,7 +78,10 @@ from repro_torch.core.modes import CommMode
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bhsd)
+from repro_torch.kernels import cost_sinks
 from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.kernels.moe_gmm import ops as moe_ops
+from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bhsp
@@ -80,7 +100,8 @@ CELLS = [[a, k, {}] for a in FAMILIES.values()
          for k in ("prefill_s", "decode_s", "train_s")]
 CELLS += [["mamba2-370m", "long_s", {}], ["hymba-1.5b", "long_s", {}],
           ["gemma3-1b", "decode_s", {"tp2d": True}],
-          ["hymba-1.5b", "prefill_s", {"pad_heads": True}]]
+          ["hymba-1.5b", "prefill_s", {"pad_heads": True}],
+          ["gemma3-1b", "train_s", {"dtype": "float32"}]]
 #: the cells whose step the helper compiles for its argument bytes: a
 #: prefill's params and a train state's shards, and a decode cache of the
 #: vlm, the audio and the ssm family (the named differences)
@@ -88,8 +109,8 @@ COMPILED = [CELLS.index(c) for c in (
     ["gemma3-1b", "prefill_s", {}], ["gemma3-1b", "train_s", {}],
     ["llama-3.2-vision-90b", "decode_s", {}],
     ["whisper-tiny", "decode_s", {}], ["mamba2-370m", "long_s", {}])]
-#: the cells whose collectives and flops are compared
-COUNTED = [i for i, c in enumerate(CELLS) if c[1] != "train_s"]
+#: the cells whose collectives and flops are compared: every one
+COUNTED = list(range(len(CELLS)))
 
 
 def _cell_id(c):
@@ -232,10 +253,23 @@ class _Calls:
     """The kernel and decode-step calls of one traced cell, for the named
     flop differences: flash (q, k shapes seq-major or not), ssd (x, b
     shapes and the chunk the model asked for), ssd_decode (h_state
-    shape)."""
+    shape), the loss chunks (their head products) and each wrapper's
+    backward (its plain version's counted flops and its inputs'
+    shapes)."""
 
     def __init__(self, monkeypatch):
         self.flash, self.ssd, self.decode = [], [], []
+        self.heads, self.vjps = [], []
+        head = port_lm.lm_head_loss
+
+        def head_loss(x, emb, *a, **kw):
+            self.heads.append(2 * x.numel() * emb.shape[0])
+            return head(x, emb, *a, **kw)
+        monkeypatch.setattr(port_lm, "lm_head_loss", head_loss)
+        for kind, mod in (("flash", flash_ops), ("moe", moe_ops),
+                          ("ssd", ssd_ops), ("rmsnorm", rms_ops)):
+            monkeypatch.setattr(mod, "plain_vjp",
+                                self._vjp(kind, mod.plain_vjp))
         f_cost, s_cost = flash_ops.cost, ssd_ops.cost
         step = port_ssm.ssd_decode_step
         s_fn = ssd_ops.ssd_scan
@@ -262,6 +296,48 @@ class _Calls:
         monkeypatch.setattr(port_ssm, "ssd_scan_kernel", ssd_scan_rec)
         monkeypatch.setattr(port_engine, "ssd_decode_step", decode_step)
 
+    def _vjp(self, kind, fn):
+        def vjp(plain, inputs, wanted, cotangents):
+            sink = [m for m in cost_sinks() if hasattr(m, "costs")][-1]
+            before = sink.costs.flops
+            got = fn(plain, inputs, wanted, cotangents)
+            self.vjps.append((kind, [tuple(t.shape) if isinstance(
+                t, torch.Tensor) else t for t in inputs],
+                sink.costs.flops - before))
+            return got
+        return vjp
+
+    def _ref_bwd(self, cfg, kind, shapes) -> float:
+        """The reference's backward flops of one kernel call."""
+        if kind == "rmsnorm":
+            return 0
+        if kind == "flash":                 # the layout of its forward
+            q, k = shapes[0], shapes[1]
+            seq = any(c[0] == q and c[2]["seq_major"] for c in self.flash)
+            sq, b, hq, dh = q if seq else (q[2], q[0], q[1], q[3])
+            skv = k[0] if seq else k[2]
+            return 8 * b * hq * sq * skv * dh
+        if kind == "moe":
+            (e, c, d), (_, _, m), (_, f, _) = shapes[:3]
+            return 2 * (2 * e * c * d * m + 2 * e * c * f * d)
+        x, bshape = shapes[0], shapes[3]    # ssd: as its forward's x
+        if not any(c[0] == x for c in self.ssd):
+            x = (x[2], x[0], x[1], x[3])
+            bshape = (bshape[2], bshape[0], bshape[1], bshape[3])
+        sds = jax.ShapeDtypeStruct
+        dt = jnp.float32
+        args = (sds(x, dt), sds(x[:3], dt), sds(x[2:3], dt),
+                sds(bshape, dt), sds(bshape, dt), sds(x[2:3], dt))
+
+        def fwd(*a):
+            return ref_ssd_scan(*a, chunk=cfg.ssm_chunk)[0]
+
+        def both(*a):
+            y, pull = jax.vjp(fwd, *a)
+            return pull(y)
+        return (ref_count(jax.make_jaxpr(both)(*args), {}).flops
+                - ref_count(jax.make_jaxpr(fwd)(*args), {}).flops)
+
     def named_flops(self, cfg, shape) -> dict:
         """port − reference flops, by named difference (``shape``: the
         cell's (kind, seq, batch) on the (2, 2) mesh)."""
@@ -284,14 +360,21 @@ class _Calls:
             ssd += got - want
         decode = -sum(2 * bs * h * n * p for bs, h, n, p in self.decode)
         pad = 0
-        if self.ssd and shape[0] == "prefill":
+        if self.ssd and shape[0] in ("prefill", "train"):
             shard = tp_plan(cfg, 2).shard_ssm_heads
             tp = 2 if shard else 1
             cols = -(2 * cfg.ssm_d_inner // tp + cfg.ssm_heads // tp) % 64
             rows = (shape[1] if shard else shape[1] // 2) * shape[2] // 2
-            pad = len(self.ssd) * 2 * rows * cfg.d_model * cols
+            # a forward product a call; in training the backward's two
+            # (dx and dw) a call too
+            products = len(self.ssd) + 2 * sum(
+                kind == "ssd" for kind, _, _ in self.vjps)
+            pad = products * 2 * rows * cfg.d_model * cols
+        vjp = sum(got - self._ref_bwd(cfg, kind, shapes)
+                  for kind, shapes, got in self.vjps)
+        remat = sum(self.heads) / 2 if shape[0] == "train" else 0
         return {"flash": flash, "ssd": ssd, "ssd_decode": decode,
-                "ssm_pad": pad}
+                "ssm_pad": pad, "loss_remat": remat, "vjp": vjp}
 
 
 def cfg_jnp(cfg):
@@ -314,6 +397,10 @@ def _port_cell(cell, mesh, monkeypatch):
     key = _cell_id(cell)
     if key not in _PORT_CELLS:
         arch, shape, kw = cell
+        kw = dict(kw)
+        if kw.pop("dtype", None):
+            monkeypatch.setattr(dryrun, "get_config", lambda a: dataclasses
+                                .replace(get_smoke(a), dtype=torch.float32))
         calls = _Calls(monkeypatch)
         art = dryrun.run_cell(arch, shape, False, CommMode.LCI_DEDICATED,
                               save=False, mesh=mesh, **kw)
@@ -414,7 +501,9 @@ def test_smoke_cell_matches_the_reference(cell, smoke, monkeypatch,
     """Params equal; argument bytes equal to the reference's compiled
     step's once ``unused`` (and at decode ``length``) are added back;
     prefill and decode: collectives equal, and flops equal once the
-    named kernel and decode-step differences are added back."""
+    named kernel and decode-step differences are added back;
+    train cells alike, their ``loss_remat`` and ``vjp`` differences
+    added back too."""
     art, named = _port_cell(cell, smoke, monkeypatch)
     ref = reference.result()[CELLS.index(cell)]
     assert (art["params"], art["active_params"]) == (
@@ -424,8 +513,6 @@ def test_smoke_cell_matches_the_reference(cell, smoke, monkeypatch,
         assert art["argument_size_in_bytes"] - \
             art["unused_argument_bytes"] + length == \
             ref["argument_size_in_bytes"]
-    if cell[1] == "train_s":
-        return
     a, r = art["analytic"], ref["analytic"]
     assert a["coll_bytes_by_kind"] == r["coll_bytes_by_kind"]
     assert {k: a[k] for k in DIRS} == {k: r[k] for k in DIRS}

@@ -296,6 +296,8 @@ MODEL_CASES = {
     "olmo-1b-smoke": r_get_smoke("olmo-1b"),
     "olmoe-1b-7b-smoke": r_get_smoke("olmoe-1b-7b"),
     "moonshot-v1-16b-a3b-smoke": r_get_smoke("moonshot-v1-16b-a3b"),
+    "minitron-8b-smoke": r_get_smoke("minitron-8b"),
+    "command-r-plus-104b-smoke": r_get_smoke("command-r-plus-104b"),
 }
 
 

@@ -53,7 +53,8 @@ NEAR = 1e-4
 #: within NEAR and the port took the other one
 NEAR_TIES = []
 SERVE_CASES = ["dense", "parallel", "swa-qk", "gemma3-1b-smoke",
-               "olmoe-1b-7b-smoke", "moonshot-v1-16b-a3b-smoke"]
+               "olmoe-1b-7b-smoke", "moonshot-v1-16b-a3b-smoke",
+               "minitron-8b-smoke", "command-r-plus-104b-smoke"]
 
 
 def _tokens(cfg, s=S, b=B, seed=1):
@@ -116,7 +117,8 @@ def test_serve_step_matches_reference_and_forward(case):
 
 
 @pytest.mark.parametrize("case", ["dense", "gemma3-1b-smoke",
-                                  "olmoe-1b-7b-smoke"])
+                                  "olmoe-1b-7b-smoke", "minitron-8b-smoke",
+                                  "command-r-plus-104b-smoke"])
 def test_prefill_step_matches_reference(case):
     rcfg, params, pcfg, pparams = carried_model(MODEL_CASES[case], "float32")
     tokens = _tokens(rcfg, s=12)

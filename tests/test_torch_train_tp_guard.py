@@ -118,14 +118,14 @@ def _psum_identity(ax, ins, g):
     return [g]
 
 
-def _ag_matmul_no_sum(ax, cfg, ins, g):
-    """``ag_matmul``'s transpose without the reduce-scatter's sum: this
+def _ag_matmul_no_sum(ax, cfg, ins, g, chunks):
+    """``ag_matmul``'s transpose without the reverse ring's sum: this
     rank's rows of its own ``g @ wᵀ``."""
     x, w = ins
     rows = x.shape[0]
     dx = torch.matmul(g, w.t())[ax.index * rows:(ax.index + 1) * rows]
-    xg = C.all_gather(x, ax, cfg, axis=0)
-    return [dx.to(x.dtype), comm_mod._weight_grad(xg, g, w.dtype)]
+    _, dw = C.all_gather_matmul_t(x, w, g, chunks, ax, cfg)
+    return [dx.to(x.dtype), dw]
 
 
 @pytest.mark.parametrize("name,target,fault", [
