@@ -20,16 +20,29 @@ call site pays one attribute read and a branch — ``span()`` returns the
 :data:`~.timers.NULL_SPAN` singleton, ``add()`` returns immediately —
 and the legacy counters (always on, they predate this layer) remain the
 only bookkeeping.
+
+The model path (the serving engine's prefill, the models' layers, the
+train step) has no runtime to hold a hub: it records into the one that
+:func:`activated` installs process-wide, so that autograd's backward
+thread and a remat recompute record into it too.  Each site is
+``with active().span("moe.dispatch"): ...``; with no hub installed
+:func:`active` is :data:`NULL_TELEMETRY`, and the site costs one global
+read and a branch.  At ``counters`` and above, counts that live on the
+device (:meth:`Telemetry.add_device`) are summed on the device and read
+once, by :meth:`Telemetry.snapshot`.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict, List, Tuple
+import time
+from typing import Dict, Iterator, List, Tuple
 
 from .counters import (Histogram, MetricRegistry, merge_counters,
                        merge_hists, merge_snapshots, quantile_bound,
                        record_burst_mix)
-from .timers import NULL_SPAN, SPAN_PREFIX, Span, summarize_spans
+from .timers import (NULL_SPAN, PROFILER_PREFIX, SPAN_PREFIX, Span,
+                     summarize_spans)
 from .trace import TraceBuffer
 
 #: telemetry levels, cheapest first; each includes everything before it
@@ -40,7 +53,8 @@ class Telemetry:
     """The attr-controlled observability hub for one cluster/runtime."""
 
     __slots__ = ("level", "counters_on", "timers_on", "trace_on",
-                 "registry", "trace", "_depth", "_collectors")
+                 "registry", "trace", "epoch_offset", "record_function",
+                 "profiling", "_depth", "_collectors")
 
     def __init__(self, level: str = "off", trace_capacity: int = 4096):
         if level not in LEVELS:
@@ -53,6 +67,15 @@ class Telemetry:
         self.trace_on = rank >= 3
         self.registry = MetricRegistry()
         self.trace = TraceBuffer(trace_capacity) if self.trace_on else None
+        # at trace level the spans are profiler annotations, and the
+        # ring's events start on the profiler's clock (the Unix epoch)
+        self.epoch_offset = 0
+        self.record_function = self.profiling = None
+        if self.trace_on:
+            import torch
+            self.epoch_offset = time.time_ns() - time.perf_counter_ns()
+            self.record_function = torch.autograd.profiler.record_function
+            self.profiling = torch.autograd._profiler_enabled
         self._depth = threading.local()
         # (prefix, fn) pairs; fn() -> {name: number}.  Many resources may
         # share a prefix (every device attaches under "device"); the
@@ -75,6 +98,12 @@ class Telemetry:
     def observe(self, name: str, value: int) -> None:
         if self.counters_on:
             self.registry.observe(name, value)
+
+    def add_device(self, name: str, value) -> None:
+        """Add a count that lives on the device (a tensor) into a running
+        sum on the device; no host read until :meth:`snapshot`."""
+        if self.counters_on:
+            self.registry.add_device(name, value)
 
     # -- unification ---------------------------------------------------------
     def attach(self, prefix: str, fn) -> None:
@@ -121,6 +150,27 @@ class Telemetry:
 #: owner never wired telemetry (directly-constructed pools, engines...)
 NULL_TELEMETRY = Telemetry("off")
 
+#: the model path's hub (:func:`activated`), process-wide
+_ACTIVE = NULL_TELEMETRY
+
+
+def active() -> Telemetry:
+    """The hub the model path records into: the one :func:`activated`
+    installed, else :data:`NULL_TELEMETRY`."""
+    return _ACTIVE
+
+
+@contextlib.contextmanager
+def activated(tele: Telemetry) -> Iterator[Telemetry]:
+    """Install ``tele`` as the model path's hub for every thread of the
+    process while the block runs (then the previous one again)."""
+    global _ACTIVE
+    prev, _ACTIVE = _ACTIVE, tele
+    try:
+        yield tele
+    finally:
+        _ACTIVE = prev
+
 
 def render_block(snapshot: Dict) -> Dict:
     """Render a raw snapshot into the BENCH-JSON ``telemetry`` block:
@@ -132,9 +182,9 @@ def render_block(snapshot: Dict) -> Dict:
 
 
 __all__ = [
-    "LEVELS", "NULL_SPAN", "NULL_TELEMETRY", "SPAN_PREFIX",
-    "Histogram", "MetricRegistry", "Span", "Telemetry", "TraceBuffer",
-    "merge_counters", "merge_hists", "merge_snapshots",
-    "quantile_bound", "record_burst_mix", "render_block",
-    "summarize_spans",
+    "LEVELS", "NULL_SPAN", "NULL_TELEMETRY", "PROFILER_PREFIX",
+    "SPAN_PREFIX", "Histogram", "MetricRegistry", "Span", "Telemetry",
+    "TraceBuffer", "activated", "active", "merge_counters", "merge_hists",
+    "merge_snapshots", "quantile_bound",
+    "record_burst_mix", "render_block", "summarize_spans",
 ]

@@ -67,21 +67,22 @@ def quantile_bound(buckets: Dict[str, int], q: float) -> float:
 class _Shard:
     """One thread's private metric storage (uncontended by design)."""
 
-    __slots__ = ("counters", "hists")
+    __slots__ = ("counters", "hists", "device")
 
     def __init__(self):
         self.counters: Dict[str, int] = {}
         self.hists: Dict[str, Histogram] = {}
+        self.device: Dict[str, object] = {}      # name -> running tensor
 
 
 class MetricRegistry:
     """Per-thread-sharded counters + histograms, merged on read.
 
-    Writers call :meth:`add` / :meth:`observe` (shard-local, no shared
-    state touched); readers call :meth:`snapshot` (locks only the shard
-    *list*, then reads each shard racily — a torn read costs at most the
-    in-flight increment, never a lost one).  Gauges are read-side
-    callables sampled at snapshot time.
+    Writers call :meth:`add` / :meth:`observe` / :meth:`add_device`
+    (shard-local, no shared state touched); readers call
+    :meth:`snapshot` (locks only the shard *list*, then reads each shard
+    racily — a torn read costs at most the in-flight increment, never a
+    lost one).  Gauges are read-side callables sampled at snapshot time.
     """
 
     def __init__(self):
@@ -111,6 +112,15 @@ class MetricRegistry:
             h = hists[name] = Histogram()
         h.record(value)
 
+    def add_device(self, name: str, value) -> None:
+        """Add a tensor into the running sum ``name`` where the tensor
+        lives: one device add, no host read (the sum is read by
+        :meth:`snapshot`)."""
+        dev = self._shard().device
+        acc = dev.get(name)
+        value = value.detach()
+        dev[name] = value if acc is None else acc + value
+
     # -- read side -----------------------------------------------------------
     def register_gauge(self, name: str, fn) -> None:
         self._gauges[name] = fn
@@ -124,6 +134,8 @@ class MetricRegistry:
         for shard in shards:
             for name, n in list(shard.counters.items()):
                 counters[name] = counters.get(name, 0) + n
+            for name, acc in list(shard.device.items()):
+                counters[name] = counters.get(name, 0) + acc.item()
             for name, h in list(shard.hists.items()):
                 merged = hists.get(name)
                 if merged is None:

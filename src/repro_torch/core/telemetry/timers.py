@@ -30,7 +30,44 @@ Stage taxonomy (what the hot paths are instrumented with):
 ``signal``                one batched completion delivery (signal_many)
 ``worker.sweep``          one worker pass over its (engine, device) targets
 ``worker.nap``            one idle-backoff sleep in the worker loop
+``prefill``               one ``make_prefill_step`` call (outer span)
+``head``                  the prefill's head logits and sample
+``embed``                 the token embedding
+``norm``                  a layer's pre-norm, or the final norm
+``attn``                  one self-attention op (projections to output)
+``moe.router``            router logits and top-k
+``moe.slots``             slot assignment: argsort, count, positions
+``moe.dispatch``          staging into packet slots and the all-to-all
+``moe.experts``           the ``moe_gmm`` call and its operands' copies
+``moe.combine``           the return all-to-all, gather and weighted sum
+``ssm.proj``              the SSM mixer's weight concat and in-projections
+``ssm.conv``              causal conv, SiLU and softplus
+``ssm.scan``              the ``ssd_scan`` call
+``ssm.gate``              the SiLU gate and the gated norm
+``ssm.out``               the out-projection
+``loss.head``             one loss chunk's head and CE (remat: twice)
+``train.forward``         the train step's loss (tp = 1)
+``train.backward``        its ``autograd.grad``, recomputes included
+``train.grad_sync``       the gradient's missing reductions
+``train.clip``            the global norm and clip
+``train.adamw``           the AdamW update
+``train.metrics``         the metrics' mean over the mesh
 ========================  ====================================================
+
+The model path's stages are recorded into the process-wide hub that
+:func:`~repro_torch.core.telemetry.activated` installs; the comm core's
+into its runtime's own hub.
+
+At ``trace`` level, while a ``torch.profiler`` records the span's
+thread, each span is also a ``record_function`` named ``repro:<stage>``,
+so the spans land in the profiler's trace beside the device work they
+launch.  A span's duration is always read on ``time.perf_counter_ns``
+(monotonic); at ``trace`` level its ring event starts on the profiler's
+clock (the Unix epoch, as kineto stamps its events), through the offset
+between the two clocks read once when the hub is made, so that
+:meth:`Telemetry.export_trace` overlays a profiler trace.  No span
+enters ``record_function`` below ``trace`` or with no profiler
+recording (it costs microseconds even then).
 """
 from __future__ import annotations
 
@@ -41,6 +78,8 @@ from .counters import quantile_bound
 
 #: histogram key prefix for stage spans
 SPAN_PREFIX = "span:"
+#: name prefix of a span's ``record_function`` at ``trace`` level
+PROFILER_PREFIX = "repro:"
 
 
 class _NullSpan:
@@ -60,28 +99,36 @@ NULL_SPAN = _NullSpan()
 
 class Span:
     """One live stage measurement (constructed only when timers are on).
-    The owning telemetry's ``_depth`` thread-local tracks nesting."""
+    The owning telemetry's ``_depth`` thread-local tracks nesting; at
+    trace level the span is also a profiler ``record_function``."""
 
-    __slots__ = ("_tele", "stage", "_t0")
+    __slots__ = ("_tele", "stage", "_t0", "_mark")
 
     def __init__(self, tele, stage: str):
         self._tele = tele
         self.stage = stage
+        self._mark = None
 
     def __enter__(self):
-        d = self._tele._depth
+        tele = self._tele
+        d = tele._depth
         d.depth = getattr(d, "depth", 0) + 1
+        if tele.trace is not None and tele.profiling():
+            self._mark = tele.record_function(PROFILER_PREFIX + self.stage)
+            self._mark.__enter__()
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter_ns()
         tele = self._tele
+        if self._mark is not None:
+            self._mark.__exit__(None, None, None)
         tele._depth.depth -= 1
         dur = t1 - self._t0
         tele.registry.observe(SPAN_PREFIX + self.stage, dur)
         if tele.trace is not None:
-            tele.trace.emit(self.stage, self._t0, dur,
+            tele.trace.emit(self.stage, self._t0 + tele.epoch_offset, dur,
                             depth=tele._depth.depth)
         return False
 

@@ -21,6 +21,9 @@ records, so that the recompute's collectives run on the rank thread.
 :func:`loss_and_metrics` is the training loss: the vocab-parallel
 cross-entropy over ``loss_chunk``-row chunks, each checkpointed so that
 one chunk's float32 logits are live at a time, plus the router terms.
+The telemetry spans (:mod:`repro_torch.core.telemetry`) here are
+``embed``, ``norm`` (each pre-norm and the final norm), ``attn`` and
+``loss.head``; the MoE block and the SSM mixer open their own.
 At tp > 1 every block runs the reference's tensor-parallel schedule
 through the :class:`Comm` (sequence-sharded activations, the ring
 collectives at the TP boundaries), in serving and in training.
@@ -37,6 +40,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..core.telemetry import active
 from ..distributed.comm import Comm
 from ..distributed.spmd_autograd import checkpoint
 from .blocks import (TPPlan, attention_op, init_attention, init_mlp,
@@ -199,11 +203,14 @@ def _decoder_block(x, lp, idx: int, cfg: ModelConfig, comm: Comm,
     """One decoder layer of any family; returns (x', aux).  With
     ``memory`` and the layer's ``x_`` weights (enc-dec), a
     cross-attention sub-block follows the self-attention."""
-    h = apply_norm(cfg.norm, x, lp.get("norm1"))
+    tele = active()
+    with tele.span("norm"):
+        h = apply_norm(cfg.norm, x, lp.get("norm1"))
     if cfg.family == "ssm":
         return x + ssm_op(h, lp, cfg, comm, plan), {}
-    attn = swa_attention_op(h, lp, cfg, comm, plan, layer_idx=idx,
-                            q_offset=q_offset)
+    with tele.span("attn"):
+        attn = swa_attention_op(h, lp, cfg, comm, plan, layer_idx=idx,
+                                q_offset=q_offset)
     if cfg.family == "hybrid":
         s_out = ssm_op(h, lp, cfg, comm, plan)
         x = x + 0.5 * (rms_norm(attn, lp["mix_norm_a"])
@@ -218,7 +225,8 @@ def _decoder_block(x, lp, idx: int, cfg: ModelConfig, comm: Comm,
         hx = rms_norm(x, lp["normx"])
         x = x + attention_op(hx, lp, cfg, comm, plan, window=0,
                              q_offset=q_offset, memory=memory, prefix="x_")
-    h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
+    with tele.span("norm"):
+        h2 = apply_norm(cfg.norm, x, lp.get("norm2"))
     if cfg.family == "moe":
         moe_out, aux = moe_block(h2, lp, cfg, comm)
         if cfg.shared_expert_ff:
@@ -285,9 +293,11 @@ def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     tokens = batch["tokens"]
     s_l = tokens.shape[0]
     q_offset = comm.model_index() * s_l
-    emb = comm.weight(params["emb"], fsdp_axis=1)
-    x = embed_tokens(tokens, emb, comm,
-                     scale_by_sqrt_dim=cfg.name.startswith("gemma"))
+    tele = active()
+    with tele.span("embed"):
+        emb = comm.weight(params["emb"], fsdp_axis=1)
+        x = embed_tokens(tokens, emb, comm,
+                         scale_by_sqrt_dim=cfg.name.startswith("gemma"))
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in _AUX_KEYS}
     remat = remat and torch.is_grad_enabled()
@@ -321,7 +331,8 @@ def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
             x, layer_aux = _run(layer, remat, x, memory, idx)
             for k, v in layer_aux.items():
                 aux[k] = aux[k] + v
-    x = apply_norm(final_norm_kind(cfg), x, params["final_norm"])
+    with tele.span("norm"):
+        x = apply_norm(final_norm_kind(cfg), x, params["final_norm"])
     x = comm.ag_seq(x)
     # per-layer means; the router terms come from local tokens, so the
     # reference psums them over the model axis (the identity at one rank)
@@ -382,7 +393,8 @@ def loss_and_metrics(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
         ck -= 1
 
     def chunk_loss(xb, lb):
-        return lm_head_loss(xb, head, lb, comm, real_vocab=cfg.vocab)
+        with active().span("loss.head"):
+            return lm_head_loss(xb, head, lb, comm, real_vocab=cfg.vocab)
 
     sums, ns = [], []
     for i in range(0, s, ck):

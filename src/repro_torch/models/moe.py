@@ -20,6 +20,13 @@ float32 the two are the same function.
 No step reads anything back to the host: the capacity is a Python int of
 the token count, the dispatch scatter and the combine gather are index
 operations on the card.
+
+Telemetry (the process-wide hub, :mod:`repro_torch.core.telemetry`):
+spans ``moe.router``, ``moe.slots``, ``moe.dispatch``, ``moe.experts``
+and ``moe.combine``; at ``counters`` level the counters
+``moe.slots_allotted`` (E·cap), a host int, and ``moe.slots_filled``
+(the filled slots, ``moe_gmm``'s rows) and ``moe.dropped`` (the
+messages that found their expert full), summed on the device.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..core.telemetry import active
 from ..kernels.moe_gmm import moe_gmm
 from .common import ModelConfig, ParamFactory
 
@@ -98,11 +106,13 @@ def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
     tp = comm.tp
     assert e % tp == 0, f"experts {e} must divide over model axis {tp}"
 
-    xf = x.reshape(t, d)
-    router_w = comm.weight(p["router"], fsdp_axis=0)
-    logits = torch.matmul(xf.float(), router_w.float())
-    weights, experts, _, aux = router_topk(logits, cfg)
-    cap = capacity(t, cfg)
+    tele = active()
+    with tele.span("moe.router"):
+        xf = x.reshape(t, d)
+        router_w = comm.weight(p["router"], fsdp_axis=0)
+        logits = torch.matmul(xf.float(), router_w.float())
+        weights, experts, _, aux = router_topk(logits, cfg)
+        cap = capacity(t, cfg)
 
     # -- matching engine: slot assignment (position of each msg in its
     #    expert's packet queue, in token-major order).  The reference
@@ -110,41 +120,55 @@ def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
     #    gives the same ranks (each expert's messages keep their order)
     #    without the (T·k, E) scan, a slow outer-dimension scan on the
     #    card (PERF.md) -----------------------------------------------------
-    flat_e = experts.reshape(t * k)                      # message tags
-    order = torch.argsort(flat_e, stable=True)
-    count = torch.zeros(e, dtype=flat_e.dtype, device=x.device)
-    count.scatter_add_(0, flat_e, torch.ones_like(flat_e))
-    first = torch.cumsum(count, 0) - count               # expert's 1st slot
-    pos = torch.empty_like(flat_e)
-    pos[order] = torch.arange(t * k, device=x.device) - first[flat_e[order]]
-    keep = pos < cap                                     # packet available?
-    aux["dropped_frac"] = (~keep).sum().float() / (t * k)  # backlog ledger
+    with tele.span("moe.slots"):
+        flat_e = experts.reshape(t * k)                  # message tags
+        order = torch.argsort(flat_e, stable=True)
+        count = torch.zeros(e, dtype=flat_e.dtype, device=x.device)
+        count.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+        first = torch.cumsum(count, 0) - count           # expert's 1st slot
+        pos = torch.empty_like(flat_e)
+        pos[order] = (torch.arange(t * k, device=x.device)
+                      - first[flat_e[order]])
+        keep = pos < cap                                 # packet available?
+        filled = count.clamp(max=cap)                    # each expert's rows
+        dropped = (~keep).sum()
+        aux["dropped_frac"] = dropped.float() / (t * k)  # backlog ledger
+        if tele.counters_on:
+            tele.add("moe.slots_allotted", e * cap)
+            tele.add_device("moe.slots_filled", filled.sum())
+            tele.add_device("moe.dropped", dropped)
 
     # -- stage payloads into packet slots: (E, cap, d).  Kept messages own
     #    distinct slots; dropped ones all write one spare row past the
     #    last slot, which is cut off (the reference adds a zero payload
     #    into slot (0, 0) instead) ------------------------------------------
-    slot = torch.where(keep, flat_e * cap + pos, torch.full_like(pos, e * cap))
-    staged = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    staged[slot] = torch.repeat_interleave(xf, k, dim=0)
-    dispatch = staged[:e * cap].view(e, cap, d)
-
-    # -- progress: flush aggregated messages (all-to-all over EP axis) -----
-    recv = comm.a2a(dispatch, split_axis=0, concat_axis=1)
+    with tele.span("moe.dispatch"):
+        slot = torch.where(keep, flat_e * cap + pos,
+                           torch.full_like(pos, e * cap))
+        staged = torch.zeros((e * cap + 1, d), dtype=x.dtype,
+                             device=x.device)
+        staged[slot] = torch.repeat_interleave(xf, k, dim=0)
+        dispatch = staged[:e * cap].view(e, cap, d)
+        # -- progress: flush aggregated messages (all-to-all over EP axis)
+        recv = comm.a2a(dispatch, split_axis=0, concat_axis=1)
 
     # -- expert compute: the grouped-matmul kernel over local experts ------
-    we_in = comm.weight(p["we_in"], fsdp_axis=1)         # (E_l, d, m·ff)
-    we_out = comm.weight(p["we_out"], fsdp_axis=2)       # (E_l, ff, d)
-    # each expert's filled slots, so the kernel skips the empty ones; with
-    # one rank (comm.a2a the identity) they are this rank's own counts
-    rows = count.clamp(max=cap).int() if tp == 1 else None
-    out = moe_gmm(recv.contiguous(), we_in.contiguous(),
-                  we_out.contiguous(), act=cfg.mlp, rows=rows)
+    with tele.span("moe.experts"):
+        we_in = comm.weight(p["we_in"], fsdp_axis=1)     # (E_l, d, m·ff)
+        we_out = comm.weight(p["we_out"], fsdp_axis=2)   # (E_l, ff, d)
+        # each expert's filled slots, so the kernel skips the empty ones;
+        # with one rank (comm.a2a the identity) they are this rank's own
+        # counts
+        rows = filled.int() if tp == 1 else None
+        out = moe_gmm(recv.contiguous(), we_in.contiguous(),
+                      we_out.contiguous(), act=cfg.mlp, rows=rows)
 
     # -- completion: return replies, combine with synchronizer weights -----
-    back = comm.a2a(out, split_axis=1, concat_axis=0)    # (E, cap, d)
-    gathered = back.reshape(e * cap, d)[torch.where(keep, slot, 0)]
-    gathered = torch.where(keep[:, None], gathered, gathered.new_zeros(()))
-    combined = (gathered.reshape(t, k, d).float()
-                * weights[..., None]).sum(dim=1)
-    return combined.reshape(s_l, b, d).to(x.dtype), aux
+    with tele.span("moe.combine"):
+        back = comm.a2a(out, split_axis=1, concat_axis=0)  # (E, cap, d)
+        gathered = back.reshape(e * cap, d)[torch.where(keep, slot, 0)]
+        gathered = torch.where(keep[:, None], gathered,
+                               gathered.new_zeros(()))
+        combined = (gathered.reshape(t, k, d).float()
+                    * weights[..., None]).sum(dim=1)
+        return combined.reshape(s_l, b, d).to(x.dtype), aux

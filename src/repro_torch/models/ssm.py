@@ -21,7 +21,9 @@ headdim); B/C (s, b, groups, state).
 as the reference's shifted sum (not ``F.conv1d``, which runs float32
 through cuDNN in TF32), SiLU, softplus, the scan, the SiLU gate, the gated RMSNorm over
 the whole d_inner (where one rank holds it, exactly ``layers.rms_norm``,
-so the RMSNorm kernel) and the out-projection.
+so the RMSNorm kernel) and the out-projection, its parts under the
+telemetry spans ``ssm.proj``, ``ssm.conv``, ``ssm.scan``, ``ssm.gate``
+and ``ssm.out``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.telemetry import active
 from ..kernels.ssd_scan import ssd_scan as ssd_scan_kernel
 from ..kernels.ssd_scan.ref import ssd_scan_ref
 from .common import ModelConfig, ParamFactory, shard_decisions
@@ -227,43 +230,50 @@ def ssm_op(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
     g, n = cfg.ssm_groups, cfg.ssm_state
     tp = comm.tp if plan.shard_ssm_heads else 1
     h_l, di_l = h // tp, di // tp
-    # the fused [z | x | dt] projection, its columns padded to a multiple
-    # of 64 so that the product's rows stay 16-byte aligned for the GEMM
-    # and the passes over its views (hymba's 2 * 3200 + 50 = 6450)
-    ws = [w("w_z"), w("w_x"), w("w_dt")]
-    pad = -(2 * di_l + h_l) % 64
-    if pad:
-        ws.append(ws[0].new_zeros(ws[0].shape[0], pad))
-    fused = torch.cat(ws, dim=1)
-    if plan.shard_ssm_heads:
-        zxdt = comm.ag_matmul(x, fused)                  # (s, bs, ...)
-    else:
-        zxdt = comm.ag_seq(torch.matmul(x, fused))
-    bc = comm.ag_seq(torch.matmul(x, w("w_bc")))
-    z, xs, dt_raw = (zxdt[..., :di_l], zxdt[..., di_l:2 * di_l],
-                     zxdt[..., 2 * di_l:2 * di_l + h_l])
-    b, c = torch.chunk(bc, 2, dim=-1)
-    s = zxdt.shape[0]
+    tele = active()
+    with tele.span("ssm.proj"):
+        # the fused [z | x | dt] projection, its columns padded to a
+        # multiple of 64 so that the product's rows stay 16-byte aligned
+        # for the GEMM and the passes over its views (hymba's 2 * 3200 +
+        # 50 = 6450)
+        ws = [w("w_z"), w("w_x"), w("w_dt")]
+        pad = -(2 * di_l + h_l) % 64
+        if pad:
+            ws.append(ws[0].new_zeros(ws[0].shape[0], pad))
+        fused = torch.cat(ws, dim=1)
+        if plan.shard_ssm_heads:
+            zxdt = comm.ag_matmul(x, fused)              # (s, bs, ...)
+        else:
+            zxdt = comm.ag_seq(torch.matmul(x, fused))
+        bc = comm.ag_seq(torch.matmul(x, w("w_bc")))
+        z, xs, dt_raw = (zxdt[..., :di_l], zxdt[..., di_l:2 * di_l],
+                         zxdt[..., 2 * di_l:2 * di_l + h_l])
+        b, c = torch.chunk(bc, 2, dim=-1)
+        s = zxdt.shape[0]
 
-    xs = _causal_conv(xs, p[prefix + "conv_w"])
-    xs = F.silu(xs.float()).to(x.dtype)
-    dt = softplus_dt(dt_raw, p[prefix + "dt_bias"])
-    y, _ = ssd_scan(xs.reshape(s, bs, h_l, cfg.ssm_headdim), dt,
-                    p[prefix + "a_log"], b.reshape(s, bs, g, n),
-                    c.reshape(s, bs, g, n), p[prefix + "d_skip"],
-                    chunk=cfg.ssm_chunk)
-    y = y.reshape(s, bs, di_l)
-    y = y * F.silu(z.float()).to(y.dtype)
-    if tp == 1:
-        y = rms_norm(y, p[prefix + "norm_w"])
-    else:
-        # the gated RMSNorm over the WHOLE d_inner: the sum of squares is
-        # psum'd over the model axis
-        yf = y.float()
-        ssq = comm.psum_model((yf * yf).sum(dim=-1, keepdim=True))
-        yf = yf * torch.rsqrt(ssq / di + 1e-6)
-        y = (yf * p[prefix + "norm_w"].float()).to(y.dtype)
-    if plan.shard_ssm_heads:
-        return comm.matmul_rs(y, w("w_out", 1))
-    start = comm.model_index() * s_l
-    return torch.matmul(y[start:start + s_l], w("w_out", 1))
+    with tele.span("ssm.conv"):
+        xs = _causal_conv(xs, p[prefix + "conv_w"])
+        xs = F.silu(xs.float()).to(x.dtype)
+        dt = softplus_dt(dt_raw, p[prefix + "dt_bias"])
+    with tele.span("ssm.scan"):
+        y, _ = ssd_scan(xs.reshape(s, bs, h_l, cfg.ssm_headdim), dt,
+                        p[prefix + "a_log"], b.reshape(s, bs, g, n),
+                        c.reshape(s, bs, g, n), p[prefix + "d_skip"],
+                        chunk=cfg.ssm_chunk)
+    with tele.span("ssm.gate"):
+        y = y.reshape(s, bs, di_l)
+        y = y * F.silu(z.float()).to(y.dtype)
+        if tp == 1:
+            y = rms_norm(y, p[prefix + "norm_w"])
+        else:
+            # the gated RMSNorm over the WHOLE d_inner: the sum of squares
+            # is psum'd over the model axis
+            yf = y.float()
+            ssq = comm.psum_model((yf * yf).sum(dim=-1, keepdim=True))
+            yf = yf * torch.rsqrt(ssq / di + 1e-6)
+            y = (yf * p[prefix + "norm_w"].float()).to(y.dtype)
+    with tele.span("ssm.out"):
+        if plan.shard_ssm_heads:
+            return comm.matmul_rs(y, w("w_out", 1))
+        start = comm.model_index() * s_l
+        return torch.matmul(y[start:start + s_l], w("w_out", 1))

@@ -69,6 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.runtime import resolve_device
+from ..core.telemetry import active
 from ..distributed.comm import Comm, _axes, local_comm
 from ..distributed.spmd_map import PartitionSpec as P
 from ..models import lm as lm_mod
@@ -535,17 +536,22 @@ def make_prefill_step(cfg: ModelConfig, comm: Optional[Comm] = None):
     """Build ``prefill(params, batch) -> (next_tokens (b,), last_hidden
     (b, d))``: the full-sequence forward at inference, with the head on
     the last position only (a vlm batch carries ``image_embeds``, an
-    audio batch ``frames``)."""
+    audio batch ``frames``).  Telemetry spans ``prefill`` (the call) and
+    ``head`` (:mod:`repro_torch.core.telemetry`)."""
     lm_mod.require_ported(cfg, "make_prefill_step")
     comm = comm or local_comm()
 
     @torch.no_grad()
     def prefill(params, batch):
-        x, _ = lm_mod.forward(params, batch, cfg, comm)
-        last = x[-1]                                   # (b, d)
-        head = comm.weight(params.get("lm_head", params["emb"]),
-                           fsdp_axis=1)
-        logits = lm_head_logits(last, head, comm, real_vocab=cfg.vocab)
-        return greedy_sample(logits, comm), last
+        tele = active()
+        with tele.span("prefill"):
+            x, _ = lm_mod.forward(params, batch, cfg, comm)
+            with tele.span("head"):
+                last = x[-1]                           # (b, d)
+                head = comm.weight(params.get("lm_head", params["emb"]),
+                                   fsdp_axis=1)
+                logits = lm_head_logits(last, head, comm,
+                                        real_vocab=cfg.vocab)
+                return greedy_sample(logits, comm), last
 
     return prefill

@@ -13,7 +13,11 @@ thread's tape (:mod:`repro_torch.distributed.spmd_autograd`): every
 collective's transpose and every recompute runs on the rank thread;
 otherwise it is ``torch.autograd.grad`` of ``Model.loss``.  The step
 donates its state: the returned :class:`TrainState` holds the same
-tensors, updated in place.
+tensors, updated in place.  Its parts are telemetry spans
+(:mod:`repro_torch.core.telemetry`): ``train.grad_sync``,
+``train.clip``, ``train.adamw`` and ``train.metrics``, and where the
+backward is ``autograd.grad``, ``train.forward`` and ``train.backward``
+(the tape's passes have no spans of their own).
 
 :class:`ShardedState` holds a state as its ranks' shards over a mesh
 between steps (the launcher's ``(D, M)`` path): no rank, and no caller,
@@ -31,6 +35,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..core.telemetry import active
 from ..core.tree import leaves_with_paths, tree_from_paths, tree_map
 from ..distributed import spmd_autograd
 from ..distributed.comm import Comm, local_comm
@@ -106,10 +111,13 @@ def loss_and_grads(model: Model, params: Dict[str, Any],
     if comm.tp > 1 or (comm.fsdp and comm.dp > 1):
         return spmd_autograd.loss_and_grads(
             lambda p: model.loss(p, batch, comm, remat=remat), params)
+    tele = active()
     tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss, metrics = model.loss(tracked, batch, comm, remat=remat)
+    with tele.span("train.forward"):
+        loss, metrics = model.loss(tracked, batch, comm, remat=remat)
     paths = leaves_with_paths(tracked)
-    flat = torch.autograd.grad(loss, [p for _, p in paths])
+    with tele.span("train.backward"):
+        flat = torch.autograd.grad(loss, [p for _, p in paths])
     grads = tree_from_paths(params, dict(zip((n for n, _ in paths), flat)))
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
@@ -121,16 +129,22 @@ def make_train_step(model: Model, specs: Dict[str, Any],
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        tele = active()
         _, metrics, grads = loss_and_grads(model, state.params, batch, comm,
                                            remat=remat)
-        grads = grad_sync(grads, specs, comm)
-        grads, gnorm = clip_by_global_norm(grads, specs, comm,
-                                           opt_cfg.max_grad_norm)
-        params, opt = adamw_update(grads, state.opt, state.params, opt_cfg)
+        with tele.span("train.grad_sync"):
+            grads = grad_sync(grads, specs, comm)
+        with tele.span("train.clip"):
+            grads, gnorm = clip_by_global_norm(grads, specs, comm,
+                                               opt_cfg.max_grad_norm)
+        with tele.span("train.adamw"):
+            params, opt = adamw_update(grads, state.opt, state.params,
+                                       opt_cfg)
         # metrics leave the step fully replicated: the mean of every
         # scalar over all mesh axes
-        metrics = comm.pmean_all({k: v.to(torch.float32)
-                                  for k, v in metrics.items()})
+        with tele.span("train.metrics"):
+            metrics = comm.pmean_all({k: v.to(torch.float32)
+                                      for k, v in metrics.items()})
         metrics["grad_norm"] = gnorm
         return TrainState(params, opt), metrics
 
