@@ -11,8 +11,9 @@ nothing is built at import time, only at first use on the card.
 
 ``--use_fast_math`` is deliberately absent: it would flush subnormals in
 the doorbell's float32 -> bfloat16 conversion and swap the exact
-``expf`` / ``sqrtf`` / ``tanhf`` of flash attention, RMSNorm, the MoE
-grouped matmul and the SSD scan for approximations.
+``expf`` / ``sqrtf`` / ``tanhf`` / ``log1pf`` of flash attention,
+RMSNorm, the MoE grouped matmul, the SSD scan and the SSM conv stage for
+approximations.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ SOURCES = {"doorbell": "doorbell.cu",
            "flash_attention": "flash_attention.cu",
            "rmsnorm": "rmsnorm.cu",
            "moe_gmm": "moe_gmm.cu",
-           "ssd_scan": "ssd_scan.cu"}
+           "ssd_scan": "ssd_scan.cu",
+           "ssm_conv": "ssm_conv.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -18,12 +18,14 @@ headdim); B/C (s, b, groups, state).
 
 :func:`ssm_op` is the full mixer: in-projections (the fused
 [w_z | w_x | w_dt] product, split, and B|C), the causal depthwise conv
-as the reference's shifted sum (not ``F.conv1d``, which runs float32
-through cuDNN in TF32), SiLU, softplus, the scan, the SiLU gate, the gated RMSNorm over
-the whole d_inner (where one rank holds it, exactly ``layers.rms_norm``,
-so the RMSNorm kernel) and the out-projection, its parts under the
-telemetry spans ``ssm.proj``, ``ssm.conv``, ``ssm.scan``, ``ssm.gate``
-and ``ssm.out``.
+with SiLU and the dt softplus (one launch of the conv-stage kernel,
+:mod:`repro_torch.kernels.ssm_conv`, on the product's column views; on the
+CPU its plain version, the reference's shifted sum: not ``F.conv1d``,
+which runs float32 through cuDNN in TF32), the scan, the SiLU gate, the
+gated RMSNorm over the whole d_inner (where one rank holds it, exactly
+``layers.rms_norm``, so the RMSNorm kernel) and the out-projection, its
+parts under the telemetry spans ``ssm.proj``, ``ssm.conv``, ``ssm.scan``,
+``ssm.gate`` and ``ssm.out``.
 """
 from __future__ import annotations
 
@@ -35,6 +37,10 @@ import torch.nn.functional as F
 from ..core.telemetry import active
 from ..kernels.ssd_scan import ssd_scan as ssd_scan_kernel
 from ..kernels.ssd_scan.ref import ssd_scan_ref
+from ..kernels.ssm_conv import ssm_conv
+# the stage's plain parts, where the tests and the decode step take them
+from ..kernels.ssm_conv.ref import causal_conv as _causal_conv  # noqa: F401
+from ..kernels.ssm_conv.ref import softplus_dt  # noqa: F401
 from .common import ModelConfig, ParamFactory, shard_decisions
 from .layers import rms_norm
 
@@ -189,26 +195,6 @@ def init_ssm(pf: ParamFactory, cfg: ModelConfig, stacked_layers: int = 0,
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over dim 0, the reference's shifted sum in
-    x's dtype.  x (s, bs, ch), w (K, ch).  (A shift past the sequence's
-    start is all zeros, also for s < K - 1, where the reference's pad
-    does not fit.)"""
-    K, s = w.shape[0], x.shape[0]
-    out = x * w[K - 1]
-    for k in range(1, K):
-        shifted = F.pad(x, (0, 0, 0, 0, k, 0))[:s]
-        out = out + shifted * w[K - 1 - k]
-    return out
-
-
-def softplus_dt(dt_raw: torch.Tensor, dt_bias: torch.Tensor
-                ) -> torch.Tensor:
-    """``softplus(dt_raw + dt_bias)`` in float32 (torch's threshold of 20
-    and ``jax.nn.softplus`` agree to a few ulps, ROADMAP §C)."""
-    return F.softplus(dt_raw.float() + dt_bias.float())
-
-
 def ssm_op(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
            comm, plan, *, prefix: str = "ssm_") -> torch.Tensor:
     """x: (s_local, bs, d) pre-normed -> (s_local, bs, d).  Sharded heads:
@@ -252,9 +238,8 @@ def ssm_op(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
         s = zxdt.shape[0]
 
     with tele.span("ssm.conv"):
-        xs = _causal_conv(xs, p[prefix + "conv_w"])
-        xs = F.silu(xs.float()).to(x.dtype)
-        dt = softplus_dt(dt_raw, p[prefix + "dt_bias"])
+        xs, dt = ssm_conv(xs, dt_raw, p[prefix + "conv_w"],
+                          p[prefix + "dt_bias"])
     with tele.span("ssm.scan"):
         y, _ = ssd_scan(xs.reshape(s, bs, h_l, cfg.ssm_headdim), dt,
                         p[prefix + "a_log"], b.reshape(s, bs, g, n),

@@ -38,6 +38,7 @@ from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bhsp
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_tc_ref
+from repro_torch.kernels.ssm_conv import ssm_conv
 from repro_torch.launch.costs import Costs, CostCounter, count_costs
 from repro_torch.launch.dryrun import CostAxis
 
@@ -289,6 +290,9 @@ def _calls():
         ("ssd_bhsp", ssd_scan_bhsp, (r(2, 4, 40, 8), r(2, 4, 40).abs(),
                                      r(4), r(2, 2, 40, 8), r(2, 2, 40, 8),
                                      r(4)), {"h0": r(2, 4, 8, 8)}),
+        ("ssm_conv", ssm_conv, (r(11, 2, 24, dtype=bf),
+                                r(11, 2, 4, dtype=bf), r(4, 24, dtype=bf),
+                                r(4)), {}),
         ("stage_copy", stage_copy, (r(5, 12),), {"wire_bf16": True}),
         ("stage_copy_rows", stage_copy_rows, ([r(3, 4)] * 300,), {}),
     ]

@@ -85,6 +85,7 @@ from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bhsp
+from repro_torch.kernels.ssm_conv import ssm_conv
 from repro_torch.launch import dryrun
 from repro_torch.models.blocks import tp_plan
 
@@ -178,6 +179,9 @@ def _wrapper_calls():
         ("ssd_bhsp", ssd_scan_bhsp, (r(2, 4, 40, 8), r(2, 4, 40).abs(),
                                      r(4), r(2, 2, 40, 8), r(2, 2, 40, 8),
                                      r(4)), {"h0": r(2, 4, 8, 8)}),
+        ("ssm_conv", ssm_conv, (r(11, 2, 24, dtype=bf),
+                                r(11, 2, 4, dtype=bf), r(4, 24, dtype=bf),
+                                r(4)), {}),
     ]
 
 
